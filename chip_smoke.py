@@ -22,6 +22,21 @@ non-zero:
           launch counters are zeroed just before and read just after, and
           must show 25 and 6 launches per UNet forward.  Then a short f32
           ancestral chain on the card against the CPU.
+  parity  (backward) each backward kernel against its plain backward, at the
+          same shapes, dtypes and timings; GroupNorm+Mish's yardstick is the
+          autograd backward of F.mish(F.group_norm(...))
+  train_unet  one f32 training step's loss and gradients (DDPM l1 loss, the
+          full-width UNet, batch 8, TF32 off) on the card against the same
+          weights, timesteps and noise on the CPU, and the launch counts of
+          one forward and backward (25 + 25 GroupNorm+Mish, 6 + 6 linear
+          attention)
+  train   the training path: python -m igm_tpu_torch.train
+          experiment=ddpm/cifar10 at full width in bf16 on synthetic data, in
+          a temporary directory (2 epochs of 3 steps, DDIM validation): finite
+          loss, a results/*.jpg grid, a checkpoint; then a run resumed from
+          it that continues at the saved step; then a timed loop of the train
+          step at batch 256 bf16 (train images/s).  Counters are zeroed just
+          before this path and read just after.
 
 Then a line with the card's name and power limit, one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}.  Without a CUDA
@@ -32,6 +47,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -54,6 +70,15 @@ LA_HEADS = 4
 # operations per element of the fused GroupNorm+Mish: statistics 3, normalise
 # and affine 4, Mish 8 (max, abs, exp, log1p, add, tanh, mul, and the negate)
 GN_OPS_PER_ELEMENT = 15
+# its backward, once per element: statistics 3; normalise and affine 4;
+# Mish' 16 (softplus 6, tanh 1, sigmoid 4, t + y*s*(1 - t*t) 5) and dy 1;
+# the dgamma, dbeta and group sums 7; dx 4
+GN_BWD_OPS_PER_ELEMENT = 35
+# linear-attention backward per position of a head: the context, dctx, dq,
+# dv and dk_sm are each a D x D product (2 D^2 operations); the softmax and
+# dk ~8 per element
+LA_BWD_PRODUCTS = 5
+TRAIN_BATCH, TRAIN_STEPS = 256, 20
 SLEEP_CYCLES = 50_000_000            # ~25 ms: the host queues timed launches meanwhile
 L2_BYTES = 50 * 2 ** 20
 
@@ -221,17 +246,136 @@ def parity_la(dtype) -> list[dict]:
     return rows
 
 
+def grad_err(got, want) -> float:
+    """Largest error of f32 parameter gradients relative to their largest
+    value (they are sums over up to N*H*W products)."""
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+PARAM_GRAD_RTOL = 1e-4
+
+
+def parity_gn_bwd(dtype) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+    from igm_tpu_torch.ops.groupnorm import (group_norm_mish_bwd,
+                                             group_norm_mish_bwd_plain)
+    atol, rtol = tolerance(dtype)
+    elt = torch.finfo(dtype).bits // 8
+    rows = []
+    for (h, w, c), calls in GN_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(h * 1000 + c + 7)
+
+        def make(i, h=h, w=w, c=c, g=g):
+            x = (torch.randn(BATCH, h, w, c, generator=g, device="cuda") * 2
+                 + 0.5).to(dtype)
+            gamma = torch.randn(c, generator=g, device="cuda") * 0.1 + 1.0
+            beta = torch.randn(c, generator=g, device="cuda") * 0.1
+            grad = torch.randn(BATCH, h, w, c, generator=g, device="cuda").to(dtype)
+            return x, gamma, beta, grad
+
+        elements = BATCH * h * w * c
+        # reads x and g, writes dx; gamma, beta in and dgamma, dbeta out
+        nbytes = 3 * elements * elt + 4 * c * 4
+        sets = rotation(make, nbytes)
+        got = group_norm_mish_bwd(*sets[0], 8)
+        want = group_norm_mish_bwd_plain(*sets[0], 8)
+        torch.cuda.synchronize()
+        err = (got[0].float() - want[0].float()).abs()
+        ok = bool((err <= atol + rtol * want[0].float().abs()).all())
+        check(ok, f"group_norm_mish_bwd {dtype} {h}x{w}x{c}: dx max err "
+                  f"{err.max().item()} beyond atol {atol} rtol {rtol}")
+        perr = max(grad_err(got[i], want[i]) for i in (1, 2))
+        check(perr <= PARAM_GRAD_RTOL, f"group_norm_mish_bwd {dtype} {h}x{w}x{c}: "
+                                       f"dgamma/dbeta rel err {perr}")
+
+        # the yardstick: autograd's backward through one forward graph per
+        # argument set, kept for the repeated calls
+        lib_sets = []
+        for x, gm, bt, grad in sets:
+            inputs = (x.permute(0, 3, 1, 2).detach().requires_grad_(),
+                      gm.to(dtype).requires_grad_(), bt.to(dtype).requires_grad_())
+            out = F.mish(F.group_norm(inputs[0], 8, inputs[1], inputs[2], 1e-5))
+            lib_sets.append((out, inputs, grad.permute(0, 3, 1, 2)))
+
+        def library(out, inputs, grad):
+            return torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = GN_BWD_OPS_PER_ELEMENT * elements / PEAK_OPS["float32"]
+        rows.append(dict(
+            kernel="group_norm_mish_bwd", dtype=str(dtype).split(".")[-1],
+            shape=[BATCH, h, w, c], calls_per_forward=calls,
+            max_abs_err=err.max().item(), atol=atol, rtol=rtol,
+            dparam_rel_err=perr, dparam_rtol=PARAM_GRAD_RTOL,
+            kernel_ms=time_ms(lambda *a: group_norm_mish_bwd(*a, 8), sets),
+            plain_ms=time_ms(lambda *a: group_norm_mish_bwd_plain(*a, 8), sets),
+            library_ms=time_ms(library, lib_sets),
+            bound_ms=1e3 * max(bytes_s, ops_s),
+            bound_by="bytes" if bytes_s >= ops_s else "operations"))
+        emit("parity", **rows[-1])
+        del lib_sets
+    return rows
+
+
+def parity_la_bwd(dtype) -> list[dict]:
+    import torch
+    from igm_tpu_torch.ops.linear_attention import (linear_attention_flat_bwd,
+                                                    linear_attention_flat_bwd_plain)
+    atol, rtol = tolerance(dtype)
+    elt = torch.finfo(dtype).bits // 8
+    c = LA_HEADS * 32
+    rows = []
+    for n, calls in LA_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(n + 7)
+
+        def make(i, n=n, g=g):
+            return tuple(torch.randn(BATCH, n, c, generator=g, device="cuda")
+                         .to(dtype) for _ in range(4))
+
+        elements = BATCH * n * c
+        nbytes = 7 * elements * elt          # q, k, v, g in; dq, dk, dv out
+        sets = rotation(make, nbytes)
+        got = linear_attention_flat_bwd(*sets[0], LA_HEADS)
+        want = linear_attention_flat_bwd_plain(*sets[0], LA_HEADS)
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        ok = all(bool(((a.float() - b.float()).abs()
+                       <= atol + rtol * b.float().abs()).all()) for a, b in zip(got, want))
+        check(ok, f"linear_attention_bwd {dtype} N={n}: max err {err} beyond "
+                  f"atol {atol} rtol {rtol}")
+        ops = LA_BWD_PRODUCTS * 2 * BATCH * LA_HEADS * n * 32 * 32 + 8 * elements
+        key = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = ops / PEAK_OPS[key]
+        rows.append(dict(
+            kernel="linear_attention_bwd", dtype=key, shape=[BATCH, n, c],
+            calls_per_forward=calls, max_abs_err=err, atol=atol, rtol=rtol,
+            kernel_ms=time_ms(lambda *a: linear_attention_flat_bwd(*a, LA_HEADS), sets),
+            plain_ms=time_ms(lambda *a: linear_attention_flat_bwd_plain(*a, LA_HEADS),
+                             sets),
+            library_ms=None, bound_ms=1e3 * max(bytes_s, ops_s),
+            bound_by="bytes" if bytes_s >= ops_s else "operations"))
+        emit("parity", **rows[-1])
+    return rows
+
+
+def _counters():
+    from igm_tpu_torch.ops.groupnorm import group_norm_mish, group_norm_mish_bwd
+    from igm_tpu_torch.ops.linear_attention import (linear_attention_flat,
+                                                    linear_attention_flat_bwd)
+    return (group_norm_mish, linear_attention_flat, group_norm_mish_bwd,
+            linear_attention_flat_bwd)
+
+
 def reset_counts() -> None:
-    from igm_tpu_torch.ops.groupnorm import group_norm_mish
-    from igm_tpu_torch.ops.linear_attention import linear_attention_flat
-    group_norm_mish.launches = 0
-    linear_attention_flat.launches = 0
+    for fn in _counters():
+        fn.launches = 0
 
 
-def counts() -> tuple[int, int]:
-    from igm_tpu_torch.ops.groupnorm import group_norm_mish
-    from igm_tpu_torch.ops.linear_attention import linear_attention_flat
-    return group_norm_mish.launches, linear_attention_flat.launches
+def counts() -> tuple[int, int, int, int]:
+    """Launches of (GroupNorm+Mish, linear attention, and their backwards)."""
+    return tuple(fn.launches for fn in _counters())
 
 
 def phase_unet() -> dict:
@@ -253,11 +397,12 @@ def phase_unet() -> dict:
         reset_counts()
         got = net(x.cuda(), t.cuda())
         torch.cuda.synchronize()
-        n_gn, n_la = counts()
+        n_gn, n_la, n_gn_bwd, n_la_bwd = counts()
         want = cpu_net(x, t)
-    check((n_gn, n_la) == (25, 6),
+    check((n_gn, n_la, n_gn_bwd, n_la_bwd) == (25, 6, 0, 0),
           f"one forward launched {n_gn} GroupNorm+Mish and {n_la} linear "
-          f"attention kernels, expected 25 and 6")
+          f"attention kernels and {n_gn_bwd} + {n_la_bwd} backwards, expected "
+          f"25 and 6 and none")
     err = (got.cpu() - want).abs().max().item()
     # float32 with TF32 off on both sides; cuDNN's and the CPU's conv
     # algorithms round differently, layer after layer, over ~40 layers
@@ -296,7 +441,7 @@ def phase_slice() -> dict:
         x = run(torch.Generator("cuda").manual_seed(0))
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        gn, la = (a - b for a, b in zip(counts(), before))
+        gn, la, *_ = (a - b for a, b in zip(counts(), before))
         check(tuple(x.shape) == (n, 32, 32, 3), f"{name}: shape {tuple(x.shape)}")
         check(bool(torch.isfinite(x).all()), f"{name}: non-finite samples")
         check((gn, la) == (25 * forwards, 6 * forwards),
@@ -314,7 +459,7 @@ def phase_slice() -> dict:
         sec = time.perf_counter() - t0
         with Image.open(png) as img:
             size = img.size
-    gn, la = (a - b for a, b in zip(counts(), before))
+    gn, la, *_ = (a - b for a, b in zip(counts(), before))
     check(size == (2 + 8 * 34, 2 + 8 * 34), f"cli grid size {size}")
     check((gn, la) == (25 * steps, 6 * steps), f"cli: {gn}/{la} launches")
     out["cli"] = dict(seconds=sec, grid=list(size), group_norm_mish_launches=gn,
@@ -343,6 +488,153 @@ def phase_slice() -> dict:
     return out
 
 
+def phase_train_unet() -> dict:
+    """One f32 training step's loss and gradients, card against CPU."""
+    import torch
+    from igm_tpu_torch.config import compose, instantiate
+    cfg = compose(REPO / "configs", ["experiment=ddpm/cifar10", "print_config=False"])
+    models = [instantiate(cfg.model, datamodule=cfg.datamodule, device=d,
+                          compute_dtype="float32") for d in ("cuda", "cpu")]
+    gen = torch.Generator().manual_seed(3)
+    weights = {k: v + 0.05 * torch.randn(v.shape, generator=gen)   # norms off 1, 0
+               for k, v in models[1].modules.state_dict().items()}
+    x0 = torch.rand(8, 32, 32, 3, generator=gen) * 2 - 1
+    t = torch.randint(0, models[0].timesteps, (8,), generator=gen)
+    noise = torch.randn(8, 32, 32, 3, generator=gen)
+    out = []
+    for model in models:
+        dev = model.device
+        model.modules.load_state_dict(weights)
+        model.modules.train()
+        reset_counts()
+        loss, _ = model.loss(x0.to(dev), t.to(dev), noise.to(dev))
+        grads = torch.autograd.grad(loss, list(model.modules["denoise"].parameters()))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = counts()
+        out.append((loss.item(), [g.cpu() for g in grads]))
+        model.modules.eval()
+    check(launches == (25, 6, 25, 6),
+          f"one forward and backward launched {launches} (GroupNorm+Mish, linear "
+          f"attention, their backwards), expected (25, 6, 25, 6)")
+    (loss_card, g_card), (loss_cpu, g_cpu) = out
+    # float32 with TF32 off on both sides: cuDNN's and the CPU's conv
+    # algorithms round differently over ~40 layers forward and back (the
+    # forward agrees to ~2e-5); gradients are held to 1e-3 of the largest
+    # gradient entry plus 1% of each entry
+    scale = max(g.abs().max().item() for g in g_cpu)
+    atol, rtol, loss_rtol = 1e-3 * scale, 1e-2, 1e-4
+    err = max(((a - b).abs() - rtol * b.abs()).max().item()
+              for a, b in zip(g_card, g_cpu))
+    rel = max(((a - b).abs().max() / scale).item() for a, b in zip(g_card, g_cpu))
+    check(math.isfinite(loss_card) and abs(loss_card - loss_cpu) <= loss_rtol * abs(loss_cpu),
+          f"train_unet: loss card {loss_card} vs CPU {loss_cpu}")
+    check(err <= atol, f"train_unet: gradient error {err} beyond {atol}")
+    row = dict(batch=8, dtype="float32", loss_card=loss_card, loss_cpu=loss_cpu,
+               loss_rtol=loss_rtol, grad_max_abs_err_over_max_grad=rel,
+               grad_atol_over_max_grad=1e-3, grad_rtol=rtol, max_grad=scale,
+               parameters=len(g_cpu), launches=dict(zip(
+                   ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
+                    "linear_attention_bwd"), launches)))
+    emit("train_unet", **row)
+    return row
+
+
+def _train_cli(tmp: Path, *overrides: str) -> float:
+    """python -m igm_tpu_torch.train in ``tmp``: a run directory of its own
+    under tmp/logs/runs, synthetic data, no TensorBoard."""
+    from igm_tpu_torch.cli import train_main
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        return train_main(["experiment=ddpm/cifar10", "trainer.limit_train_batches=3",
+                           "trainer.limit_val_batches=1",
+                           "trainer.check_val_every_n_epoch=1",
+                           "model.val_sampler=ddim", "logger=null",
+                           "print_config=False", "optimized_metric=train_loss/loss",
+                           f"datamodule.data_dir={tmp / 'data'}", *overrides])
+    finally:
+        os.chdir(cwd)
+
+
+def phase_train() -> dict:
+    """The training path; the caller zeroes the counters before it."""
+    import torch
+    from igm_tpu_torch.config import compose, instantiate
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        run = tmp / "logs" / "runs" / "ddpm" / "cifar10"
+        for name, overrides, steps in (
+                ("fit", ["trainer.max_epochs=2"], 6),
+                ("resume", ["trainer.max_epochs=3",
+                            f"trainer.resume={run / 'checkpoints'}"], 3)):
+            before = counts()
+            t0 = time.perf_counter()
+            loss = _train_cli(tmp, *overrides)
+            sec = time.perf_counter() - t0
+            gn, la, gn_bwd, la_bwd = (a - b for a, b in zip(counts(), before))
+            ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+            grids = sorted(p.name for p in (run / "results").iterdir())
+            check(loss is not None and math.isfinite(loss), f"train {name}: loss {loss}")
+            check((gn_bwd, la_bwd) == (25 * steps, 6 * steps),
+                  f"train {name}: {gn_bwd}/{la_bwd} backward launches for {steps} steps")
+            check(gn >= 25 * steps and la >= 6 * steps,
+                  f"train {name}: {gn}/{la} forward launches for {steps} steps")
+            out[name] = dict(steps=steps, seconds=sec, loss=loss, checkpoints=ckpts,
+                             grids=grids, group_norm_mish_launches=gn,
+                             linear_attention_launches=la,
+                             group_norm_mish_bwd_launches=gn_bwd,
+                             linear_attention_bwd_launches=la_bwd)
+            emit("train", run=name, **out[name])
+        # a checkpoint after each epoch; validation after each epoch
+        check(out["fit"]["checkpoints"] == ["step_3.pt", "step_6.pt"]
+              and out["fit"]["grids"] == ["0.jpg", "1.jpg"],
+              f"train fit: checkpoints {out['fit']['checkpoints']}, "
+              f"grids {out['fit']['grids']}")
+        # resumed at step 6: one more epoch of 3 steps, not 9 from the start;
+        # the newest two checkpoints are kept
+        check(out["resume"]["checkpoints"] == ["step_6.pt", "step_9.pt"],
+              f"train resume: checkpoints {out['resume']['checkpoints']}")
+
+    # the train step at batch 256, bf16, timed as bench.py times igm_tpu's
+    cfg = compose(REPO / "configs", ["experiment=ddpm/cifar10", "print_config=False"])
+    model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
+    check(model.compute_dtype == torch.bfloat16, "compute dtype is not bf16")
+    state = model.init_state(0)
+    gen = torch.Generator("cuda").manual_seed(5)
+    batch = (torch.randint(0, 256, (TRAIN_BATCH, 32, 32, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8),
+             torch.zeros(TRAIN_BATCH, dtype=torch.int32, device="cuda"))
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as flop_counter:   # as the Trainer counts
+        state, metrics = model.train_step(state, batch)
+    flops = float(flop_counter.get_total_flops())
+    for _ in range(2):                                   # warm-up
+        state, metrics = model.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = model.train_step(state, batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = tuple(a - b for a, b in zip(counts(), before))
+    loss = float(metrics["train_loss/loss"])
+    check(math.isfinite(loss), f"timed train step: loss {loss}")
+    check(launches == (25 * TRAIN_STEPS, 6 * TRAIN_STEPS, 25 * TRAIN_STEPS,
+                       6 * TRAIN_STEPS), f"timed train step: launches {launches}")
+    out["speed"] = dict(batch=TRAIN_BATCH, steps=TRAIN_STEPS, dtype="bfloat16",
+                        seconds=sec, ms_per_step=1e3 * sec / TRAIN_STEPS,
+                        images_per_s=TRAIN_BATCH * TRAIN_STEPS / sec, loss=loss,
+                        flops_per_step=flops,
+                        mfu=flops * TRAIN_STEPS / sec / PEAK_OPS["bfloat16"],
+                        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit("train", run="speed", **out["speed"])
+    return out
+
+
 def totals(rows: list[dict], key: str):
     vals = [r[key] for r in rows]
     if any(v is None for v in vals):
@@ -363,24 +655,47 @@ def main() -> int:
     phase_build()
     gn_rows = parity_gn(torch.bfloat16) + parity_gn(torch.float32)
     la_rows = parity_la(torch.bfloat16) + parity_la(torch.float32)
+    gn_bwd_rows = parity_gn_bwd(torch.bfloat16) + parity_gn_bwd(torch.float32)
+    la_bwd_rows = parity_la_bwd(torch.bfloat16) + parity_la_bwd(torch.float32)
     phase_unet()
-    sl = phase_slice()
+    sl = phase_slice()                  # the sampling path: zeroes, then reads
+    phase_train_unet()
+    reset_counts()                      # the training path
+    tr = phase_train()
+    tr_launches = counts()
+    check(all(n > 0 for n in tr_launches),
+          f"training path launched {tr_launches}: a kernel never ran")
+    emit("train", run="path", launches=dict(zip(
+        ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
+         "linear_attention_bwd"), tr_launches)))
     kernels = []
-    for name, rows, source, replaces, launches in (
-            ("group_norm_mish", gn_rows, "igm_tpu_torch/csrc/group_norm_mish.cu",
-             "igm_tpu/ops/pallas_groupnorm.py:103", sl["launches"][0]),
-            ("linear_attention", la_rows, "igm_tpu_torch/csrc/linear_attention.cu",
-             "igm_tpu/ops/pallas_attention.py:45", sl["launches"][1])):
+    gn_src = "igm_tpu_torch/csrc/group_norm_mish.cu"
+    la_src = "igm_tpu_torch/csrc/linear_attention.cu"
+    for i, (name, rows, source, replaces, per) in enumerate((
+            ("group_norm_mish", gn_rows, gn_src,
+             "igm_tpu/ops/pallas_groupnorm.py:103", "forward"),
+            ("linear_attention", la_rows, la_src,
+             "igm_tpu/ops/pallas_attention.py:45", "forward"),
+            ("group_norm_mish_bwd", gn_bwd_rows, gn_src,
+             "igm_tpu/ops/pallas_groupnorm.py:132", "backward"),
+            ("linear_attention_bwd", la_bwd_rows, la_src,
+             "igm_tpu/ops/attention.py:99 (XLA custom VJP _flat_bwd)", "backward"))):
         main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
         bytes_bound = all(r["bound_by"] == "bytes" for r in main_rows)
+        by_path = {"sampling": sl["launches"][i], "training": tr_launches[i]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=totals(main_rows, "kernel_ms"), plain_ms=totals(main_rows, "plain_ms"),
             bound_ms=totals(main_rows, "bound_ms"),
             bound_by="bytes" if bytes_bound else "operations",
             library_ms=totals(main_rows, "library_ms"),
-            per="all calls of one UNet forward, batch 256, bf16"))
+            per=f"all calls of one UNet {per}, batch 256, bf16"))
+    emit("summary", train_images_per_s=tr["speed"]["images_per_s"],
+         train_ms_per_step=tr["speed"]["ms_per_step"],
+         ddim_images_per_s=sl["ddim"]["images_per_s"],
+         ancestral_images_per_s=sl["ancestral"]["images_per_s"])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

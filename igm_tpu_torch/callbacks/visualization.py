@@ -1,9 +1,12 @@
-"""Image grids: the port's own copy of ``make_grid`` / ``get_grid_images`` /
-``save_image_grid`` from ``igm_tpu/callbacks/visualization.py`` (numpy +
-PIL).  Grids follow torchvision.make_grid: pad_value=1, value_range (-1, 1)
-when the model is trained on normalized inputs; images are NHWC.
+"""Image grids and the sample-grid callback: the port's own copy of
+``make_grid`` / ``get_grid_images`` / ``save_image_grid`` and
+``SampleImagesCallback`` from ``igm_tpu/callbacks/visualization.py`` (numpy
++ PIL).  Grids follow torchvision.make_grid: pad_value=1, value_range
+(-1, 1) when the model is trained on normalized inputs; images are NHWC.
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -47,3 +50,36 @@ def save_image_grid(grid_hwc: np.ndarray, path: str) -> None:
     from PIL import Image
     arr = (np.clip(grid_hwc, 0, 1) * 255).astype(np.uint8)
     Image.fromarray(arr).save(path)
+
+
+class SampleImagesCallback:
+    """Real/recon/fake/other grids to the logger at the first validation
+    batch of every ``every_n_epochs``-th epoch, and the sample grid to
+    ``results/{epoch}.jpg``.  Takes the host (numpy) ValidationResult the
+    trainer hands over."""
+
+    def __init__(self, batch_size: int = 64, every_n_epochs: int = 1):
+        self.batch_size = batch_size
+        self.every_n_epochs = every_n_epochs
+
+    def on_validation_batch_end(self, trainer, model, outputs, batch, batch_idx):
+        if trainer.current_epoch % self.every_n_epochs != 0 or batch_idx != 0:
+            return
+        epoch = trainer.current_epoch
+        logger = trainer.logger
+        if outputs.real_image is not None:
+            logger.log_image("images/real",
+                             get_grid_images(outputs.real_image, model), epoch)
+        if outputs.recon_image is not None:
+            logger.log_image("images/recon",
+                             get_grid_images(outputs.recon_image, model), epoch)
+        if outputs.fake_image is not None:
+            fake_grid = get_grid_images(outputs.fake_image, model)
+            logger.log_image("images/sample", fake_grid, epoch)
+            result_path = Path("results")
+            result_path.mkdir(parents=True, exist_ok=True)
+            save_image_grid(fake_grid, str(result_path / f"{epoch}.jpg"))
+        for key, value in (outputs.others or {}).items():
+            if value is not None:
+                logger.log_image(f"images/{key}",
+                                 get_grid_images(value, model), epoch)

@@ -1,4 +1,12 @@
-"""Sampling CLI: counterpart of ``igm_tpu/cli.py`` ``sample_main``.
+"""Command lines: counterparts of ``igm_tpu/cli.py`` ``train_main`` (one
+run; multirun and sweeps wait) and ``sample_main``.
+
+    python -m igm_tpu_torch.train experiment=ddpm/cifar10 [overrides] \\
+        [--device cpu]
+
+composes the config, changes into the run directory ``hydra.run.dir``
+(``logs/runs/<exp_name>``, where checkpoints, ``results/*.jpg`` and the
+TensorBoard files go) and trains (``igm_tpu_torch.train.train``).
 
     python -m igm_tpu_torch.cli experiment=ddpm/cifar10 --weights w.pt \\
         [--n 64] [--seed 0] [--out samples.png] [--sampler ddim] [--steps 50] \\
@@ -19,6 +27,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 from pathlib import Path
 
@@ -46,6 +55,45 @@ def load_weights(module: torch.nn.Module, path: str) -> None:
     else:
         state = torch.load(path, map_location="cpu", weights_only=True)
     module.load_state_dict(state, strict=True)
+
+
+def train_main(argv=None):
+    """One training run; returns the ``optimized_metric`` when configured."""
+    parser = argparse.ArgumentParser(prog="python -m igm_tpu_torch.train")
+    parser.add_argument("overrides", nargs="*",
+                        help="config overrides (experiment=...)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card)")
+    args = parser.parse_args(argv)
+    if any(o in ("-m", "--multirun") for o in args.overrides):
+        raise SystemExit("multirun and sweeps are not ported yet: one run per call")
+
+    from .config import compose, select, to_plain
+    from .train import train
+    from .utils.platform import resolve_device
+
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(asctime)s][%(name)s][%(levelname)s] %(message)s")
+    device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = compose(config_dir(), args.overrides)
+    if cfg.get("print_config"):
+        import yaml
+        print(yaml.safe_dump(to_plain(cfg), default_flow_style=False, sort_keys=False))
+    run_dir = select(cfg, "hydra.run.dir", None)
+    chdir = bool(select(cfg, "hydra.job.chdir", True)) and run_dir
+    cwd = os.getcwd()
+    try:
+        if chdir:
+            os.makedirs(run_dir, exist_ok=True)
+            os.chdir(run_dir)
+        result = train(cfg, device)
+    finally:
+        os.chdir(cwd)
+    if result is not None:
+        print(f"optimized_metric: {result}")
+    return result
 
 
 def sample_main(argv=None) -> None:

@@ -1,14 +1,16 @@
-"""DDPM sampling: counterpart of ``igm_tpu/models/ddpm.py``'s constructor,
-denoiser call, classifier-free guidance, and the ancestral and DDIM samplers.
+"""DDPM: counterpart of ``igm_tpu/models/ddpm.py``'s constructor, train
+state, train step (l1/l2 loss on an eps or v target, Min-SNR weight,
+classifier-free-guidance label drop, EMA shadow), validation step, denoiser
+call, classifier-free guidance, and the ancestral and DDIM samplers.
 
 ``igm_tpu`` runs each chain as one ``lax.scan``; here it is a Python loop
 over the timesteps, one UNet forward per step.  Random draws take an
-explicit ``torch.Generator``; for tests, the samplers also take the initial
-``x`` and the per-step noise as tensors.
+explicit ``torch.Generator`` (training: the TrainState's); for tests, the
+train step also takes its timesteps, noise and label drop as tensors, and
+the samplers the initial ``x`` and the per-step noise.
 
-Not yet ported (they wait for later slices): ``train_step``,
-``validation_step``, ``dpm_sample``, ``interpolate``, ``inpaint``, and the
-DiT backbone.
+Not yet ported (they wait for later slices): ``dpm_sample`` (and so
+``val_sampler=dpm``), ``interpolate``, ``inpaint``, and the DiT backbone.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.optim import OptimizerSet, adam
+from ..core.state import TrainState
 from ..networks.unet import Unet
 from ..ops import diffusion as gd
-from .base import BaseModel
+from .base import BaseModel, ValidationResult
 
 
 class DDPM(BaseModel):
@@ -42,15 +46,22 @@ class DDPM(BaseModel):
         (the card unless the CPU is asked for).
 
         ``compute_dtype="auto"`` is bfloat16 on CUDA and float32 on the CPU.
-        ``pallas_gn`` and ``remat`` are accepted and have no effect: on the
-        card the GroupNorm+Mish kernel always runs, and nothing here trains.
-        The DiT-only keywords (``depth``, ``heads``, ``moe_*``, ...) land in
-        ``kwargs`` and are ignored with the unet backbone.
+        ``pallas_gn`` is accepted and has no effect: on the card the
+        GroupNorm+Mish kernels always run.  ``remat`` recomputes each UNet
+        ResnetBlock in the backward.  ``optim`` is accepted; the optimizer is
+        Adam, as in ``igm_tpu``.  The DiT-only keywords (``depth``,
+        ``heads``, ``moe_*``, ...) land in ``kwargs`` and are ignored with
+        the unet backbone.
         """
         super().__init__(datamodule, device)
         if parameterization not in ("eps", "v"):
             raise ValueError(f"parameterization must be eps|v, "
                              f"got {parameterization!r}")
+        if loss_type not in ("l1", "l2"):
+            raise NotImplementedError(f"loss_type={loss_type!r}")
+        if val_sampler == "dpm":
+            raise NotImplementedError("val_sampler=dpm: the port has no "
+                                      "dpm_sample yet (ancestral|ddim)")
         if network != "unet":
             raise NotImplementedError(
                 f"network={network!r}: the port has the unet backbone only")
@@ -79,9 +90,113 @@ class DDPM(BaseModel):
         self.compute_dtype = dtype or torch.float32
         self.modules = nn.ModuleDict({"denoise": Unet(
             dim=hidden_dim, channels=self.channels, dim_mults=tuple(dim_mults),
-            num_classes=self.num_classes, dtype=dtype)})
+            num_classes=self.num_classes, dtype=dtype, remat=bool(remat))})
         self.modules.eval()
         self.init_params(0)
+
+    # ------------------------------------------------------------------ train
+    def init_state(self, seed: int = 0) -> TrainState:
+        """Adam over the denoiser; with ``ema_decay > 0`` the EMA shadow of
+        its parameters under ``opt_states["ema"]``."""
+        hp = self.hparams
+        self.optimizers = OptimizerSet().add(
+            "opt", adam(hp.lr, hp.b1, hp.b2), ["denoise"])
+        state = self.make_state(seed)
+        if hp.ema_decay > 0:
+            state.opt_states["ema"] = {
+                k: p.detach().clone()
+                for k, p in self.modules["denoise"].named_parameters()}
+        self.state = state
+        return state
+
+    def loss(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+             y: Optional[torch.Tensor] = None):
+        """The training loss for clean images ``x_start`` (model space),
+        integer timesteps ``t``, noise and (conditional) labels ``y`` ->
+        (loss, metrics)."""
+        hp = self.hparams
+        x_noisy = gd.q_sample(self.tables, x_start, t, noise)
+        if hp.parameterization == "v":
+            target = gd.v_target(self.tables, x_start, t, noise)
+        else:
+            target = noise
+        w = gd.loss_weight(self.tables, t, x_start.ndim, str(hp.parameterization),
+                           float(hp.snr_gamma))
+        pred = self.modules["denoise"](x_noisy, t, y)
+        if hp.loss_type == "l1":
+            loss = (w * torch.abs(target - pred)).mean()
+        else:
+            loss = (w * (target - pred) ** 2).mean()
+        return loss, {"train_loss/loss": loss.detach()}
+
+    def train_step(self, state: TrainState, batch,
+                   t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   drop: Optional[torch.Tensor] = None):
+        """One Adam step on the denoiser, then the EMA update.
+
+        Draws, from ``state.generator`` in this order, what is not given:
+        the timesteps ``t`` ~ U{0..T-1}, the noise, and (conditional) the
+        label-drop mask with probability ``cond_drop_prob``: dropped labels
+        become the null token."""
+        imgs_raw, labels = batch
+        imgs = self.preprocess(imgs_raw)
+        n = imgs.shape[0]
+        gen = state.generator
+        if t is None:
+            t = torch.randint(0, self.timesteps, (n,), generator=gen,
+                              device=self.device)
+        if noise is None:
+            noise = torch.randn(imgs.shape, generator=gen, device=self.device)
+        y = None
+        if self.num_classes:
+            if drop is None:
+                drop = (torch.rand(n, generator=gen, device=self.device)
+                        < float(self.hparams.cond_drop_prob))
+            labels = labels.to(self.device, non_blocking=True).long()
+            y = torch.where(drop, torch.full_like(labels, self.num_classes), labels)
+        self.modules.train()
+        try:
+            state, _, metrics = self.optimizers.grad_step(
+                state, "opt", lambda: self.loss(imgs, t, noise, y))
+        finally:
+            self.modules.eval()
+        d = float(self.hparams.ema_decay)
+        if d > 0:
+            ema = state.opt_states["ema"]
+            params = dict(self.modules["denoise"].named_parameters())
+            with torch.no_grad():
+                shadow = list(ema.values())
+                torch._foreach_mul_(shadow, d)
+                torch._foreach_add_(shadow, [params[k] for k in ema], alpha=1.0 - d)
+        state.step += 1
+        return state, metrics
+
+    @torch.no_grad()
+    def validation_step(self, state: TrainState, batch,
+                        generator: torch.Generator, sample: bool = False):
+        """The batch, the batch diffused to t = T-1, and with ``sample`` a
+        ``sample_batch`` of samples from ``val_sampler`` (ancestral|ddim)."""
+        imgs = self.preprocess(batch[0])
+        n = imgs.shape[0]
+        t = torch.full((n,), self.timesteps - 1, dtype=torch.long,
+                       device=self.device)
+        diffused = gd.q_sample(self.tables, imgs, t,
+                               self._noise(imgs.shape, generator))
+        result = ValidationResult(real_image=imgs, others={"diffusion": diffused})
+        if sample:
+            n_s = int(self.hparams.sample_batch)
+            if self.hparams.val_sampler == "ddim":
+                cond = {}
+                if self.num_classes:
+                    cond = dict(y=self._default_labels(n_s),
+                                guidance=float(self.hparams.guidance_scale))
+                result.fake_image = self.ddim_sample(
+                    n_s, steps=int(self.hparams.ddim_steps), generator=generator,
+                    **cond)
+            else:
+                result.fake_image = self.sample(n_s, generator)
+        return result, {}
 
     def _sample_shape(self, n: int) -> tuple:
         return (n, self.height, self.width, self.channels)
@@ -92,12 +207,19 @@ class DDPM(BaseModel):
     # --------------------------------------------------------------- sampling
     def _denoise(self, x: torch.Tensor, t: torch.Tensor,
                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The denoiser; with an EMA shadow in the train state, run with the
+        shadow's weights, as ``igm_tpu`` samples from them."""
         if self.num_classes and y is None:
             # unconditional generation from a conditional model = the
             # trained null token
             y = torch.full((x.shape[0],), self.num_classes, dtype=torch.long,
                            device=x.device)
-        return self.modules["denoise"](x, t, y)
+        net = self.modules["denoise"]
+        if (self.hparams.ema_decay > 0 and self.state is not None
+                and "ema" in self.state.opt_states):
+            return torch.func.functional_call(net, self.state.opt_states["ema"],
+                                              (x, t, y))
+        return net(x, t, y)
 
     @torch.no_grad()
     def _eps(self, x: torch.Tensor, t: torch.Tensor,

@@ -9,12 +9,16 @@ Submodules carry the names Flax gives the same modules (``ResnetBlock_3``,
 torch ``state_dict`` key by dropping the wrappers' inner ``<Type>_0`` level
 (``igm_tpu_torch.interop``).
 
-Every Block's GroupNorm+Mish goes through ``ops.groupnorm.group_norm_mish``
+Every Block's GroupNorm+Mish goes through ``ops.groupnorm.GroupNormMishFn``
 and every AttnBlock's attention through
-``ops.linear_attention.linear_attention_flat``: on the card both launch the
-hand-written CUDA kernels.  The convolutions and the Dense/qkv/out
-projections, which XLA computes outside any Pallas kernel in ``igm_tpu``,
-stay ``F.conv2d`` / ``F.conv_transpose2d`` / ``F.linear``.
+``ops.linear_attention.LinearAttentionFlatFn``: on the card their forwards
+and backwards launch the hand-written CUDA kernels.  The convolutions and
+the Dense/qkv/out projections, which XLA computes outside any Pallas kernel
+in ``igm_tpu``, stay ``F.conv2d`` / ``F.conv_transpose2d`` / ``F.linear``.
+
+``remat=True`` recomputes each ResnetBlock in the backward
+(``torch.utils.checkpoint``, the counterpart of ``nn.remat``): its
+GroupNorm+Mish forwards then run twice per training step.
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.groupnorm import group_norm_mish, mish
-from ..ops.linear_attention import linear_attention_flat
+from ..ops.groupnorm import GroupNormMishFn, mish
+from ..ops.linear_attention import LinearAttentionFlatFn
 from .base import Conv, ConvTranspose, Dense
 
 
@@ -85,7 +90,7 @@ class LinearAttention(nn.Module):
         q = F.linear(x_flat, w3[:hidden])
         k = F.linear(x_flat, w3[hidden:2 * hidden])
         v = F.linear(x_flat, w3[2 * hidden:])
-        out = linear_attention_flat(q, k, v, self.heads).reshape(b, h, w, hidden)
+        out = LinearAttentionFlatFn.apply(q, k, v, self.heads).reshape(b, h, w, hidden)
         return self.Conv_1(out)
 
 
@@ -117,7 +122,7 @@ class GroupNormMish(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm_mish(x, self.scale, self.bias, self.groups)
+        return GroupNormMishFn.apply(x, self.scale, self.bias, self.groups)
 
 
 class Block(nn.Module):
@@ -194,16 +199,18 @@ class Unet(nn.Module):
     ``num_classes > 0`` adds class conditioning: an embedding table of
     ``num_classes + 1`` rows added to the time embedding, where row
     ``num_classes`` is the null token for classifier-free guidance.  ``y``
-    is then a (B,) int label batch and required.
+    is then a (B,) int label batch and required.  ``remat`` recomputes each
+    ResnetBlock in the backward when gradients are being recorded.
     """
 
     def __init__(self, dim: int, out_dim: Optional[int] = None,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), groups: int = 8,
                  channels: int = 3, with_time_emb: bool = True,
-                 num_classes: int = 0, dtype: torch.dtype | None = None):
+                 num_classes: int = 0, dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         name = _FlaxNames(self)
-        self.dim, self.num_classes = dim, num_classes
+        self.dim, self.num_classes, self.remat = dim, num_classes, remat
         dims = [channels] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         self.time_mlp = None
@@ -252,16 +259,21 @@ class Unet(nn.Module):
             cls = self.class_emb(y)
             t = cls if t is None else t + cls
 
+        def rb(block, x):
+            if self.remat and torch.is_grad_enabled():
+                return checkpoint(block, x, t, use_reentrant=False)
+            return block(x, t)
+
         skips = []
         for rb1, rb2, attn, down in self.downs:
-            x = attn(rb2(rb1(x, t), t))
+            x = attn(rb(rb2, rb(rb1, x)))
             skips.append(x)
             if down is not None:
                 x = down(x)
         rb1, attn, rb2 = self.mid
-        x = rb2(attn(rb1(x, t)), t)
+        x = rb(rb2, attn(rb(rb1, x)))
         for rb1, rb2, attn, up in self.ups:
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = up(attn(rb2(rb1(x, t), t)))
+            x = up(attn(rb(rb2, rb(rb1, x))))
         block, conv = self.final
         return conv(block(x)).float()

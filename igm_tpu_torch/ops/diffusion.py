@@ -105,3 +105,31 @@ def eps_from_v(tables: DiffusionTables, x_t, t, v):
     prediction (exact identity)."""
     return (extract(tables.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * x_t
             + extract(tables.sqrt_alphas_cumprod, t, x_t.ndim) * v)
+
+
+def v_target(tables: DiffusionTables, x_start, t, noise):
+    """Training target for parameterization="v":
+    sqrt(ac) * eps - sqrt(1-ac) * x0."""
+    return (extract(tables.sqrt_alphas_cumprod, t, x_start.ndim) * noise
+            - extract(tables.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
+            * x_start)
+
+
+def snr(tables: DiffusionTables, t, ndim: int):
+    """Signal-to-noise ratio ac_t / (1 - ac_t), broadcast to rank ndim."""
+    ac = extract(tables.alphas_cumprod, t, ndim)
+    return ac / (1.0 - ac)
+
+
+def loss_weight(tables: DiffusionTables, t, ndim: int, parameterization: str,
+                snr_gamma: float):
+    """Min-SNR-gamma per-timestep loss weight (Hang et al. 2023):
+    min(SNR, gamma) / SNR for eps, min(SNR, gamma) / (SNR + 1) for v.
+    ``snr_gamma <= 0`` gives weight 1, a (1,)*ndim tensor of ones."""
+    if snr_gamma <= 0:
+        return torch.ones((1,) * ndim, device=tables.betas.device)
+    s = snr(tables, t, ndim)
+    capped = torch.clamp(s, max=snr_gamma)
+    if parameterization == "v":
+        return capped / (s + 1.0)
+    return capped / s

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Skipped without a CUDA card (the kernels have no CPU mode); run them there
-with ``python -m pytest tests/test_torch_cuda.py -q``.  Tolerances as in
-chip_smoke.py: float32 sums in another order; bf16 one ulp of the value.
+with ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
+Tolerances as in chip_smoke.py: float32 sums in another order; bf16 one
+ulp of the value.  The f32 parameter gradients of GroupNorm+Mish sum up to
+N*H*W products per channel: held to 1e-4 of their largest value.
 """
 import sys
 from pathlib import Path
@@ -13,9 +15,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
-    group_norm_mish, group_norm_mish_plain)
+    GroupNormMishFn, group_norm_mish, group_norm_mish_bwd, group_norm_mish_bwd_plain,
+    group_norm_mish_plain)
 from igm_tpu_torch.ops.linear_attention import (  # noqa: E402
-    linear_attention_flat, linear_attention_flat_plain)
+    LinearAttentionFlatFn, linear_attention_flat, linear_attention_flat_bwd,
+    linear_attention_flat_bwd_plain, linear_attention_flat_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +96,80 @@ def test_linear_attention_kernel_rejects_other_head_dims(gen):
     q = torch.randn(2, 64, 128, generator=gen, device="cuda")
     with pytest.raises(ValueError):
         linear_attention_flat(q, q, q, 8)                        # D = 16
+
+
+GN_SHAPES = [((3, 32, 32, 64), 8), ((2, 8, 8, 256), 8), ((2, 5, 7, 32), 8),
+             ((1, 4, 4, 40), 8), ((2, 3, 3, 512), 32)]
+
+
+def _gn_inputs(gen, shape, dtype):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    c = shape[-1]
+    gamma = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1.0
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.1
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return x, gamma, beta, g
+
+
+def _close_param_grad(got, want):
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape,groups", GN_SHAPES)
+def test_group_norm_mish_bwd_kernel(gen, dtype, shape, groups):
+    x, gamma, beta, g = _gn_inputs(gen, shape, dtype)
+    before = group_norm_mish_bwd.launches
+    dx, dgamma, dbeta = group_norm_mish_bwd(x, gamma, beta, g, groups)
+    torch.cuda.synchronize()
+    assert group_norm_mish_bwd.launches == before + 1
+    want = group_norm_mish_bwd_plain(x, gamma, beta, g, groups)
+    _close(dx, want[0], dtype)
+    _close_param_grad(dgamma, want[1])
+    _close_param_grad(dbeta, want[2])
+
+
+def test_group_norm_mish_bwd_kernel_repeats_exactly(gen):
+    """No atomics: the same inputs give the same bits."""
+    x, gamma, beta, g = _gn_inputs(gen, (4, 16, 16, 128), torch.bfloat16)
+    runs = [group_norm_mish_bwd(x, gamma, beta, g, 8) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1)])
+def test_linear_attention_bwd_kernel(gen, dtype, b, n):
+    q, k, v, g = (torch.randn(b, n, 128, generator=gen, device="cuda").to(dtype)
+                  for _ in range(4))
+    before = linear_attention_flat_bwd.launches
+    got = linear_attention_flat_bwd(q, k, v, g, 4)
+    torch.cuda.synchronize()
+    assert linear_attention_flat_bwd.launches == before + 1
+    for a, w in zip(got, linear_attention_flat_bwd_plain(q, k, v, g, 4)):
+        _close(a, w, dtype)
+
+
+def test_autograd_functions_launch_both_kernels(gen):
+    """Forward and backward through the Functions: one launch of each
+    kernel, gradients as torch autograd of the plain forwards on the card."""
+    x, gamma, beta, g = _gn_inputs(gen, (2, 8, 8, 64), torch.float32)
+    q, k, v, gl = (torch.randn(2, 64, 128, generator=gen, device="cuda")
+                   for _ in range(4))
+    counts = (group_norm_mish.launches, group_norm_mish_bwd.launches,
+              linear_attention_flat.launches, linear_attention_flat_bwd.launches)
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta, q, k, v)]
+    GroupNormMishFn.apply(*leaves[:3], 8).backward(g)
+    LinearAttentionFlatFn.apply(*leaves[3:], 4).backward(gl)
+    torch.cuda.synchronize()
+    after = (group_norm_mish.launches, group_norm_mish_bwd.launches,
+             linear_attention_flat.launches, linear_attention_flat_bwd.launches)
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1, 1]
+    ref = [t.clone().requires_grad_() for t in (x, gamma, beta, q, k, v)]
+    group_norm_mish_plain(*ref[:3], 8).backward(g)
+    linear_attention_flat_plain(*ref[3:], 4).backward(gl)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4 * float(b.grad.abs().max()),
+                                   rtol=1e-4)

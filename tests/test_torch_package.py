@@ -48,6 +48,8 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
         torch.set_num_threads(1)
         from igm_tpu_torch.config import compose, instantiate
         from igm_tpu_torch.models.ddpm import DDPM
+        import igm_tpu_torch.train, igm_tpu_torch.core.trainer  # noqa: F401
+        import igm_tpu_torch.tools.profile_training  # noqa: F401
         cfg = compose({str(REPO / "configs")!r}, ["experiment=ddpm/cifar10"])
         model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cpu")
         assert type(model) is DDPM, type(model)
@@ -81,6 +83,8 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     dm = {"width": 8, "height": 8, "channels": 3, "transforms": {}}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DDPM(datamodule=dm, hidden_dim=8, dim_mults=(1,), timesteps=4)
-    from igm_tpu_torch.cli import sample_main
+    from igm_tpu_torch.cli import sample_main, train_main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample_main(["experiment=ddpm/cifar10", "--n", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["experiment=ddpm/cifar10"])
