@@ -37,10 +37,34 @@ non-zero:
           it that continues at the saved step; then a timed loop of the train
           step at batch 256 bf16 (train images/s).  Counters are zeroed just
           before this path and read just after.
+  first_stage  one full-width VQ-VAE forward (experiment=vqvae/cifar10, f32,
+          TF32 off, batch 8, a codebook drawn from the encoder's outputs) on
+          the card against the same weights on the CPU: the reconstruction,
+          the codes (equal but at near-ties), exactly one nearest_codebook
+          launch
+  latent  the VQ-VAE -> latent-DDPM chain, counters zeroed just before and
+          read just after: the train CLI on experiment=vqvae/cifar10 (2
+          epochs of 3 steps: loss, checkpoints, recon grids); on
+          experiment=latent_ddpm/cifar10 with model.first_stage_ckpt (2
+          epochs of 3 steps, DDIM validation, the calibrated latent scale),
+          then a resume for 1 more epoch; the sampling CLI with --ckpt,
+          DDIM-50 at batch 64 to a PNG; timed DDIM-50 and ancestral chains at
+          batch 64 (bf16 denoiser, latent images/s); timed VQ-VAE and latent
+          train steps at batch 128 (train images/s); a 10-step f32 latent
+          chain and its decode on the card against the CPU.  Launches are
+          checked exactly: 17 GroupNorm+Mish and 4 linear attention per
+          latent-UNet forward, as many backward per latent train step, no
+          nearest_codebook in a latent train step, one per decode and per
+          VQ-VAE train step.
+The nearest_codebook parity rows (f32, M x K x D = 8192 x 512 x 64, 4096 x
+512 x 64 and a ragged 1000 x 500 x 64) run with the other parity rows: the
+indices are equal except at near-ties (counted), with the kernel's time,
+the plain version's, the bound and torch.cdist(z, e).argmin(1) as the
+yardstick.
 
-Then a line with the card's name and power limit, one JSON line
-{"kernels": [...]}, and last {"ok": true, "device": {...}}.  Without a CUDA
-card the script exits non-zero and prints no result.
+Then the total time, a line with the card's name and power limit, one JSON
+line {"kernels": [...]}, and last {"ok": true, "device": {...}}.  Without a
+CUDA card the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -79,6 +103,10 @@ GN_BWD_OPS_PER_ELEMENT = 35
 # dk ~8 per element
 LA_BWD_PRODUCTS = 5
 TRAIN_BATCH, TRAIN_STEPS = 256, 20
+VQ_TRAIN_BATCH = 128                 # the CIFAR-10 datamodule's batch
+# (M, K, D) of the nearest-codebook search: the VQ-VAE train step (batch 128
+# of 8x8 latents), a decode at batch 64, and a ragged case
+VQ_SHAPES = [(8192, 512, 64), (4096, 512, 64), (1000, 500, 64)]
 SLEEP_CYCLES = 50_000_000            # ~25 ms: the host queues timed launches meanwhile
 L2_BYTES = 50 * 2 ** 20
 
@@ -360,12 +388,17 @@ def parity_la_bwd(dtype) -> list[dict]:
     return rows
 
 
+KERNELS = ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
+           "linear_attention_bwd", "nearest_codebook")
+
+
 def _counters():
     from igm_tpu_torch.ops.groupnorm import group_norm_mish, group_norm_mish_bwd
     from igm_tpu_torch.ops.linear_attention import (linear_attention_flat,
                                                     linear_attention_flat_bwd)
+    from igm_tpu_torch.ops.vq import nearest_codebook
     return (group_norm_mish, linear_attention_flat, group_norm_mish_bwd,
-            linear_attention_flat_bwd)
+            linear_attention_flat_bwd, nearest_codebook)
 
 
 def reset_counts() -> None:
@@ -373,9 +406,13 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def counts() -> tuple[int, int, int, int]:
-    """Launches of (GroupNorm+Mish, linear attention, and their backwards)."""
+def counts() -> tuple[int, ...]:
+    """Launches of the kernels named in KERNELS, in that order."""
     return tuple(fn.launches for fn in _counters())
+
+
+def since(before: tuple[int, ...]) -> tuple[int, ...]:
+    return tuple(a - b for a, b in zip(counts(), before))
 
 
 def phase_unet() -> dict:
@@ -397,9 +434,9 @@ def phase_unet() -> dict:
         reset_counts()
         got = net(x.cuda(), t.cuda())
         torch.cuda.synchronize()
-        n_gn, n_la, n_gn_bwd, n_la_bwd = counts()
+        n_gn, n_la, n_gn_bwd, n_la_bwd, n_vq = counts()
         want = cpu_net(x, t)
-    check((n_gn, n_la, n_gn_bwd, n_la_bwd) == (25, 6, 0, 0),
+    check((n_gn, n_la, n_gn_bwd, n_la_bwd, n_vq) == (25, 6, 0, 0, 0),
           f"one forward launched {n_gn} GroupNorm+Mish and {n_la} linear "
           f"attention kernels and {n_gn_bwd} + {n_la_bwd} backwards, expected "
           f"25 and 6 and none")
@@ -514,9 +551,9 @@ def phase_train_unet() -> dict:
             launches = counts()
         out.append((loss.item(), [g.cpu() for g in grads]))
         model.modules.eval()
-    check(launches == (25, 6, 25, 6),
-          f"one forward and backward launched {launches} (GroupNorm+Mish, linear "
-          f"attention, their backwards), expected (25, 6, 25, 6)")
+    check(launches == (25, 6, 25, 6, 0),
+          f"one forward and backward launched {launches} ({', '.join(KERNELS)}), "
+          f"expected (25, 6, 25, 6, 0)")
     (loss_card, g_card), (loss_cpu, g_cpu) = out
     # float32 with TF32 off on both sides: cuDNN's and the CPU's conv
     # algorithms round differently over ~40 layers forward and back (the
@@ -533,25 +570,23 @@ def phase_train_unet() -> dict:
     row = dict(batch=8, dtype="float32", loss_card=loss_card, loss_cpu=loss_cpu,
                loss_rtol=loss_rtol, grad_max_abs_err_over_max_grad=rel,
                grad_atol_over_max_grad=1e-3, grad_rtol=rtol, max_grad=scale,
-               parameters=len(g_cpu), launches=dict(zip(
-                   ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
-                    "linear_attention_bwd"), launches)))
+               parameters=len(g_cpu), launches=dict(zip(KERNELS, launches)))
     emit("train_unet", **row)
     return row
 
 
-def _train_cli(tmp: Path, *overrides: str) -> float:
+def _train_cli(tmp: Path, *overrides: str, experiment: str = "ddpm/cifar10",
+               metric: str = "train_loss/loss") -> float:
     """python -m igm_tpu_torch.train in ``tmp``: a run directory of its own
     under tmp/logs/runs, synthetic data, no TensorBoard."""
     from igm_tpu_torch.cli import train_main
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        return train_main(["experiment=ddpm/cifar10", "trainer.limit_train_batches=3",
+        return train_main([f"experiment={experiment}", "trainer.limit_train_batches=3",
                            "trainer.limit_val_batches=1",
-                           "trainer.check_val_every_n_epoch=1",
-                           "model.val_sampler=ddim", "logger=null",
-                           "print_config=False", "optimized_metric=train_loss/loss",
+                           "trainer.check_val_every_n_epoch=1", "logger=null",
+                           "print_config=False", f"optimized_metric={metric}",
                            f"datamodule.data_dir={tmp / 'data'}", *overrides])
     finally:
         os.chdir(cwd)
@@ -571,16 +606,16 @@ def phase_train() -> dict:
                             f"trainer.resume={run / 'checkpoints'}"], 3)):
             before = counts()
             t0 = time.perf_counter()
-            loss = _train_cli(tmp, *overrides)
+            loss = _train_cli(tmp, "model.val_sampler=ddim", *overrides)
             sec = time.perf_counter() - t0
-            gn, la, gn_bwd, la_bwd = (a - b for a, b in zip(counts(), before))
+            gn, la, gn_bwd, la_bwd, vq = since(before)
             ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
             grids = sorted(p.name for p in (run / "results").iterdir())
             check(loss is not None and math.isfinite(loss), f"train {name}: loss {loss}")
             check((gn_bwd, la_bwd) == (25 * steps, 6 * steps),
                   f"train {name}: {gn_bwd}/{la_bwd} backward launches for {steps} steps")
-            check(gn >= 25 * steps and la >= 6 * steps,
-                  f"train {name}: {gn}/{la} forward launches for {steps} steps")
+            check(gn >= 25 * steps and la >= 6 * steps and vq == 0,
+                  f"train {name}: {gn}/{la}/{vq} forward launches for {steps} steps")
             out[name] = dict(steps=steps, seconds=sec, loss=loss, checkpoints=ckpts,
                              grids=grids, group_norm_mish_launches=gn,
                              linear_attention_launches=la,
@@ -624,7 +659,7 @@ def phase_train() -> dict:
     loss = float(metrics["train_loss/loss"])
     check(math.isfinite(loss), f"timed train step: loss {loss}")
     check(launches == (25 * TRAIN_STEPS, 6 * TRAIN_STEPS, 25 * TRAIN_STEPS,
-                       6 * TRAIN_STEPS), f"timed train step: launches {launches}")
+                       6 * TRAIN_STEPS, 0), f"timed train step: launches {launches}")
     out["speed"] = dict(batch=TRAIN_BATCH, steps=TRAIN_STEPS, dtype="bfloat16",
                         seconds=sec, ms_per_step=1e3 * sec / TRAIN_STEPS,
                         images_per_s=TRAIN_BATCH * TRAIN_STEPS / sec, loss=loss,
@@ -635,11 +670,308 @@ def phase_train() -> dict:
     return out
 
 
+def parity_vq() -> list[dict]:
+    """nearest_codebook against its plain version, f32, at the VQ-VAE train
+    step's and the decode's shapes and a ragged one."""
+    import torch
+    from igm_tpu_torch.ops.vq import near_tie_gaps, nearest_codebook, nearest_codebook_plain
+    rows = []
+    for m, k, d in VQ_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(m + k)
+
+        def make(i, m=m, k=k, d=d, g=g):
+            return (torch.randn(m, d, generator=g, device="cuda"),
+                    torch.randn(k, d, generator=g, device="cuda"))
+
+        nbytes = (m * d + k * d) * 4 + m * 4          # z and e in, idx out
+        sets = rotation(make, nbytes)
+        z, e = sets[0]
+        got = nearest_codebook(z, e)
+        want = nearest_codebook_plain(z, e)
+        torch.cuda.synchronize()
+        n_diff, gap, abs_gap = near_tie_gaps(z, e, got, want)
+        check(gap <= 1.0, f"nearest_codebook {m}x{k}x{d}: {n_diff} rows differ, "
+                          f"largest score gap {gap} of the near-tie scale")
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = 2 * m * k * d / PEAK_OPS["float32"]
+        rows.append(dict(
+            kernel="nearest_codebook", dtype="float32", shape=[m, k, d],
+            rows_differ=n_diff, near_tie_gap=gap, near_tie_rtol=1e-5,
+            max_abs_err=abs_gap,          # score gap at the rows that differ
+            kernel_ms=time_ms(nearest_codebook, sets),
+            plain_ms=time_ms(nearest_codebook_plain, sets),
+            library_ms=time_ms(lambda z, e: torch.cdist(z, e).argmin(1), sets),
+            library="torch.cdist(z, e).argmin(1): two calls, the reference's formula",
+            bound_ms=1e3 * max(bytes_s, ops_s),
+            bound_by="bytes" if bytes_s >= ops_s else "operations"))
+        emit("parity", **rows[-1])
+    return rows
+
+
+def _first_stage_weights(model, gen, imgs):
+    """Seeded weights with a codebook drawn from the encoder's own outputs (as
+    a trained codebook lies among them), on the CPU."""
+    import torch
+    model.init_params(0)
+    with torch.no_grad():
+        z = model.modules["encoder"](model.preprocess(imgs)).reshape(-1, model.hparams.latent_dim)
+        pick = torch.randint(0, len(z), (model.hparams.num_embeddings,), generator=gen)
+        book = z[pick] + 0.05 * z.std() * torch.randn(
+            model.hparams.num_embeddings, z.shape[1], generator=gen)
+        model.modules["vq"].embedding.copy_(book)
+    return {k: v.clone() for k, v in model.modules.state_dict().items()}
+
+
+def phase_first_stage() -> dict:
+    """One full-width VQ-VAE forward (f32, TF32 off, batch 8) on the card
+    against the same weights on the CPU."""
+    import torch
+    from igm_tpu_torch.config import compose, instantiate
+    from igm_tpu_torch.ops.vq import near_tie_gaps
+    cfg = compose(REPO / "configs", ["experiment=vqvae/cifar10", "print_config=False"])
+    models = [instantiate(cfg.model, datamodule=cfg.datamodule, device=d)
+              for d in ("cuda", "cpu")]
+    gen = torch.Generator().manual_seed(11)
+    imgs = torch.randint(0, 256, (8, 32, 32, 3), generator=gen, dtype=torch.uint8)
+    weights = _first_stage_weights(models[1], gen, imgs)
+    models[0].modules.load_state_dict(weights)
+    out = []
+    for model in models:
+        x = model.preprocess(imgs)
+        reset_counts()
+        recon = model.forward(None, x)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+            launches = counts()
+        with torch.no_grad():
+            z = model.modules["encoder"](x)
+            _, _, _, idx = model.modules["vq"](z, train=False)
+        out.append((recon.cpu(), idx.cpu(), z.cpu()))
+    (r_card, i_card, z_card), (r_cpu, i_cpu, z_cpu) = out
+    check(launches == (0, 0, 0, 0, 1), f"first_stage: one forward launched {launches}")
+    n_diff, gap, _ = near_tie_gaps(z_cpu.reshape(len(i_cpu), -1),
+                                models[1].modules["vq"].embedding, i_card, i_cpu)
+    check(gap <= 1.0, f"first_stage: {n_diff} codes differ beyond a near-tie ({gap})")
+    # images whose codes all agree; a near-tie flip moves one code's whole patch
+    same = (i_card == i_cpu).reshape(8, -1).all(dim=1)
+    err = (r_card - r_cpu).abs()[same].max().item() if same.any() else 0.0
+    # float32 with TF32 off on both sides over 10 conv layers; cuDNN's and the
+    # CPU's algorithms (Winograd and FFT among cuDNN's) round differently
+    atol = 5e-4
+    check(math.isfinite(err) and err <= atol, f"first_stage recon: max err {err} > {atol}")
+    row = dict(batch=8, dtype="float32", recon_max_abs_err=err, atol=atol,
+               recon_abs_max=r_cpu.abs().max().item(), codes=len(i_cpu),
+               codes_differ=n_diff, near_tie_gap=gap,
+               images_compared=int(same.sum()), launches=dict(zip(KERNELS, launches)))
+    emit("first_stage", **row)
+    return row
+
+
+def _latent_model(ckpt: Path, dtype: str = "auto", device: str = "cuda"):
+    """experiment=latent_ddpm/cifar10 at full width with every module from the
+    newest checkpoint in ``ckpt``."""
+    from igm_tpu_torch.config import compose, instantiate
+    from igm_tpu_torch.core.checkpoint import CheckpointManager
+    cfg = compose(REPO / "configs", ["experiment=latent_ddpm/cifar10", "print_config=False"])
+    model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device,
+                        compute_dtype=dtype)
+    model.modules.load_state_dict(CheckpointManager(str(ckpt)).restore_raw()["params"])
+    return model
+
+
+def phase_latent() -> dict:
+    """The VQ-VAE -> latent-DDPM chain through the CLIs, then timed loops;
+    the caller zeroes the counters before it."""
+    import torch
+    from PIL import Image
+    from igm_tpu_torch.cli import sample_main
+    from igm_tpu_torch.config import compose, instantiate
+    from igm_tpu_torch.ops.vq import near_tie_gaps, nearest_codebook
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 1. the first stage
+        vq_run = tmp / "logs" / "runs" / "vqvae" / "cifar10"
+        before = counts()
+        t0 = time.perf_counter()
+        loss = _train_cli(tmp, "trainer.max_epochs=2", experiment="vqvae/cifar10",
+                          metric="train_loss/recon_loss")
+        sec = time.perf_counter() - t0
+        launches = since(before)
+        ckpts = sorted(p.name for p in (vq_run / "checkpoints").iterdir())
+        grids = sorted(p.name for p in (vq_run / "results").iterdir())
+        check(loss is not None and math.isfinite(loss), f"vqvae fit: loss {loss}")
+        check(ckpts == ["step_3.pt", "step_6.pt"] and grids == ["recon_0.jpg", "recon_1.jpg"],
+              f"vqvae fit: checkpoints {ckpts}, grids {grids}")
+        # one search per train step (6) and per validation forward (2)
+        check(launches == (0, 0, 0, 0, 8), f"vqvae fit: launches {launches}")
+        out["vqvae_fit"] = dict(steps=6, seconds=sec, recon_loss=loss, checkpoints=ckpts,
+                                grids=grids, launches=dict(zip(KERNELS, launches)))
+        emit("latent", run="vqvae_fit", **out["vqvae_fit"])
+
+        # 2. the latent DDPM on the frozen first stage, then a resume
+        run = tmp / "logs" / "runs" / "latent_ddpm" / "cifar10"
+        first_stage = f"model.first_stage_ckpt={vq_run / 'checkpoints'}"
+        for name, overrides, steps in (
+                ("fit", ["trainer.max_epochs=2"], 6),
+                ("resume", ["trainer.max_epochs=3",
+                            f"trainer.resume={run / 'checkpoints'}"], 3)):
+            before = counts()
+            t0 = time.perf_counter()
+            loss = _train_cli(tmp, first_stage, "model.val_sampler=ddim", *overrides,
+                              experiment="latent_ddpm/cifar10")
+            sec = time.perf_counter() - t0
+            gn, la, gn_bwd, la_bwd, vq = since(before)
+            ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+            grids = sorted(p.name for p in (run / "results").iterdir())
+            saved = torch.load(run / "checkpoints" / ckpts[-1], weights_only=True)
+            scale = float(saved["params"]["latent.scale"])
+            check(loss is not None and math.isfinite(loss), f"latent {name}: loss {loss}")
+            check(math.isfinite(scale) and scale > 0 and scale != 1.0,
+                  f"latent {name}: latent scale {scale} not calibrated")
+            check((gn_bwd, la_bwd) == (17 * steps, 4 * steps),
+                  f"latent {name}: {gn_bwd}/{la_bwd} backward launches for {steps} steps")
+            # validation per epoch: recon, diffused and DDIM-50 samples, each decoded
+            epochs = steps // 3
+            check(gn == 17 * (steps + 50 * epochs) and la == 4 * (steps + 50 * epochs)
+                  and vq == 3 * epochs,
+                  f"latent {name}: {gn}/{la}/{vq} forward launches for {steps} steps")
+            out[name] = dict(steps=steps, seconds=sec, loss=loss, latent_scale=scale,
+                             checkpoints=ckpts, grids=grids,
+                             launches=dict(zip(KERNELS, (gn, la, gn_bwd, la_bwd, vq))))
+            emit("latent", run=name, **out[name])
+        check(out["fit"]["checkpoints"] == ["step_3.pt", "step_6.pt"]
+              and out["fit"]["grids"] == ["0.jpg", "1.jpg"],
+              f"latent fit: checkpoints {out['fit']['checkpoints']}, "
+              f"grids {out['fit']['grids']}")
+        check(out["resume"]["checkpoints"] == ["step_6.pt", "step_9.pt"],
+              f"latent resume: checkpoints {out['resume']['checkpoints']}")
+        check(out["resume"]["latent_scale"] == out["fit"]["latent_scale"],
+              "latent resume: the latent scale moved")
+
+        # 3. the sampling CLI from the latent checkpoints, DDIM-50, batch 64
+        overrides = ["experiment=latent_ddpm/cifar10"]
+        png = tmp / "grid.png"
+        before = counts()
+        t0 = time.perf_counter()
+        sample_main([*overrides, "--ckpt", str(run / "checkpoints"), "--n", "64",
+                     "--sampler", "ddim", "--out", str(png)])
+        sec = time.perf_counter() - t0
+        launches = since(before)
+        with Image.open(png) as img:
+            size = img.size
+        check(size == (2 + 8 * 34, 2 + 8 * 34), f"latent cli grid size {size}")
+        check(launches == (17 * 50, 4 * 50, 0, 0, 1), f"latent cli: launches {launches}")
+        out["cli"] = dict(seconds=sec, grid=list(size), launches=dict(zip(KERNELS, launches)))
+        emit("latent", run="cli", **out["cli"])
+
+        # 4. timed sampling, bf16 denoiser, batch 64, the trained weights
+        model = _latent_model(run / "checkpoints")
+        check(model.compute_dtype == torch.bfloat16, "latent compute dtype is not bf16")
+        n = int(model.hparams.sample_batch)
+        model.ddim_sample(n, steps=2, generator=torch.Generator("cuda").manual_seed(9))
+        torch.cuda.synchronize()                              # warm-up
+        for name, fn, forwards in (
+                ("ddim", lambda g: model.ddim_sample(n, steps=50, generator=g), 50),
+                ("ancestral", lambda g: model.sample(n, g), model.timesteps)):
+            before = counts()
+            t0 = time.perf_counter()
+            x = fn(torch.Generator("cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = since(before)
+            check(tuple(x.shape) == (n, 32, 32, 3) and bool(torch.isfinite(x).all()),
+                  f"latent {name}: shape {tuple(x.shape)} or non-finite samples")
+            check(launches == (17 * forwards, 4 * forwards, 0, 0, 1),
+                  f"latent {name}: launches {launches} for {forwards} forwards")
+            out[name] = dict(batch=n, steps=forwards, seconds=sec, images_per_s=n / sec,
+                             launches=dict(zip(KERNELS, launches)))
+            emit("latent", run=name, **out[name])
+
+        # 5. timed train steps at the config's batch 128: the VQ-VAE and the
+        # latent DDPM, with their launches per step
+        cfg = compose(REPO / "configs", ["experiment=vqvae/cifar10", "print_config=False"])
+        gen = torch.Generator("cuda").manual_seed(5)
+        batch = (torch.randint(0, 256, (VQ_TRAIN_BATCH, 32, 32, 3), generator=gen,
+                               device="cuda", dtype=torch.uint8),
+                 torch.zeros(VQ_TRAIN_BATCH, dtype=torch.int32, device="cuda"))
+        vq_model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
+        trained = {k: v.clone() for k, v in model.modules.state_dict().items()}
+        for name, m, per_step in (("vqvae_train", vq_model, (0, 0, 0, 0, 1)),
+                                  ("latent_train", model, (17, 4, 17, 4, 0))):
+            state = m.init_state(0)
+            if m is model:                        # init_state redrew every module
+                model.modules.load_state_dict(trained)
+            for _ in range(2):
+                state, metrics = m.train_step(state, batch)
+            torch.cuda.synchronize()
+            before = counts()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                state, metrics = m.train_step(state, batch)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = since(before)
+            loss = {k: float(v) for k, v in metrics.items()}
+            check(all(math.isfinite(v) for v in loss.values()), f"{name}: loss {loss}")
+            check(launches == tuple(TRAIN_STEPS * c for c in per_step),
+                  f"{name}: launches {launches} for {TRAIN_STEPS} steps")
+            out[name] = dict(batch=VQ_TRAIN_BATCH, steps=TRAIN_STEPS, seconds=sec,
+                             ms_per_step=1e3 * sec / TRAIN_STEPS,
+                             images_per_s=VQ_TRAIN_BATCH * TRAIN_STEPS / sec, loss=loss,
+                             launches_per_step=dict(zip(KERNELS, per_step)))
+            emit("latent", run=name, **out[name])
+
+        # 6. a short f32 latent chain and its decode, card against CPU, the
+        # trained weights, the same injected noise
+        f32 = [_latent_model(run / "checkpoints", "float32", d) for d in ("cuda", "cpu")]
+    gen = torch.Generator().manual_seed(1)
+    shape, t_start = (4, 8, 8, 64), 10
+    x_T = torch.randn(shape, generator=gen)
+    noises = [torch.randn(shape, generator=gen) for _ in range(t_start)]
+    before = counts()
+    z_card = f32[0].p_sample_loop(shape, t_start=t_start, init_x=x_T.cuda(),
+                                  noises=[z.cuda() for z in noises])
+    img_card = f32[0].decode(z_card).cpu()
+    torch.cuda.synchronize()
+    launches = since(before)
+    z_cpu = f32[1].p_sample_loop(shape, t_start=t_start, init_x=x_T, noises=noises)
+    img_cpu = f32[1].decode(z_cpu)
+    check(launches == (17 * t_start, 4 * t_start, 0, 0, 1),
+          f"latent reference: launches {launches}")
+    err = (z_card.cpu() - z_cpu).abs().max().item()
+    atol = 1e-3                                   # as the slice phase's chain
+    check(math.isfinite(err) and err <= atol, f"latent chain: card vs CPU {err} > {atol}")
+    # the decode: codes equal but at near-ties; images whose codes all agree
+    # within the first stage's tolerance
+    z_q = (z_cpu / f32[1].scale).reshape(-1, shape[-1])
+    book = f32[1].modules["vq"].embedding
+    i_card = nearest_codebook((z_card / f32[0].scale).reshape(-1, shape[-1]).contiguous(),
+                              f32[0].modules["vq"].embedding).cpu()
+    i_cpu = nearest_codebook(z_q, book)
+    n_diff, gap, _ = near_tie_gaps(z_q, book, i_card, i_cpu)
+    check(gap <= 1.0, f"latent decode: {n_diff} codes differ beyond a near-tie ({gap})")
+    same = (i_card == i_cpu).reshape(shape[0], -1).all(dim=1)
+    img_err = (img_card - img_cpu).abs()[same].max().item() if same.any() else 0.0
+    check(math.isfinite(img_err) and img_err <= 5e-4,
+          f"latent decode: card vs CPU {img_err} > 5e-4 (as first_stage)")
+    out["reference"] = dict(steps=t_start, batch=shape[0], latent_max_abs_err=err,
+                            atol=atol, codes_differ=n_diff, near_tie_gap=gap,
+                            image_max_abs_err=img_err, image_atol=5e-4,
+                            images_compared=int(same.sum()),
+                            launches=dict(zip(KERNELS, launches)))
+    emit("latent", run="reference", **out["reference"])
+    return out
+
+
 def totals(rows: list[dict], key: str):
     vals = [r[key] for r in rows]
     if any(v is None for v in vals):
         return None
     return sum(v * r["calls_per_forward"] for v, r in zip(vals, rows))
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -657,17 +989,23 @@ def main() -> int:
     la_rows = parity_la(torch.bfloat16) + parity_la(torch.float32)
     gn_bwd_rows = parity_gn_bwd(torch.bfloat16) + parity_gn_bwd(torch.float32)
     la_bwd_rows = parity_la_bwd(torch.bfloat16) + parity_la_bwd(torch.float32)
+    vq_rows = parity_vq()
     phase_unet()
     sl = phase_slice()                  # the sampling path: zeroes, then reads
     phase_train_unet()
     reset_counts()                      # the training path
     tr = phase_train()
     tr_launches = counts()
-    check(all(n > 0 for n in tr_launches),
+    check(all(n > 0 for n in tr_launches[:4]),
           f"training path launched {tr_launches}: a kernel never ran")
-    emit("train", run="path", launches=dict(zip(
-        ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
-         "linear_attention_bwd"), tr_launches)))
+    emit("train", run="path", launches=dict(zip(KERNELS, tr_launches)))
+    phase_first_stage()
+    reset_counts()                      # the VQ-VAE -> latent-DDPM path
+    lat = phase_latent()
+    lat_launches = counts()
+    check(all(n > 0 for n in lat_launches),
+          f"latent path launched {lat_launches}: a kernel never ran")
+    emit("latent", run="path", launches=dict(zip(KERNELS, lat_launches)))
     kernels = []
     gn_src = "igm_tpu_torch/csrc/group_norm_mish.cu"
     la_src = "igm_tpu_torch/csrc/linear_attention.cu"
@@ -682,7 +1020,8 @@ def main() -> int:
              "igm_tpu/ops/attention.py:99 (XLA custom VJP _flat_bwd)", "backward"))):
         main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
         bytes_bound = all(r["bound_by"] == "bytes" for r in main_rows)
-        by_path = {"sampling": sl["launches"][i], "training": tr_launches[i]}
+        by_path = {"sampling": sl["launches"][i], "training": tr_launches[i],
+                   "latent": lat_launches[i]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -692,10 +1031,29 @@ def main() -> int:
             bound_by="bytes" if bytes_bound else "operations",
             library_ms=totals(main_rows, "library_ms"),
             per=f"all calls of one UNet {per}, batch 256, bf16"))
+    vq_main = vq_rows[0]
+    by_path = {"sampling": sl["launches"][4], "training": tr_launches[4],
+               "latent": lat_launches[4]}
+    kernels.append(dict(
+        name="nearest_codebook", route="cuda",
+        source="igm_tpu_torch/csrc/nearest_codebook.cu",
+        replaces="igm_tpu/ops/pallas_vq.py:47", launches=sum(by_path.values()),
+        launches_by_path=by_path, max_abs_err=max(r["max_abs_err"] for r in vq_rows),
+        ms=vq_main["kernel_ms"], plain_ms=vq_main["plain_ms"],
+        bound_ms=vq_main["bound_ms"], bound_by=vq_main["bound_by"],
+        library_ms=vq_main["library_ms"],
+        per="one call at M=8192, K=512, D=64 (a VQ-VAE train step at batch 128), f32; "
+            "max_abs_err is the score gap at rows that differ; library_ms is "
+            "torch.cdist(z, e).argmin(1), two calls"))
     emit("summary", train_images_per_s=tr["speed"]["images_per_s"],
          train_ms_per_step=tr["speed"]["ms_per_step"],
          ddim_images_per_s=sl["ddim"]["images_per_s"],
-         ancestral_images_per_s=sl["ancestral"]["images_per_s"])
+         ancestral_images_per_s=sl["ancestral"]["images_per_s"],
+         latent_ddim_images_per_s=lat["ddim"]["images_per_s"],
+         latent_ancestral_images_per_s=lat["ancestral"]["images_per_s"],
+         vqvae_train_images_per_s=lat["vqvae_train"]["images_per_s"],
+         latent_train_images_per_s=lat["latent_train"]["images_per_s"],
+         seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

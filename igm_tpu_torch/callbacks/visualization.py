@@ -54,9 +54,11 @@ def save_image_grid(grid_hwc: np.ndarray, path: str) -> None:
 
 class SampleImagesCallback:
     """Real/recon/fake/other grids to the logger at the first validation
-    batch of every ``every_n_epochs``-th epoch, and the sample grid to
-    ``results/{epoch}.jpg``.  Takes the host (numpy) ValidationResult the
-    trainer hands over."""
+    batch of every ``every_n_epochs``-th epoch, the sample grid to
+    ``results/{epoch}.jpg`` and (beyond ``igm_tpu``, which only logs it) the
+    reconstruction grid to ``results/recon_{epoch}.jpg``, so a run without
+    a logger still leaves it on disk.  Takes the host (numpy)
+    ValidationResult the trainer hands over."""
 
     def __init__(self, batch_size: int = 64, every_n_epochs: int = 1):
         self.batch_size = batch_size
@@ -70,13 +72,15 @@ class SampleImagesCallback:
         if outputs.real_image is not None:
             logger.log_image("images/real",
                              get_grid_images(outputs.real_image, model), epoch)
+        result_path = Path("results")
         if outputs.recon_image is not None:
-            logger.log_image("images/recon",
-                             get_grid_images(outputs.recon_image, model), epoch)
+            recon_grid = get_grid_images(outputs.recon_image, model)
+            logger.log_image("images/recon", recon_grid, epoch)
+            result_path.mkdir(parents=True, exist_ok=True)
+            save_image_grid(recon_grid, str(result_path / f"recon_{epoch}.jpg"))
         if outputs.fake_image is not None:
             fake_grid = get_grid_images(outputs.fake_image, model)
             logger.log_image("images/sample", fake_grid, epoch)
-            result_path = Path("results")
             result_path.mkdir(parents=True, exist_ok=True)
             save_image_grid(fake_grid, str(result_path / f"{epoch}.jpg"))
         for key, value in (outputs.others or {}).items():

@@ -8,17 +8,21 @@ composes the config, changes into the run directory ``hydra.run.dir``
 (``logs/runs/<exp_name>``, where checkpoints, ``results/*.jpg`` and the
 TensorBoard files go) and trains (``igm_tpu_torch.train.train``).
 
-    python -m igm_tpu_torch.cli experiment=ddpm/cifar10 --weights w.pt \\
+    python -m igm_tpu_torch.cli experiment=ddpm/cifar10 [--ckpt DIR | --weights w.pt] \\
         [--n 64] [--seed 0] [--out samples.png] [--sampler ddim] [--steps 50] \\
         [--device cpu]
 
 Composes the config, instantiates the port's model on the card (or on the
-device ``--device`` names), loads the weights, runs the ancestral sampler
-(or ``--sampler ddim``), and writes a grid image.  ``--weights`` takes a
-``torch.save``d state_dict of the denoiser or an ``.npz`` of ``igm_tpu``
+device ``--device`` names), loads the weights, runs the model's sampler
+(diffusion: ancestral, or ``--sampler ddim``; ``experiment=vqvae/*``:
+decoded random codes), and writes a grid image.  ``--ckpt`` restores the
+whole train state from the newest of the port's checkpoints in DIR: every
+module (for latent DDPM the denoiser, the first stage, the codebook and the
+latent scale) and the EMA shadow the samplers use.  ``--weights`` takes the
+denoiser alone: a ``torch.save``d state_dict or an ``.npz`` of ``igm_tpu``
 denoiser param leaves keyed by their ``/``-joined path (converted through
-``igm_tpu_torch.interop``).  Without ``--weights`` the weights are a seeded
-random init, and the CLI says so.
+``igm_tpu_torch.interop``).  Without either the weights are a seeded random
+init, and the CLI says so.
 
 The config tree is found via (first hit wins): ``$IGM_CONFIG_DIR``, then
 ``./configs`` relative to the CWD, then the repo checkout next to this
@@ -64,7 +68,7 @@ def train_main(argv=None):
                         help="config overrides (experiment=...)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
-    args = parser.parse_args(argv)
+    args = parser.parse_intermixed_args(argv)
     if any(o in ("-m", "--multirun") for o in args.overrides):
         raise SystemExit("multirun and sweeps are not ported yet: one run per call")
 
@@ -100,9 +104,13 @@ def sample_main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="python -m igm_tpu_torch.cli")
     parser.add_argument("overrides", nargs="*",
                         help="config overrides (experiment=...)")
-    parser.add_argument("--weights", default=None,
-                        help="denoiser weights: a torch state_dict file, or an "
-                             ".npz of igm_tpu param leaves by '/'-joined path")
+    weights = parser.add_mutually_exclusive_group()
+    weights.add_argument("--ckpt", default=None,
+                         help="a directory of the port's checkpoints: restore "
+                              "every module from the newest")
+    weights.add_argument("--weights", default=None,
+                         help="denoiser weights: a torch state_dict file, or an "
+                              ".npz of igm_tpu param leaves by '/'-joined path")
     parser.add_argument("--n", type=int, default=64)
     parser.add_argument("--out", default="samples.png")
     parser.add_argument("--seed", type=int, default=0)
@@ -112,7 +120,7 @@ def sample_main(argv=None) -> None:
                         help="fast-sampler step count (default: config)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
-    args = parser.parse_args(argv)
+    args = parser.parse_intermixed_args(argv)
 
     from .callbacks.visualization import get_grid_images, save_image_grid
     from .config import compose, instantiate
@@ -125,13 +133,22 @@ def sample_main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     cfg = compose(config_dir(), [*args.overrides, "print_config=False"])
     model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device)
-    if args.weights:
+    if args.ckpt:
+        from .core.checkpoint import CheckpointManager
+        state = model.init_state(0)
+        saved = CheckpointManager(args.ckpt).restore_raw()
+        # the training generator's state stays behind: the checkpoint may
+        # come from another device, and sampling draws from its own
+        state.load_state_dict({**saved, "generator": state.generator.get_state()})
+    elif args.weights:
         load_weights(model.modules["denoise"], args.weights)
     else:
         model.init_params(args.seed)
-        print(f"no --weights: random init from seed {args.seed}")
+        print(f"no --ckpt or --weights: random init from seed {args.seed}")
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.sampler == "ddim":
+        if not hasattr(model, "ddim_sample"):
+            raise SystemExit(f"--sampler ddim: {type(model).__name__} has no DDIM sampler")
         steps = args.steps or int(model.hparams.ddim_steps)
         imgs = torch.clamp(model.ddim_sample(args.n, steps=steps,
                                              generator=generator), -1.0, 1.0)

@@ -10,6 +10,8 @@ file in a background thread (as orbax writes asynchronously); ``wait``
 joins that thread and raises what it raised.  A file is written under a
 temporary name and renamed, so a cut run leaves no half-written checkpoint.
 
+``restore_raw`` reads a checkpoint without a state to load it into, as
+``igm_tpu``'s does: LatentDDPM splices a VQ-VAE's first stage from it.
 This reads only the port's own files: orbax checkpoints of ``igm_tpu``
 need JAX to read.
 """
@@ -42,7 +44,6 @@ def _to_host(obj: Any) -> Any:
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 2):
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = int(max_to_keep)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -51,6 +52,8 @@ class CheckpointManager:
         return self.directory / f"step_{int(step)}.pt"
 
     def steps(self) -> List[int]:
+        if not self.directory.is_dir():
+            return []
         return sorted(int(m.group(1)) for p in self.directory.iterdir()
                       if (m := _NAME.match(p.name)))
 
@@ -67,6 +70,7 @@ class CheckpointManager:
 
     def _write(self, step: int, snapshot: dict) -> None:
         try:
+            self.directory.mkdir(parents=True, exist_ok=True)
             path = self._path(step)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             torch.save(snapshot, tmp)
@@ -84,12 +88,17 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise RuntimeError(f"checkpoint write to {self.directory} failed") from err
 
-    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
-        """Load checkpoint ``step`` (default: the newest) into ``state``."""
+    def restore_raw(self, step: Optional[int] = None) -> dict:
+        """Checkpoint ``step`` (default: the newest) as it was saved, on
+        the CPU: {step, params (the modules' parameters and buffers by
+        state_dict key), opt_states, generator}."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        saved = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        state.load_state_dict(saved)
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
+        """Load checkpoint ``step`` (default: the newest) into ``state``."""
+        state.load_state_dict(self.restore_raw(step))
         return state

@@ -13,6 +13,8 @@
   port's own CUDA kernels, which it cannot see;
 - validation every ``check_val_every_n_epoch`` epochs (and after the last),
   handing host ValidationResults to the callbacks;
+- ``model.on_fit_start(state, train_arrays)`` after ``init_state`` and
+  before a resume restore, so a checkpointed value it would set wins;
 - a checkpoint every ``ckpt_every_n_epochs`` epochs and at the end; with
   ``resume`` a run continues from the newest checkpoint there, at its
   step, with the data order and random stream an uninterrupted run would
@@ -135,6 +137,8 @@ class Trainer:
         self.logger.log_hyperparams(hp)
 
         state = model.init_state(self.seed)
+        # before a resume restore, so the checkpoint's value wins
+        state = model.on_fit_start(state, train_arrays)
         if self.enable_checkpointing:
             from .checkpoint import CheckpointManager
             self.ckpt_manager = CheckpointManager(str(self.resume or "checkpoints"))

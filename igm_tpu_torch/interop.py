@@ -1,11 +1,15 @@
-"""Flax param tree -> torch ``state_dict`` for the UNet denoiser.
+"""Flax param trees -> torch ``state_dict``s.
 
-Input: the leaves of ``igm_tpu``'s ``denoise`` param tree as numpy arrays,
-keyed by their ``/``-joined path (``ResnetBlock_0/Block_0/Conv_0/Conv_0/kernel``).
-The port's modules carry Flax's names, so a path maps onto a ``state_dict``
-key by dropping the inner ``<Type>_0`` that ``igm_tpu``'s Conv / Dense /
+Input: the leaves of an ``igm_tpu`` param tree as numpy arrays, keyed by
+their ``/``-joined path: the ``denoise`` tree alone
+(``ResnetBlock_0/Block_0/Conv_0/Conv_0/kernel``) maps onto the UNet's
+``state_dict``, a whole model's tree (``denoise/...``, ``encoder/...``,
+``decoder/...``, ``vq/embedding``) onto the model's ``modules``.  The port's
+modules carry Flax's names, so a path maps onto a ``state_dict`` key by
+dropping the inner ``<Type>_0`` that ``igm_tpu``'s Conv / Dense /
 ConvTranspose wrappers (and the wslice qkv ``QKVKernel``) put around the
-Flax layer, and renaming ``kernel`` to ``weight``.  Layouts:
+Flax layer, and renaming ``kernel`` to ``weight``.  Mutable collections map
+onto buffers (:func:`flax_mutables_to_torch`).  Layouts:
 
 - Conv kernel: HWIO -> OIHW.
 - Dense kernel: (in, out) -> (out, in).
@@ -56,9 +60,24 @@ def _convert(path: str, value: np.ndarray) -> np.ndarray:
 
 def flax_to_torch(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """``{'/'-joined Flax path: array}`` -> ``state_dict`` of the port's
-    ``Unet`` (float32 CPU tensors)."""
+    module with that tree (the ``Unet``, or a model's ``modules`` for a
+    whole-model tree), float32 CPU tensors."""
     out = {}
     for path, value in params.items():
         arr = _convert(path, np.asarray(value, np.float32))
         out[flax_key_to_torch(path)] = torch.from_numpy(np.array(arr, order="C"))
+    return out
+
+
+def flax_mutables_to_torch(mutables: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """``igm_tpu`` mutable collections by ``/``-joined path -> the buffers of
+    the port's ``modules``: the EMA ``codebook`` collection
+    (``vq/codebook/{embedding,cluster_size,cluster_sum}``) onto ``vq``'s
+    buffers, and ``latent/scale`` onto the latent scale."""
+    out = {}
+    for path, value in mutables.items():
+        parts = path.split("/")
+        if len(parts) == 3 and parts[1] == "codebook":
+            del parts[1]
+        out[".".join(parts)] = torch.from_numpy(np.array(value, np.float32, order="C"))
     return out

@@ -12,7 +12,8 @@ Interface the Trainer calls:
   train_step(state, batch)                       -> (TrainState, metrics)
   validation_step(state, batch, generator,
                   sample=False)                  -> (ValidationResult, metrics)
-  on_restore(state), on_train_epoch_end(trainer)
+  on_fit_start(state, train_arrays), on_restore(state),
+  on_train_epoch_end(trainer)
 Metrics are dicts of scalar tensors, fetched by the trainer when it logs.
 
 ``train_step_n`` (the ``lax.scan`` chain of ``igm_tpu``) is not ported: the
@@ -102,6 +103,12 @@ class BaseModel:
                         generator: torch.Generator,
                         sample: bool = False):  # pragma: no cover
         raise NotImplementedError
+
+    def on_fit_start(self, state: TrainState, train_arrays) -> TrainState:
+        """Run once after ``init_state``, before a resume restores a
+        checkpoint (so a checkpointed value wins), with the training split's
+        host arrays.  Default: identity."""
+        return state
 
     def on_restore(self, state: TrainState) -> TrainState:
         """Run after a checkpoint restore, before training resumes.

@@ -9,6 +9,9 @@ explicit ``torch.Generator`` (training: the TrainState's); for tests, the
 train step also takes its timesteps, noise and label drop as tensors, and
 the samplers the initial ``x`` and the per-step noise.
 
+``denoise_channels``, ``_sample_shape`` and ``_to_diffusion_space`` are the
+hooks through which ``LatentDDPM`` diffuses in a VQ-VAE's latent space.
+
 Not yet ported (they wait for later slices): ``dpm_sample`` (and so
 ``val_sampler=dpm``), ``interpolate``, ``inpaint``, and the DiT backbone.
 """
@@ -89,10 +92,21 @@ class DDPM(BaseModel):
         dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
         self.compute_dtype = dtype or torch.float32
         self.modules = nn.ModuleDict({"denoise": Unet(
-            dim=hidden_dim, channels=self.channels, dim_mults=tuple(dim_mults),
+            dim=hidden_dim, channels=self.denoise_channels, dim_mults=tuple(dim_mults),
             num_classes=self.num_classes, dtype=dtype, remat=bool(remat))})
         self.modules.eval()
         self.init_params(0)
+
+    # hooks overridden by LatentDDPM (diffusion in a learned latent space)
+    @property
+    def denoise_channels(self) -> int:
+        return self.channels
+
+    def _sample_shape(self, n: int) -> tuple:
+        return (n, self.height, self.width, self.channels)
+
+    def _to_diffusion_space(self, imgs: torch.Tensor) -> torch.Tensor:
+        return imgs
 
     # ------------------------------------------------------------------ train
     def init_state(self, seed: int = 0) -> TrainState:
@@ -140,7 +154,7 @@ class DDPM(BaseModel):
         label-drop mask with probability ``cond_drop_prob``: dropped labels
         become the null token."""
         imgs_raw, labels = batch
-        imgs = self.preprocess(imgs_raw)
+        imgs = self._to_diffusion_space(self.preprocess(imgs_raw))
         n = imgs.shape[0]
         gen = state.generator
         if t is None:
@@ -185,21 +199,20 @@ class DDPM(BaseModel):
                                self._noise(imgs.shape, generator))
         result = ValidationResult(real_image=imgs, others={"diffusion": diffused})
         if sample:
-            n_s = int(self.hparams.sample_batch)
-            if self.hparams.val_sampler == "ddim":
-                cond = {}
-                if self.num_classes:
-                    cond = dict(y=self._default_labels(n_s),
-                                guidance=float(self.hparams.guidance_scale))
-                result.fake_image = self.ddim_sample(
-                    n_s, steps=int(self.hparams.ddim_steps), generator=generator,
-                    **cond)
-            else:
-                result.fake_image = self.sample(n_s, generator)
+            result.fake_image = self._validation_samples(generator)
         return result, {}
 
-    def _sample_shape(self, n: int) -> tuple:
-        return (n, self.height, self.width, self.channels)
+    def _validation_samples(self, generator: torch.Generator) -> torch.Tensor:
+        """``sample_batch`` samples from ``val_sampler`` (ancestral|ddim)."""
+        n_s = int(self.hparams.sample_batch)
+        if self.hparams.val_sampler == "ddim":
+            cond = {}
+            if self.num_classes:
+                cond = dict(y=self._default_labels(n_s),
+                            guidance=float(self.hparams.guidance_scale))
+            return self.ddim_sample(n_s, steps=int(self.hparams.ddim_steps),
+                                    generator=generator, **cond)
+        return self.sample(n_s, generator)
 
     def _noise(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
         return torch.randn(shape, generator=generator, device=self.device)

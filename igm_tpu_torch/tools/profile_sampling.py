@@ -1,14 +1,17 @@
 """Where a sampling step's time goes on the card.
 
-    python -m igm_tpu_torch.tools.profile_sampling [--steps 10] [--batch 64] \\
-        [--trace trace.json]
+    python -m igm_tpu_torch.tools.profile_sampling [overrides ...] [--steps 10] \\
+        [--batch 64] [--trace trace.json]
 
-Composes ``experiment=ddpm/cifar10`` through the port's config (bf16 on the
+Composes the config (default ``experiment=ddpm/cifar10``; e.g.
+``experiment=latent_ddpm/cifar10``) through the port's config (bf16 on the
 card, seeded random weights), warms up, then runs ``--steps`` DDIM steps
 under ``torch.profiler``.  Prints the card's name and power limit, the top
 kernels by device time, and one JSON line: wall time per step (measured
-once without and once under the profiler), device busy time per step (the sum of kernel times; one stream, so they do not overlap),
-the idle share, and kernel launches per step, by group.
+once without and once under the profiler), device busy time per step (the
+sum of kernel times; one stream, so they do not overlap), the idle share,
+and kernel launches per step, by group.  A latent model's run includes its
+one decode (first-stage quantise and decoder), spread over the steps.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ REPO = Path(__file__).resolve().parent.parent.parent
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="python -m igm_tpu_torch.tools.profile_sampling")
+    parser.add_argument("overrides", nargs="*", default=["experiment=ddpm/cifar10"],
+                        help="config overrides (default: experiment=ddpm/cifar10)")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--trace", default=None, help="chrome trace output path")
@@ -36,7 +41,10 @@ def main(argv=None) -> None:
         raise SystemExit("profile_sampling: needs a CUDA card")
     smi = nvidia_smi()
     print(smi)
-    cfg = compose(REPO / "configs", ["experiment=ddpm/cifar10", "print_config=False"])
+    # float32 products and convs in full float32, as the CLIs run them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = compose(REPO / "configs", [*args.overrides, "print_config=False"])
     model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
     gen = torch.Generator("cuda").manual_seed(0)
     model.ddim_sample(args.batch, steps=3, generator=gen)
@@ -55,7 +63,7 @@ def main(argv=None) -> None:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "batch": args.batch, "steps": args.steps,
+        "overrides": args.overrides, "batch": args.batch, "steps": args.steps,
         **device_summary(prof, args.steps, wall_unprofiled, wall)}))
 
 

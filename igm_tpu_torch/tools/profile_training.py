@@ -1,11 +1,13 @@
 """Where a training step's time goes on the card.
 
-    python -m igm_tpu_torch.tools.profile_training [--steps 10] [--batch 256] \\
-        [--trace trace.json]
+    python -m igm_tpu_torch.tools.profile_training [overrides ...] [--steps 10] \\
+        [--batch 256] [--trace trace.json]
 
-Composes ``experiment=ddpm/cifar10`` through the port's config (bf16 on the
-card, seeded random weights), builds the train state, warms up, then runs
-``--steps`` train steps (``DDPM.train_step``: forward, backward, Adam) on one
+Composes the config (default ``experiment=ddpm/cifar10``; e.g.
+``experiment=vqvae/cifar10``) through the port's config (bf16 on the card
+where the model has a compute dtype, seeded random weights), builds the
+train state, warms up, then runs ``--steps`` train steps (the model's
+``train_step``: forward, backward, Adam) on one
 uint8 batch made on the card, once timed by the host clock and once under
 ``torch.profiler``.  Prints the card's name and power limit, the top kernels
 by device time, and one JSON line: wall time per step, device busy time per
@@ -30,6 +32,8 @@ REPO = Path(__file__).resolve().parent.parent.parent
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="python -m igm_tpu_torch.tools.profile_training")
+    parser.add_argument("overrides", nargs="*", default=["experiment=ddpm/cifar10"],
+                        help="config overrides (default: experiment=ddpm/cifar10)")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--trace", default=None, help="chrome trace output path")
@@ -38,7 +42,10 @@ def main(argv=None) -> None:
         raise SystemExit("profile_training: needs a CUDA card")
     smi = nvidia_smi()
     print(smi)
-    cfg = compose(REPO / "configs", ["experiment=ddpm/cifar10", "print_config=False"])
+    # float32 products and convs in full float32, as the CLIs run them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = compose(REPO / "configs", [*args.overrides, "print_config=False"])
     model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
     state = model.init_state(0)
     gen = torch.Generator("cuda").manual_seed(1)
@@ -69,8 +76,9 @@ def main(argv=None) -> None:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "batch": args.batch, "steps": args.steps, "dtype": str(model.compute_dtype),
-        "loss": float(metrics["train_loss/loss"]),
+        "overrides": args.overrides, "batch": args.batch, "steps": args.steps,
+        "dtype": str(getattr(model, "compute_dtype", torch.float32)),
+        "loss": {k: float(v) for k, v in metrics.items()},
         "images_per_s": args.batch * args.steps / wall_unprofiled,
         **device_summary(prof, args.steps, wall_unprofiled, wall)}))
 

@@ -12,6 +12,7 @@ GROUPS = (("group_norm_mish_bwd", ("group_norm_mish_bwd", "sum_partials")),
           ("group_norm_mish", ("group_norm_mish",)),
           ("linear_attention_bwd", ("linear_attention_bwd",)),
           ("linear_attention", ("linear_attention",)),
+          ("nearest_codebook", ("nearest_codebook",)),
           ("conv", ("conv", "xmma", "cudnn", "implicit", "dgrad", "wgrad", "sm90_",
                     "cutlass", "gemm", "nhwc", "nchw")),
           ("optimizer", ("adam", "foreach", "multi_tensor")),

@@ -81,3 +81,50 @@ def test_sample_main_loads_igm_tpu_npz_weights(tmp_path):
                      "--out", str(tmp_path / f"{ext}.png")])
     np.testing.assert_array_equal(_grid(tmp_path / "npz.png"),
                                   _grid(tmp_path / "pt.png"))
+
+
+FIRST_STAGE_TINY = ["datamodule.width=16", "datamodule.height=16", "model.latent_dim=8",
+                    "model.num_embeddings=16", "+networks.encoder.res_h_dim=8",
+                    "+networks.decoder.h_dim=8", "+networks.decoder.res_h_dim=8"]
+
+
+def test_vqvae_then_latent_ddpm_then_sample(tmp_path, monkeypatch):
+    """The user's chain through the CLIs: train a VQ-VAE, train a latent DDPM
+    on its frozen first stage, sample from the latent DDPM's checkpoint."""
+    from igm_tpu_torch.cli import train_main
+    monkeypatch.chdir(tmp_path)
+    common = [*FIRST_STAGE_TINY, "trainer.max_epochs=1", "trainer.limit_train_batches=2",
+              "trainer.limit_val_batches=1", "datamodule.batch_size=16", "logger=null",
+              "print_config=False", f"datamodule.data_dir={tmp_path / 'data'}",
+              "--device", "cpu"]
+    vq_loss = train_main(["experiment=vqvae/cifar10", "optimized_metric=val/recon_loss",
+                          *common])
+    assert np.isfinite(vq_loss)
+    vq_run = tmp_path / "logs" / "runs" / "vqvae" / "cifar10"
+    assert [p.name for p in (vq_run / "checkpoints").iterdir()] == ["step_2.pt"]
+    assert (vq_run / "results" / "recon_0.jpg").is_file()
+
+    latent = ["experiment=latent_ddpm/cifar10", "model.hidden_dim=8", "model.timesteps=6"]
+    loss = train_main([*latent, f"model.first_stage_ckpt={vq_run / 'checkpoints'}",
+                       "model.val_sampler=ddim", "model.ddim_steps=2", "model.sample_batch=4",
+                       "optimized_metric=train_loss/loss", *common])
+    assert np.isfinite(loss)
+    run = tmp_path / "logs" / "runs" / "latent_ddpm" / "cifar10"
+    saved = torch.load(run / "checkpoints" / "step_2.pt", weights_only=True)
+    first = torch.load(vq_run / "checkpoints" / "step_2.pt", weights_only=True)
+    for k, v in first["params"].items():               # the frozen first stage
+        assert torch.equal(saved["params"][k], v), k
+    scale = float(saved["params"]["latent.scale"])
+    assert np.isfinite(scale) and scale != 1.0          # calibrated at fit start
+    assert (run / "results" / "0.jpg").is_file()
+
+    out = tmp_path / "samples.png"
+    # overrides may follow the options
+    sample_main([*latent, "--ckpt", str(run / "checkpoints"), *FIRST_STAGE_TINY,
+                 "--sampler", "ddim", "--steps", "3", "--n", "4", "--device", "cpu",
+                 "--out", str(out)])
+    assert _grid(out).shape == (2 + 18, 2 + 4 * 18, 3)
+    sample_main(["experiment=vqvae/cifar10", *FIRST_STAGE_TINY, "--ckpt",
+                 str(vq_run / "checkpoints"), "--n", "2", "--device", "cpu",
+                 "--out", str(tmp_path / "codes.png")])
+    assert _grid(tmp_path / "codes.png").shape == (2 + 18, 2 + 2 * 18, 3)

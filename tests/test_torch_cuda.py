@@ -4,7 +4,10 @@ Skipped without a CUDA card (the kernels have no CPU mode); run them there
 with ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
 Tolerances as in chip_smoke.py: float32 sums in another order; bf16 one
 ulp of the value.  The f32 parameter gradients of GroupNorm+Mish sum up to
-N*H*W products per channel: held to 1e-4 of their largest value.
+N*H*W products per channel: held to 1e-4 of their largest value.  The
+nearest-codebook indices are equal except at near-ties, where the plain
+version's scores at the two indices differ by at most
+1e-5 (||e||^2 + 2 ||z|| ||e||) (``near_tie_gaps`` <= 1).
 """
 import sys
 from pathlib import Path
@@ -20,6 +23,8 @@ from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
 from igm_tpu_torch.ops.linear_attention import (  # noqa: E402
     LinearAttentionFlatFn, linear_attention_flat, linear_attention_flat_bwd,
     linear_attention_flat_bwd_plain, linear_attention_flat_plain)
+from igm_tpu_torch.ops.vq import (  # noqa: E402
+    near_tie_gaps, nearest_codebook, nearest_codebook_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +51,9 @@ def _close(got, want, dtype):
     ((2, 5, 7, 32), 8),        # bf16: groups of 4 channels, scalar loads
     ((1, 4, 4, 40), 8),        # groups of 5 channels: scalar loads
     ((2, 3, 3, 512), 32),
+    ((64, 8, 8, 64), 8),       # the latent UNet's shapes (batch 64 and 128)
+    ((64, 4, 4, 128), 8),
+    ((128, 4, 4, 64), 8),
 ])
 def test_group_norm_mish_kernel(gen, dtype, shape, groups):
     x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
@@ -81,7 +89,8 @@ def test_group_norm_mish_kernel_rejects_what_it_cannot_take(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1)])
+@pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1),
+                                 (64, 64), (128, 16)])
 def test_linear_attention_kernel(gen, dtype, b, n):
     q, k, v = (torch.randn(b, n, 128, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
@@ -99,7 +108,8 @@ def test_linear_attention_kernel_rejects_other_head_dims(gen):
 
 
 GN_SHAPES = [((3, 32, 32, 64), 8), ((2, 8, 8, 256), 8), ((2, 5, 7, 32), 8),
-             ((1, 4, 4, 40), 8), ((2, 3, 3, 512), 32)]
+             ((1, 4, 4, 40), 8), ((2, 3, 3, 512), 32), ((128, 8, 8, 64), 8),
+             ((128, 4, 4, 128), 8), ((128, 4, 4, 64), 8)]
 
 
 def _gn_inputs(gen, shape, dtype):
@@ -140,7 +150,8 @@ def test_group_norm_mish_bwd_kernel_repeats_exactly(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1)])
+@pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1),
+                                 (64, 64), (128, 16)])
 def test_linear_attention_bwd_kernel(gen, dtype, b, n):
     q, k, v, g = (torch.randn(b, n, 128, generator=gen, device="cuda").to(dtype)
                   for _ in range(4))
@@ -173,3 +184,46 @@ def test_autograd_functions_launch_both_kernels(gen):
     for a, b in zip(leaves, ref):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4 * float(b.grad.abs().max()),
                                    rtol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,d", [(8192, 512, 64), (4096, 512, 64), (1000, 500, 64),
+                                   (33, 65, 70), (1, 1, 1)])
+def test_nearest_codebook_kernel(gen, m, k, d):
+    """The VQ-VAE train step's and the decode's shapes, ragged M and K, and a
+    D that is not a multiple of the staged chunk."""
+    z = torch.randn(m, d, generator=gen, device="cuda")
+    book = torch.randn(k, d, generator=gen, device="cuda")
+    before = nearest_codebook.launches
+    got = nearest_codebook(z, book)
+    torch.cuda.synchronize()
+    assert nearest_codebook.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m,)
+    want = nearest_codebook_plain(z, book)
+    n_diff, gap, _ = near_tie_gaps(z, book, got, want)
+    print(f"rows that differ: {n_diff} of {m}, largest gap {gap:.3g}")
+    assert gap <= 1.0
+
+
+def test_nearest_codebook_kernel_ties_and_hits(gen):
+    """Duplicated codes: the lower index; z rows on codes: those codes."""
+    base = torch.randn(256, 64, generator=gen, device="cuda")
+    perm = torch.randperm(256, generator=gen, device="cuda")
+    book = torch.cat([base, base[perm]])
+    z = torch.randn(4096, 64, generator=gen, device="cuda")
+    got = nearest_codebook(z, book)
+    assert int(got.max()) < 256           # each best code's first copy
+    pick = torch.randint(0, 256, (4096,), generator=gen, device="cuda")
+    assert torch.equal(nearest_codebook(base[pick], base).long(), pick)
+
+
+def test_nearest_codebook_kernel_rejects_what_it_cannot_take(gen):
+    z = torch.randn(64, 64, generator=gen, device="cuda")
+    book = torch.randn(32, 64, generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        nearest_codebook(z.bfloat16(), book)
+    with pytest.raises(TypeError):
+        nearest_codebook(z, book.double())
+    with pytest.raises(ValueError):
+        nearest_codebook(z.t(), book)                            # (64, 64) strided
+    with pytest.raises(ValueError):
+        nearest_codebook(z, book.cpu())

@@ -55,6 +55,12 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
         assert type(model) is DDPM, type(model)
         assert model.hparams.dim_mults == [1, 2, 4]
         assert model.hparams.hidden_dim == 64 and model.timesteps == 1000
+        from igm_tpu_torch.models.latent_ddpm import LatentDDPM
+        from igm_tpu_torch.models.vqvae import VQVAE
+        for exp, cls in (("vqvae/cifar10", VQVAE), ("latent_ddpm/cifar10", LatentDDPM)):
+            cfg = compose({str(REPO / "configs")!r}, ["experiment=" + exp])
+            model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cpu")
+            assert type(model) is cls, type(model)
         bad = [m for m in sys.modules
                if m.split(".")[0] in {FORBIDDEN!r}]
         assert not bad, bad
