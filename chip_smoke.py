@@ -56,15 +56,30 @@ non-zero:
           latent-UNet forward, as many backward per latent train step, no
           nearest_codebook in a latent train step, one per decode and per
           VQ-VAE train step.
+  tar     the TAR path (experiment=tar/mnist, model.flash_attention=dropout),
+          counters zeroed just before and read just after: the dropout
+          flash-attention parity rows (forward at rates 0 and 0.1, dq and
+          dk/dv, B=128, S=785, H=4, D=64, bf16 and f32, one seed that wraps
+          past 2**32, SDPA with dropout as the yardstick); one TARNet forward,
+          loss and f32 gradients (batch 8, dropout 0) on the card against the
+          CPU; exact launches: 4/4/4 per train step, 4 forwards at rate 0 per
+          cal_loss (8 per validation batch), none per KV decode step; the
+          train CLI (2 epochs of 3 steps, validation with samples and the
+          masked completion), a resume, one epoch of experiment=tar/mnist_cond
+          and the sampling CLI with --ckpt to a PNG; timed train steps at
+          batch 128 bf16 with flash_attention=dropout and =off, and sample(64).
 The nearest_codebook parity rows (f32, M x K x D = 8192 x 512 x 64, 4096 x
 512 x 64 and a ragged 1000 x 500 x 64) run with the other parity rows: the
 indices are equal except at near-ties (counted), with the kernel's time,
 the plain version's, the bound and torch.cdist(z, e).argmin(1) as the
 yardstick.
 
-Then the total time, a line with the card's name and power limit, one JSON
-line {"kernels": [...]}, and last {"ok": true, "device": {...}}.  Without a
-CUDA card the script exits non-zero and prints no result.
+Every path names the kernels it must launch (PATH_KERNELS); each of those
+must have launched at least once in that path's run.  Then the total time,
+a line with the card's name and power limit, one JSON line {"kernels":
+[...]} with every kernel's launches on every path, and last {"ok": true,
+"device": {...}}.  Without a CUDA card the script exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -109,6 +124,23 @@ VQ_TRAIN_BATCH = 128                 # the CIFAR-10 datamodule's batch
 VQ_SHAPES = [(8192, 512, 64), (4096, 512, 64), (1000, 500, 64)]
 SLEEP_CYCLES = 50_000_000            # ~25 ms: the host queues timed launches meanwhile
 L2_BYTES = 50 * 2 ** 20
+# TAR (experiment=tar/mnist): a batch of 128 images of 28x28x1 binary pixels
+# is S = 785 tokens; 4 heads of 64; attention-probs dropout 0.1
+TAR_SHAPE = (128, 785, 4, 64)
+TAR_RATE = 0.1
+TAR_SEEDS = (20261016, 2 ** 32 - 5)  # the second wraps: seed + b*H + h passes 2**32
+TAR_STEPS = 10
+# the dropout hash's integer operations per live (query, key) pair, with the
+# row term (qi * C1 ^ seed) and the column term (kj * C2) hoisted out of the
+# pair loop: 1 xor of the two terms, 3 shift+xor rounds (6), 2 multiplies, the
+# compare and the select = 11, on the CUDA cores' int32 lanes: 132 SMs x 64
+# lanes x 1.98 GHz
+HASH_OPS_PER_PAIR = 11
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# TARNet's f32 gradients, card against CPU, over the largest entry: 4x an
+# H100's reading (1.07e-4) and 7x the CPU's own spread between two attention
+# orders (5.7e-5), both at the same Dense_0 weight
+GRAD_TOL = 4e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -389,16 +421,44 @@ def parity_la_bwd(dtype) -> list[dict]:
 
 
 KERNELS = ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
-           "linear_attention_bwd", "nearest_codebook")
+           "linear_attention_bwd", "nearest_codebook", "dropout_attention_fwd",
+           "dropout_attention_dq", "dropout_attention_dkv")
+# the kernels each path must launch; the others may stay at 0 there
+PATH_KERNELS = {
+    "sampling": ("group_norm_mish", "linear_attention"),
+    "training": ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
+                 "linear_attention_bwd"),
+    "latent": ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
+               "linear_attention_bwd", "nearest_codebook"),
+    "tar": ("dropout_attention_fwd", "dropout_attention_dq", "dropout_attention_dkv"),
+}
 
 
 def _counters():
+    from igm_tpu_torch.ops.dropout_attention import (dropout_attention_dkv,
+                                                     dropout_attention_dq,
+                                                     dropout_attention_fwd)
     from igm_tpu_torch.ops.groupnorm import group_norm_mish, group_norm_mish_bwd
     from igm_tpu_torch.ops.linear_attention import (linear_attention_flat,
                                                     linear_attention_flat_bwd)
     from igm_tpu_torch.ops.vq import nearest_codebook
     return (group_norm_mish, linear_attention_flat, group_norm_mish_bwd,
-            linear_attention_flat_bwd, nearest_codebook)
+            linear_attention_flat_bwd, nearest_codebook, dropout_attention_fwd,
+            dropout_attention_dq, dropout_attention_dkv)
+
+
+def expected(**named: int) -> tuple[int, ...]:
+    """A counts() tuple: the named kernels' launches, 0 for the others."""
+    unknown = set(named) - set(KERNELS)
+    check(not unknown, f"unknown kernels {unknown}")
+    return tuple(named.get(k, 0) for k in KERNELS)
+
+
+def check_path(path: str, got: tuple[int, ...]) -> None:
+    """Every kernel the path must launch launched at least once."""
+    idle = [k for k, n in zip(KERNELS, got) if k in PATH_KERNELS[path] and n <= 0]
+    check(not idle, f"{path} path launched {dict(zip(KERNELS, got))}: "
+                    f"{idle} never ran")
 
 
 def reset_counts() -> None:
@@ -434,12 +494,11 @@ def phase_unet() -> dict:
         reset_counts()
         got = net(x.cuda(), t.cuda())
         torch.cuda.synchronize()
-        n_gn, n_la, n_gn_bwd, n_la_bwd, n_vq = counts()
+        n_gn, n_la, *_ = launched = counts()
         want = cpu_net(x, t)
-    check((n_gn, n_la, n_gn_bwd, n_la_bwd, n_vq) == (25, 6, 0, 0, 0),
-          f"one forward launched {n_gn} GroupNorm+Mish and {n_la} linear "
-          f"attention kernels and {n_gn_bwd} + {n_la_bwd} backwards, expected "
-          f"25 and 6 and none")
+    check(launched == expected(group_norm_mish=25, linear_attention=6),
+          f"one forward launched {dict(zip(KERNELS, launched))}, expected 25 "
+          f"GroupNorm+Mish and 6 linear attention and nothing else")
     err = (got.cpu() - want).abs().max().item()
     # float32 with TF32 off on both sides; cuDNN's and the CPU's conv
     # algorithms round differently, layer after layer, over ~40 layers
@@ -551,9 +610,11 @@ def phase_train_unet() -> dict:
             launches = counts()
         out.append((loss.item(), [g.cpu() for g in grads]))
         model.modules.eval()
-    check(launches == (25, 6, 25, 6, 0),
+    want_launches = expected(group_norm_mish=25, linear_attention=6,
+                             group_norm_mish_bwd=25, linear_attention_bwd=6)
+    check(launches == want_launches,
           f"one forward and backward launched {launches} ({', '.join(KERNELS)}), "
-          f"expected (25, 6, 25, 6, 0)")
+          f"expected {want_launches}")
     (loss_card, g_card), (loss_cpu, g_cpu) = out
     # float32 with TF32 off on both sides: cuDNN's and the CPU's conv
     # algorithms round differently over ~40 layers forward and back (the
@@ -608,7 +669,7 @@ def phase_train() -> dict:
             t0 = time.perf_counter()
             loss = _train_cli(tmp, "model.val_sampler=ddim", *overrides)
             sec = time.perf_counter() - t0
-            gn, la, gn_bwd, la_bwd, vq = since(before)
+            gn, la, gn_bwd, la_bwd, vq, *_ = since(before)
             ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
             grids = sorted(p.name for p in (run / "results").iterdir())
             check(loss is not None and math.isfinite(loss), f"train {name}: loss {loss}")
@@ -658,8 +719,11 @@ def phase_train() -> dict:
     launches = tuple(a - b for a, b in zip(counts(), before))
     loss = float(metrics["train_loss/loss"])
     check(math.isfinite(loss), f"timed train step: loss {loss}")
-    check(launches == (25 * TRAIN_STEPS, 6 * TRAIN_STEPS, 25 * TRAIN_STEPS,
-                       6 * TRAIN_STEPS, 0), f"timed train step: launches {launches}")
+    check(launches == expected(group_norm_mish=25 * TRAIN_STEPS,
+                               linear_attention=6 * TRAIN_STEPS,
+                               group_norm_mish_bwd=25 * TRAIN_STEPS,
+                               linear_attention_bwd=6 * TRAIN_STEPS),
+          f"timed train step: launches {launches}")
     out["speed"] = dict(batch=TRAIN_BATCH, steps=TRAIN_STEPS, dtype="bfloat16",
                         seconds=sec, ms_per_step=1e3 * sec / TRAIN_STEPS,
                         images_per_s=TRAIN_BATCH * TRAIN_STEPS / sec, loss=loss,
@@ -748,7 +812,8 @@ def phase_first_stage() -> dict:
             _, _, _, idx = model.modules["vq"](z, train=False)
         out.append((recon.cpu(), idx.cpu(), z.cpu()))
     (r_card, i_card, z_card), (r_cpu, i_cpu, z_cpu) = out
-    check(launches == (0, 0, 0, 0, 1), f"first_stage: one forward launched {launches}")
+    check(launches == expected(nearest_codebook=1),
+          f"first_stage: one forward launched {launches}")
     n_diff, gap, _ = near_tie_gaps(z_cpu.reshape(len(i_cpu), -1),
                                 models[1].modules["vq"].embedding, i_card, i_cpu)
     check(gap <= 1.0, f"first_stage: {n_diff} codes differ beyond a near-tie ({gap})")
@@ -804,7 +869,7 @@ def phase_latent() -> dict:
         check(ckpts == ["step_3.pt", "step_6.pt"] and grids == ["recon_0.jpg", "recon_1.jpg"],
               f"vqvae fit: checkpoints {ckpts}, grids {grids}")
         # one search per train step (6) and per validation forward (2)
-        check(launches == (0, 0, 0, 0, 8), f"vqvae fit: launches {launches}")
+        check(launches == expected(nearest_codebook=8), f"vqvae fit: launches {launches}")
         out["vqvae_fit"] = dict(steps=6, seconds=sec, recon_loss=loss, checkpoints=ckpts,
                                 grids=grids, launches=dict(zip(KERNELS, launches)))
         emit("latent", run="vqvae_fit", **out["vqvae_fit"])
@@ -821,7 +886,7 @@ def phase_latent() -> dict:
             loss = _train_cli(tmp, first_stage, "model.val_sampler=ddim", *overrides,
                               experiment="latent_ddpm/cifar10")
             sec = time.perf_counter() - t0
-            gn, la, gn_bwd, la_bwd, vq = since(before)
+            gn, la, gn_bwd, la_bwd, vq, *_ = since(before)
             ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
             grids = sorted(p.name for p in (run / "results").iterdir())
             saved = torch.load(run / "checkpoints" / ckpts[-1], weights_only=True)
@@ -838,7 +903,7 @@ def phase_latent() -> dict:
                   f"latent {name}: {gn}/{la}/{vq} forward launches for {steps} steps")
             out[name] = dict(steps=steps, seconds=sec, loss=loss, latent_scale=scale,
                              checkpoints=ckpts, grids=grids,
-                             launches=dict(zip(KERNELS, (gn, la, gn_bwd, la_bwd, vq))))
+                             launches=dict(zip(KERNELS, since(before))))
             emit("latent", run=name, **out[name])
         check(out["fit"]["checkpoints"] == ["step_3.pt", "step_6.pt"]
               and out["fit"]["grids"] == ["0.jpg", "1.jpg"],
@@ -861,7 +926,8 @@ def phase_latent() -> dict:
         with Image.open(png) as img:
             size = img.size
         check(size == (2 + 8 * 34, 2 + 8 * 34), f"latent cli grid size {size}")
-        check(launches == (17 * 50, 4 * 50, 0, 0, 1), f"latent cli: launches {launches}")
+        check(launches == expected(group_norm_mish=17 * 50, linear_attention=4 * 50,
+                                   nearest_codebook=1), f"latent cli: launches {launches}")
         out["cli"] = dict(seconds=sec, grid=list(size), launches=dict(zip(KERNELS, launches)))
         emit("latent", run="cli", **out["cli"])
 
@@ -882,7 +948,8 @@ def phase_latent() -> dict:
             launches = since(before)
             check(tuple(x.shape) == (n, 32, 32, 3) and bool(torch.isfinite(x).all()),
                   f"latent {name}: shape {tuple(x.shape)} or non-finite samples")
-            check(launches == (17 * forwards, 4 * forwards, 0, 0, 1),
+            check(launches == expected(group_norm_mish=17 * forwards,
+                                       linear_attention=4 * forwards, nearest_codebook=1),
                   f"latent {name}: launches {launches} for {forwards} forwards")
             out[name] = dict(batch=n, steps=forwards, seconds=sec, images_per_s=n / sec,
                              launches=dict(zip(KERNELS, launches)))
@@ -897,8 +964,11 @@ def phase_latent() -> dict:
                  torch.zeros(VQ_TRAIN_BATCH, dtype=torch.int32, device="cuda"))
         vq_model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
         trained = {k: v.clone() for k, v in model.modules.state_dict().items()}
-        for name, m, per_step in (("vqvae_train", vq_model, (0, 0, 0, 0, 1)),
-                                  ("latent_train", model, (17, 4, 17, 4, 0))):
+        for name, m, per_step in (
+                ("vqvae_train", vq_model, expected(nearest_codebook=1)),
+                ("latent_train", model, expected(group_norm_mish=17, linear_attention=4,
+                                                 group_norm_mish_bwd=17,
+                                                 linear_attention_bwd=4))):
             state = m.init_state(0)
             if m is model:                        # init_state redrew every module
                 model.modules.load_state_dict(trained)
@@ -937,7 +1007,8 @@ def phase_latent() -> dict:
     launches = since(before)
     z_cpu = f32[1].p_sample_loop(shape, t_start=t_start, init_x=x_T, noises=noises)
     img_cpu = f32[1].decode(z_cpu)
-    check(launches == (17 * t_start, 4 * t_start, 0, 0, 1),
+    check(launches == expected(group_norm_mish=17 * t_start, linear_attention=4 * t_start,
+                               nearest_codebook=1),
           f"latent reference: launches {launches}")
     err = (z_card.cpu() - z_cpu).abs().max().item()
     atol = 1e-3                                   # as the slice phase's chain
@@ -961,6 +1032,348 @@ def phase_latent() -> dict:
                             images_compared=int(same.sum()),
                             launches=dict(zip(KERNELS, launches)))
     emit("latent", run="reference", **out["reference"])
+    return out
+
+
+def attention_bound(kind: str, dtype, rate: float) -> dict:
+    """The least time of one dropout-attention kernel call at TAR_SHAPE: the
+    largest of its bytes (each input read once, each output written once),
+    its products over the causal half (the bf16 tensor cores, or f32 outside
+    them) and, with dropout, the hash's integer operations."""
+    import torch
+    b, s, h, d = TAR_SHAPE
+    elt = torch.finfo(dtype).bits // 8
+    pairs = b * h * s * (s + 1) // 2                  # live (query, key) pairs
+    # (B, S, H, D) tensors in and out, (B*H, S) float32 rows in and out, and
+    # the products per pair: fwd q.k and p@v; dq adds do.v; dk/dv four
+    tensors, rows, products = {"fwd": (4, 1, 2), "dq": (5, 2, 3), "dkv": (6, 2, 4)}[kind]
+    key = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    terms = {"bytes": (tensors * b * s * h * d * elt + rows * b * h * s * 4) / HBM_BYTES_PER_S,
+             "products": products * 2 * d * pairs / PEAK_OPS[key],
+             "hash": HASH_OPS_PER_PAIR * pairs / INT32_OPS_PER_S if rate > 0 else 0.0}
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=1e3 * terms[term],
+                bound_by="bytes" if term == "bytes" else "operations", bound_term=term,
+                bound_terms_ms={k: 1e3 * v for k, v in terms.items()})
+
+
+def parity_dropout_attention(dtype) -> list[dict]:
+    """The dropout flash-attention kernels against their plain versions at
+    TAR's shapes: the forward at rate 0 (evaluation) and 0.1 (training), the
+    dq and dk/dv kernels at both rates, each also at a seed that wraps; lse,
+    dq, dk and dv from the same inputs (the plain forward's lse and delta)."""
+    import torch
+    import torch.nn.functional as F
+    from igm_tpu_torch.ops import dropout_attention as da
+    atol, rtol = tolerance(dtype)
+    key = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    g = torch.Generator(device="cuda").manual_seed(785)
+
+    def make(i):
+        return tuple(torch.randn(TAR_SHAPE, generator=g, device="cuda").to(dtype)
+                     for _ in range(4))                            # q, k, v, do
+
+    sets = rotation(make, 4 * math.prod(TAR_SHAPE) * torch.finfo(dtype).bits // 8)
+    q, k, v, do = sets[0]
+
+    def compare(name, got, want, tol) -> float:
+        worst = 0.0
+        for a, w in zip(got, want):
+            err = (a.float() - w.float()).abs()
+            worst = max(worst, err.max().item())
+            check(bool((err <= tol[0] + tol[1] * w.float().abs()).all()),
+                  f"{name} {key}: max err {err.max().item()} beyond atol {tol[0]} "
+                  f"rtol {tol[1]}")
+        return worst
+
+    rows = []
+    for rate, seed, timed in ((0.0, 0, True), (TAR_RATE, TAR_SEEDS[0], True),
+                              (TAR_RATE, TAR_SEEDS[1], False)):
+        sd = torch.tensor(seed, dtype=torch.int64, device="cuda")
+        o, lse = da.dropout_attention_fwd(q, k, v, sd, rate)
+        want_o, want_lse = da.dropout_attention_fwd_plain(q, k, v, sd, rate)
+        grads_in = (q, k, v, do, want_lse, da.attention_delta(do, want_o), sd, rate)
+        dq = da.dropout_attention_dq(*grads_in)
+        dk, dv = da.dropout_attention_dkv(*grads_in)
+        want_dq = da.dropout_attention_dq_plain(*grads_in)
+        want_dk, want_dv = da.dropout_attention_dkv_plain(*grads_in)
+        torch.cuda.synchronize()
+        tag = f"rate {rate} seed {seed}"
+        errs = {"fwd": compare(f"dropout_attention_fwd {tag}", [o], [want_o], (atol, rtol)),
+                "dq": compare(f"dropout_attention_dq {tag}", [dq], [want_dq], (atol, rtol)),
+                "dkv": compare(f"dropout_attention_dkv {tag}", [dk, dv], [want_dk, want_dv],
+                               (atol, rtol))}
+        lse_err = compare(f"dropout_attention_fwd lse {tag}", [lse], [want_lse],
+                          tolerance(torch.float32))
+        del o, lse, want_o, want_lse, grads_in, dq, dk, dv, want_dq, want_dk, want_dv
+        times = {kind: dict(kernel_ms=None, plain_ms=None, library_ms=None)
+                 for kind in errs}
+        if timed:
+            def sdpa(q, k, v, rate=rate):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    dropout_p=rate, is_causal=True)
+
+            times["fwd"] = dict(
+                kernel_ms=time_ms(lambda q, k, v, do: da.dropout_attention_fwd(
+                    q, k, v, sd, rate), sets, iters=10),
+                plain_ms=time_ms(lambda q, k, v, do: da.dropout_attention_fwd_plain(
+                    q, k, v, sd, rate), sets, iters=3),
+                library_ms=time_ms(lambda q, k, v, do: sdpa(q, k, v), sets, iters=10))
+            # each set's lse and delta from the kernel forward; the yardstick
+            # is SDPA's autograd backward (dq, dk and dv in one call), through
+            # one forward graph per set, kept for the repeated calls
+            bwd_sets, lib_sets = [], []
+            for s_q, s_k, s_v, s_do in sets:
+                s_o, s_lse = da.dropout_attention_fwd(s_q, s_k, s_v, sd, rate)
+                bwd_sets.append((s_q, s_k, s_v, s_do, s_lse, da.attention_delta(s_do, s_o)))
+                leaves = tuple(x.detach().requires_grad_() for x in (s_q, s_k, s_v))
+                lib_sets.append((sdpa(*leaves), leaves, s_do.transpose(1, 2)))
+
+            def library(out, leaves, grad):
+                return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+            lib_ms = time_ms(library, lib_sets, iters=10)
+            for kind, fn, plain in (("dq", da.dropout_attention_dq, da.dropout_attention_dq_plain),
+                                    ("dkv", da.dropout_attention_dkv,
+                                     da.dropout_attention_dkv_plain)):
+                times[kind] = dict(
+                    kernel_ms=time_ms(lambda *a, fn=fn: fn(*a, sd, rate), bwd_sets, iters=10),
+                    plain_ms=time_ms(lambda *a, plain=plain: plain(*a, sd, rate), bwd_sets,
+                                     iters=3),
+                    library_ms=lib_ms)
+            del bwd_sets, lib_sets
+        for kind, err in errs.items():
+            rows.append(dict(
+                kernel=f"dropout_attention_{kind}", dtype=key, shape=list(TAR_SHAPE),
+                rate=rate, seed=seed, max_abs_err=err, atol=atol, rtol=rtol,
+                **({"lse_max_abs_err": lse_err} if kind == "fwd" else {}),
+                **times[kind], **attention_bound(kind, dtype, rate)))
+            emit("parity", **rows[-1])
+    return rows
+
+
+def _tar_model(device: str, *overrides: str, **kwargs):
+    """experiment=tar/mnist at full width on ``device``."""
+    from igm_tpu_torch.config import compose, instantiate
+    cfg = compose(REPO / "configs", ["experiment=tar/mnist", "print_config=False", *overrides])
+    return instantiate(cfg.model, datamodule=cfg.datamodule, device=device, **kwargs)
+
+
+def phase_tar_reference() -> dict:
+    """One full-width TARNet forward, loss and gradients in f32 (batch 8,
+    dropout 0, TF32 off, flash_attention=dropout) on the card against the
+    same weights and tokens on the CPU, where the kernel wrappers take their
+    plain versions; and the CPU once more with flash_attention=off, whose
+    attention sums in another order, to show the float32 spread."""
+    import torch
+    models = [_tar_model(d, flash_attention=mode, dropout=0.0, compute_dtype="float32")
+              for d, mode in (("cuda", "dropout"), ("cpu", "dropout"), ("cpu", "off"))]
+    gen = torch.Generator().manual_seed(17)
+    weights = {k: v + 0.05 * torch.randn(v.shape, generator=gen)   # norms off 1, 0
+               for k, v in models[1].net.state_dict().items()}
+    tokens = torch.randint(0, 2, (8, models[1].seq_len), generator=gen)
+    tokens[:, 0] = 0
+    out = []
+    for model in models:
+        dev = model.device
+        model.net.load_state_dict(weights)
+        reset_counts()
+        with torch.no_grad():
+            logits = model.net(tokens.to(dev), train=False)
+        loss = model.cal_loss(tokens.to(dev), train=True)
+        grads = torch.autograd.grad(loss, list(model.net.parameters()))
+        if model is models[0]:                        # the card
+            torch.cuda.synchronize()
+            launched = counts()
+        out.append((logits.cpu(), loss.item(), [g.cpu() for g in grads]))
+    # two forwards (logits, loss) and one backward, four layers each
+    want = expected(dropout_attention_fwd=8, dropout_attention_dq=4, dropout_attention_dkv=4)
+    check(launched == want, f"tar reference: launches {launched}, expected {want}")
+    (l_card, loss_card, g_card), (l_cpu, loss_cpu, g_cpu), (_, _, g_off) = out
+    # float32 with TF32 off on both sides, the products summed in other
+    # orders over 4 post-LN layers: logits held to 1e-4 and the summed NLL
+    # to 1e-5 of itself.  Gradients to GRAD_TOL of the largest gradient
+    # entry: an FFN unit whose ReLU input lies within rounding of 0 switches
+    # on in one order and off in the other, and takes its whole share of the
+    # Dense_0 weight gradient with it (on the CPU alone, the `off` and
+    # `dropout` attention orders differ there: ``cpu_orders_grad_rel``)
+    logit_err = (l_card - l_cpu).abs().max().item()
+    scale = max(g.abs().max().item() for g in g_cpu)
+    names = [n for n, _ in models[1].net.named_parameters()]
+    grad_rel, worst = max(((a - b).abs().max().item() / scale, n)
+                          for a, b, n in zip(g_card, g_cpu, names))
+    orders_rel, orders_worst = max(((a - b).abs().max().item() / scale, n)
+                                   for a, b, n in zip(g_off, g_cpu, names))
+    check(math.isfinite(logit_err) and logit_err <= 1e-4,
+          f"tar reference: logits card vs CPU {logit_err} > 1e-4")
+    check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu),
+          f"tar reference: loss card {loss_card} vs CPU {loss_cpu}")
+    check(grad_rel <= GRAD_TOL, f"tar reference: {worst} gradient {grad_rel} of the "
+                                f"largest > {GRAD_TOL}")
+    row = dict(batch=8, seq=models[1].seq_len, dtype="float32", logits_max_abs_err=logit_err,
+               logits_atol=1e-4, loss_card=loss_card, loss_cpu=loss_cpu, loss_rtol=1e-5,
+               grad_max_abs_err_over_max_grad=grad_rel, worst_gradient=worst,
+               cpu_orders_grad_rel=orders_rel, cpu_orders_worst_gradient=orders_worst,
+               grad_atol_over_max_grad=GRAD_TOL, max_grad=scale, parameters=len(g_cpu),
+               launches=dict(zip(KERNELS, launched)))
+    emit("tar", run="reference", **row)
+    return row
+
+
+def _tar_batch(n: int, gen):
+    import torch
+    return (torch.randint(0, 256, (n, 28, 28, 1), generator=gen, device="cuda",
+                          dtype=torch.uint8),
+            torch.randint(0, 10, (n,), generator=gen, device="cuda", dtype=torch.int32))
+
+
+def _tar_launches(fwd: int = 0, bwd: int = 0) -> tuple[int, ...]:
+    return expected(dropout_attention_fwd=fwd, dropout_attention_dq=bwd,
+                    dropout_attention_dkv=bwd)
+
+
+def phase_tar() -> dict:
+    """The TAR path with flash_attention=dropout: exact launches per train
+    step, validation batch and decode step, the CLIs, then timed loops; the
+    caller zeroes the counters before it."""
+    import torch
+    from PIL import Image
+    from igm_tpu_torch.cli import sample_main
+    out = {}
+    n = TAR_SHAPE[0]
+    batch = _tar_batch(n, torch.Generator("cuda").manual_seed(7))
+    dropout = ["model.flash_attention=dropout"]
+
+    # 1. launches per train step (4 layers: forward at rate 0.1, dq, dk/dv),
+    # per validation batch (two cal_loss forwards at rate 0) and per KV
+    # decode step (none: the decode attends over the cache in torch ops)
+    model = _tar_model("cuda", *dropout)
+    check(model.compute_dtype == torch.bfloat16, "tar compute dtype is not bf16")
+    model.steps_per_epoch = 11
+    state = model.init_state(0)
+    per = {}
+    before = counts()
+    state, metrics = model.train_step(state, batch)
+    torch.cuda.synchronize()
+    per["train_step"] = since(before)
+    before = counts()
+    _, val = model.validation_step(state, batch, torch.Generator("cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    per["validation_batch"] = since(before)
+    tokens = model.img2tokens(model.preprocess(batch[0]), batch[1])
+    model.net.init_cache(n, model.seq_len)
+    before = counts()
+    with torch.no_grad():
+        logits = model.net.decode_step(tokens[:, :1], 0)
+    torch.cuda.synchronize()
+    per["decode_step"] = since(before)
+    model.net.clear_cache()
+    for name, want in (("train_step", _tar_launches(4, 4)),
+                       ("validation_batch", _tar_launches(8)),
+                       ("decode_step", _tar_launches())):
+        check(per[name] == want, f"tar {name}: launches {per[name]}, expected {want}")
+    values = [float(metrics["train_log/bpd"]), *map(float, val.values())]
+    check(all(math.isfinite(x) for x in values) and bool(torch.isfinite(logits).all()),
+          f"tar: non-finite bpd {values} or decode logits")
+    out["launches"] = {k: dict(zip(KERNELS, v)) for k, v in per.items()}
+    emit("tar", run="launches", **out["launches"])
+
+    # 2. the train CLI: fit (validating every epoch: bpd, the sample and
+    # masked-completion grids), resume and the class-conditional config
+    # (no validation: its two 784-step KV decodes would double their time);
+    # the sampling CLI from the class-conditional checkpoint
+    no_val = ["trainer.limit_val_batches=0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, exp, overrides, steps, epochs in (
+                ("fit", "tar/mnist", ["trainer.max_epochs=2"], 6, 2),
+                ("resume", "tar/mnist", ["trainer.max_epochs=3", *no_val, "trainer.resume="
+                 + str(tmp / "logs" / "runs" / "tar" / "mnist" / "checkpoints")], 3, 0),
+                ("cond", "tar/mnist_cond", ["trainer.max_epochs=1", *no_val], 3, 0)):
+            run = tmp / "logs" / "runs" / exp
+            before = counts()
+            t0 = time.perf_counter()
+            metric = "val_log/bpd" if epochs else "train_log/bpd"
+            bpd = _train_cli(tmp, *dropout, *overrides, experiment=exp, metric=metric)
+            sec = time.perf_counter() - t0
+            launched = since(before)
+            ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+            grids = sorted(p.name for p in (run / "results").glob("*"))
+            check(bpd is not None and math.isfinite(bpd), f"tar {name}: {metric} {bpd}")
+            # one validation batch per validated epoch: its two cal_loss forwards
+            want = _tar_launches(4 * steps + 8 * epochs, 4 * steps)
+            check(launched == want, f"tar {name}: launches {launched}, expected {want}")
+            out[name] = dict(experiment=exp, steps=steps, seconds=sec, metric=metric, bpd=bpd,
+                             checkpoints=ckpts, grids=grids,
+                             launches=dict(zip(KERNELS, launched)))
+            emit("tar", run=name, **out[name])
+        fit_grids = sorted(["0.jpg", "1.jpg", "mask_image_0.jpg", "mask_image_1.jpg"])
+        for name, ckpts, grids in (("fit", ["step_3.pt", "step_6.pt"], fit_grids),
+                                   ("resume", ["step_6.pt", "step_9.pt"], fit_grids),
+                                   ("cond", ["step_3.pt"], [])):
+            check(out[name]["checkpoints"] == ckpts and out[name]["grids"] == grids,
+                  f"tar {name}: checkpoints {out[name]['checkpoints']}, "
+                  f"grids {out[name]['grids']}")
+
+        png = tmp / "grid.png"
+        before = counts()
+        t0 = time.perf_counter()
+        sample_main(["experiment=tar/mnist_cond", *dropout, "--ckpt",
+                     str(tmp / "logs" / "runs" / "tar" / "mnist_cond" / "checkpoints"),
+                     "--n", "64", "--out", str(png)])
+        sec = time.perf_counter() - t0
+        launched = since(before)
+        with Image.open(png) as img:
+            size = img.size
+        check(size == (2 + 8 * 30, 2 + 8 * 30), f"tar cli grid size {size}")
+        check(launched == _tar_launches(), f"tar cli: launches {launched}")
+        out["cli"] = dict(seconds=sec, grid=list(size), launches=dict(zip(KERNELS, launched)))
+        emit("tar", run="cli", **out["cli"])
+
+    # 3. the train step at the config's batch 128, bf16, with the kernels
+    # (flash_attention=dropout) and with the torch attention (off)
+    for mode in ("dropout", "off"):
+        m = model if mode == "dropout" else _tar_model("cuda", "model.flash_attention=off")
+        m.steps_per_epoch = 11
+        state = m.init_state(0)
+        for _ in range(2):                                      # warm-up
+            state, metrics = m.train_step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        t0 = time.perf_counter()
+        for _ in range(TAR_STEPS):
+            state, metrics = m.train_step(state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launched = since(before)
+        bpd = float(metrics["train_log/bpd"])
+        want = _tar_launches(4 * TAR_STEPS, 4 * TAR_STEPS) if mode == "dropout" \
+            else _tar_launches()
+        check(math.isfinite(bpd), f"tar train {mode}: bpd {bpd}")
+        check(launched == want, f"tar train {mode}: launches {launched}, expected {want}")
+        out[f"train_{mode}"] = dict(
+            flash_attention=mode, batch=n, steps=TAR_STEPS, dtype="bfloat16", seconds=sec,
+            ms_per_step=1e3 * sec / TAR_STEPS, images_per_s=n * TAR_STEPS / sec, bpd=bpd,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=dict(zip(KERNELS, launched)))
+        emit("tar", run=f"train_{mode}", **out[f"train_{mode}"])
+        del m, state
+
+    # 4. sample(64): one KV decode step per position, no kernel launch
+    before = counts()
+    t0 = time.perf_counter()
+    imgs = model.sample(64, torch.Generator("cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = since(before)
+    check(tuple(imgs.shape) == (64, 28, 28, 1)
+          and bool(((imgs == 0) | (imgs == 1)).all()), f"tar sample: {tuple(imgs.shape)}")
+    check(launched == _tar_launches(), f"tar sample: launches {launched}")
+    out["sample"] = dict(batch=64, decode_steps=model.seq_len - 1, seconds=sec,
+                         images_per_s=64 / sec, ms_per_decode_step=1e3 * sec / (model.seq_len - 1))
+    emit("tar", run="sample", **out["sample"])
     return out
 
 
@@ -990,22 +1403,34 @@ def main() -> int:
     gn_bwd_rows = parity_gn_bwd(torch.bfloat16) + parity_gn_bwd(torch.float32)
     la_bwd_rows = parity_la_bwd(torch.bfloat16) + parity_la_bwd(torch.float32)
     vq_rows = parity_vq()
+    da_rows = parity_dropout_attention(torch.bfloat16) + parity_dropout_attention(torch.float32)
     phase_unet()
     sl = phase_slice()                  # the sampling path: zeroes, then reads
+    check_path("sampling", sl["launches"])
     phase_train_unet()
     reset_counts()                      # the training path
     tr = phase_train()
     tr_launches = counts()
-    check(all(n > 0 for n in tr_launches[:4]),
-          f"training path launched {tr_launches}: a kernel never ran")
+    check_path("training", tr_launches)
     emit("train", run="path", launches=dict(zip(KERNELS, tr_launches)))
     phase_first_stage()
     reset_counts()                      # the VQ-VAE -> latent-DDPM path
     lat = phase_latent()
     lat_launches = counts()
-    check(all(n > 0 for n in lat_launches),
-          f"latent path launched {lat_launches}: a kernel never ran")
+    check_path("latent", lat_launches)
     emit("latent", run="path", launches=dict(zip(KERNELS, lat_launches)))
+    phase_tar_reference()
+    reset_counts()                      # the TAR path
+    tar = phase_tar()
+    tar_launches = counts()
+    check_path("tar", tar_launches)
+    emit("tar", run="path", launches=dict(zip(KERNELS, tar_launches)))
+    path_launches = {"sampling": sl["launches"], "training": tr_launches,
+                     "latent": lat_launches, "tar": tar_launches}
+
+    def by_path(i: int) -> dict:
+        return {path: n[i] for path, n in path_launches.items()}
+
     kernels = []
     gn_src = "igm_tpu_torch/csrc/group_norm_mish.cu"
     la_src = "igm_tpu_torch/csrc/linear_attention.cu"
@@ -1020,11 +1445,9 @@ def main() -> int:
              "igm_tpu/ops/attention.py:99 (XLA custom VJP _flat_bwd)", "backward"))):
         main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
         bytes_bound = all(r["bound_by"] == "bytes" for r in main_rows)
-        by_path = {"sampling": sl["launches"][i], "training": tr_launches[i],
-                   "latent": lat_launches[i]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(by_path.values()), launches_by_path=by_path,
+            launches=sum(by_path(i).values()), launches_by_path=by_path(i),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=totals(main_rows, "kernel_ms"), plain_ms=totals(main_rows, "plain_ms"),
             bound_ms=totals(main_rows, "bound_ms"),
@@ -1032,19 +1455,34 @@ def main() -> int:
             library_ms=totals(main_rows, "library_ms"),
             per=f"all calls of one UNet {per}, batch 256, bf16"))
     vq_main = vq_rows[0]
-    by_path = {"sampling": sl["launches"][4], "training": tr_launches[4],
-               "latent": lat_launches[4]}
     kernels.append(dict(
         name="nearest_codebook", route="cuda",
         source="igm_tpu_torch/csrc/nearest_codebook.cu",
-        replaces="igm_tpu/ops/pallas_vq.py:47", launches=sum(by_path.values()),
-        launches_by_path=by_path, max_abs_err=max(r["max_abs_err"] for r in vq_rows),
+        replaces="igm_tpu/ops/pallas_vq.py:47", launches=sum(by_path(4).values()),
+        launches_by_path=by_path(4), max_abs_err=max(r["max_abs_err"] for r in vq_rows),
         ms=vq_main["kernel_ms"], plain_ms=vq_main["plain_ms"],
         bound_ms=vq_main["bound_ms"], bound_by=vq_main["bound_by"],
         library_ms=vq_main["library_ms"],
         per="one call at M=8192, K=512, D=64 (a VQ-VAE train step at batch 128), f32; "
             "max_abs_err is the score gap at rows that differ; library_ms is "
             "torch.cdist(z, e).argmin(1), two calls"))
+    for i, kind, replaces in ((5, "fwd", "igm_tpu/ops/pallas_dropout_attention.py:224"),
+                              (6, "dq", "igm_tpu/ops/pallas_dropout_attention.py:288"),
+                              (7, "dkv", "igm_tpu/ops/pallas_dropout_attention.py:309")):
+        rows = [r for r in da_rows if r["kernel"] == KERNELS[i]]
+        main = next(r for r in rows if r["dtype"] == "bfloat16" and r["rate"] == TAR_RATE
+                    and r["kernel_ms"] is not None)
+        kernels.append(dict(
+            name=KERNELS[i], route="cuda", source="igm_tpu_torch/csrc/dropout_attention.cu",
+            replaces=replaces, launches=sum(by_path(i).values()), launches_by_path=by_path(i),
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main["kernel_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], bound_term=main["bound_term"],
+            library_ms=main["library_ms"],
+            per=f"one call at B, S, H, D = {', '.join(map(str, TAR_SHAPE))}, bf16, rate "
+                f"{TAR_RATE} (a TAR train step makes 4); library_ms is "
+                + ("F.scaled_dot_product_attention with dropout" if kind == "fwd" else
+                   "the autograd backward of that SDPA call, dq, dk and dv together")))
     emit("summary", train_images_per_s=tr["speed"]["images_per_s"],
          train_ms_per_step=tr["speed"]["ms_per_step"],
          ddim_images_per_s=sl["ddim"]["images_per_s"],
@@ -1053,6 +1491,9 @@ def main() -> int:
          latent_ancestral_images_per_s=lat["ancestral"]["images_per_s"],
          vqvae_train_images_per_s=lat["vqvae_train"]["images_per_s"],
          latent_train_images_per_s=lat["latent_train"]["images_per_s"],
+         tar_train_images_per_s=tar["train_dropout"]["images_per_s"],
+         tar_train_off_images_per_s=tar["train_off"]["images_per_s"],
+         tar_sample_images_per_s=tar["sample"]["images_per_s"],
          seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -55,9 +55,11 @@ def save_image_grid(grid_hwc: np.ndarray, path: str) -> None:
 class SampleImagesCallback:
     """Real/recon/fake/other grids to the logger at the first validation
     batch of every ``every_n_epochs``-th epoch, the sample grid to
-    ``results/{epoch}.jpg`` and (beyond ``igm_tpu``, which only logs it) the
-    reconstruction grid to ``results/recon_{epoch}.jpg``, so a run without
-    a logger still leaves it on disk.  Takes the host (numpy)
+    ``results/{epoch}.jpg`` and (beyond ``igm_tpu``, which only logs them)
+    the reconstruction grid to ``results/recon_{epoch}.jpg`` and the grid of
+    each ``others`` entry named ``*_image`` (TAR's masked-half completion) to
+    ``results/{key}_{epoch}.jpg``, so a run without a logger still leaves
+    them on disk.  Takes the host (numpy)
     ValidationResult the trainer hands over."""
 
     def __init__(self, batch_size: int = 64, every_n_epochs: int = 1):
@@ -85,5 +87,8 @@ class SampleImagesCallback:
             save_image_grid(fake_grid, str(result_path / f"{epoch}.jpg"))
         for key, value in (outputs.others or {}).items():
             if value is not None:
-                logger.log_image(f"images/{key}",
-                                 get_grid_images(value, model), epoch)
+                grid = get_grid_images(value, model)
+                logger.log_image(f"images/{key}", grid, epoch)
+                if key.endswith("_image"):          # a model's extra samples
+                    result_path.mkdir(parents=True, exist_ok=True)
+                    save_image_grid(grid, str(result_path / f"{key}_{epoch}.jpg"))

@@ -15,13 +15,14 @@ TensorBoard files go) and trains (``igm_tpu_torch.train.train``).
 Composes the config, instantiates the port's model on the card (or on the
 device ``--device`` names), loads the weights, runs the model's sampler
 (diffusion: ancestral, or ``--sampler ddim``; ``experiment=vqvae/*``:
-decoded random codes), and writes a grid image.  ``--ckpt`` restores the
+decoded random codes; ``experiment=tar/*``: the KV-cached decode), and
+writes a grid image.  ``--ckpt`` restores the
 whole train state from the newest of the port's checkpoints in DIR: every
 module (for latent DDPM the denoiser, the first stage, the codebook and the
 latent scale) and the EMA shadow the samplers use.  ``--weights`` takes the
-denoiser alone: a ``torch.save``d state_dict or an ``.npz`` of ``igm_tpu``
-denoiser param leaves keyed by their ``/``-joined path (converted through
-``igm_tpu_torch.interop``).  Without either the weights are a seeded random
+model's network alone (the denoiser; TAR's ``net``): a ``torch.save``d
+state_dict or an ``.npz`` of that network's ``igm_tpu`` param leaves keyed by
+their ``/``-joined path (converted through ``igm_tpu_torch.interop``).  Without either the weights are a seeded random
 init, and the CLI says so.
 
 The config tree is found via (first hit wins): ``$IGM_CONFIG_DIR``, then
@@ -109,8 +110,9 @@ def sample_main(argv=None) -> None:
                          help="a directory of the port's checkpoints: restore "
                               "every module from the newest")
     weights.add_argument("--weights", default=None,
-                         help="denoiser weights: a torch state_dict file, or an "
-                              ".npz of igm_tpu param leaves by '/'-joined path")
+                         help="the network's weights (the denoiser; TAR's net): a "
+                              "torch state_dict file, or an .npz of igm_tpu param "
+                              "leaves by '/'-joined path")
     parser.add_argument("--n", type=int, default=64)
     parser.add_argument("--out", default="samples.png")
     parser.add_argument("--seed", type=int, default=0)
@@ -141,7 +143,7 @@ def sample_main(argv=None) -> None:
         # come from another device, and sampling draws from its own
         state.load_state_dict({**saved, "generator": state.generator.get_state()})
     elif args.weights:
-        load_weights(model.modules["denoise"], args.weights)
+        load_weights(model.modules[model.weights_module], args.weights)
     else:
         model.init_params(args.seed)
         print(f"no --ckpt or --weights: random init from seed {args.seed}")

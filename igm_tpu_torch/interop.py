@@ -21,8 +21,12 @@ onto buffers (:func:`flax_mutables_to_torch`).  Layouts:
   Setting W' = K (as OIHW) gives ``W[i, o, a, b] = K[k-1-a, k-1-b, i, o]``:
   flip both spatial axes, then move (i, o) to the front
   (``tests/test_torch_unet.py`` holds a standalone case against Flax).
-- GroupNorm ``scale``/``bias``, ChannelLayerNorm ``g``/``b`` and the class
-  ``embedding`` carry over as they are.
+- Attention (Flax's DenseGeneral, ``MultiHeadDotProductAttention_*``):
+  ``query``/``key``/``value`` kernels (d, H, D) -> (H*D, d) and biases
+  (H, D) -> (H*D,); the ``out`` kernel (H, D, d) -> (d, H*D).
+- GroupNorm ``scale``/``bias``, ChannelLayerNorm ``g``/``b``, LayerNorm
+  ``scale``/``bias``, ``Embed_*/embedding``, the class ``embedding`` and
+  TAR's ``h_pe``/``w_pe``/``first_pe`` carry over as they are.
 """
 from __future__ import annotations
 
@@ -46,11 +50,21 @@ def flax_key_to_torch(path: str) -> str:
     return ".".join(parts)
 
 
+_QKV = ("query", "key", "value")
+
+
 def _convert(path: str, value: np.ndarray) -> np.ndarray:
+    parent = path.split("/")[-2] if "/" in path else ""
+    if path.endswith("/bias") and parent in _QKV:     # DenseGeneral (H, D)
+        return value.reshape(-1)
     if not path.endswith("/kernel"):
         return value
     if value.ndim == 2:                               # Dense
         return value.T
+    if value.ndim == 3 and parent in _QKV:            # (d, H, D) -> (H*D, d)
+        return value.reshape(value.shape[0], -1).T
+    if value.ndim == 3 and parent == "out":           # (H, D, d) -> (d, H*D)
+        return value.reshape(-1, value.shape[-1]).T
     if value.ndim != 4:
         raise ValueError(f"{path}: unexpected kernel rank {value.ndim}")
     if path.split("/")[-3].startswith("ConvTranspose_"):

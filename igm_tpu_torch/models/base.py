@@ -44,6 +44,9 @@ class ValidationResult:
 
 
 class BaseModel:
+    #: the module ``--weights`` loads into (the sampling CLI)
+    weights_module: str = "denoise"
+
     def __init__(self, datamodule: Any, device: str | torch.device | None = None):
         self.width = int(datamodule["width"])
         self.height = int(datamodule["height"])

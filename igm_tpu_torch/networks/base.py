@@ -1,7 +1,7 @@
 """NHWC building blocks with torch-parity init.
 
 Counterparts of ``igm_tpu/networks/base.py`` ``Conv``, ``ConvTranspose`` and
-``Dense``.  Activations are NHWC at every module boundary, as in the JAX
+``Dense``, and of Flax's ``nn.Embed`` and ``nn.LayerNorm`` (TAR's).  Activations are NHWC at every module boundary, as in the JAX
 package; inside, a conv runs on ``x.permute(0, 3, 1, 2)``, an NCHW view with
 channels-last strides that cuDNN takes without a copy.
 
@@ -110,3 +110,41 @@ class Dense(nn.Module):
         dt = compute_dtype(x, self.weight, self.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Embed(nn.Module):
+    """Flax ``nn.Embed`` as TAR builds it: an ``embedding`` table (num, dim)
+    drawn from N(0, 1)."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.embedding.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx.long(), self.embedding)
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm`` over the last axis with ``scale`` and ``bias``:
+    statistics and normalisation in float32, the output in ``dtype`` (the
+    input's when None)."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.epsilon, self.dtype = epsilon, dtype
+        self.scale = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias, self.epsilon)
+        return y.to(self.dtype or x.dtype)

@@ -4,9 +4,11 @@
         [--batch 64] [--trace trace.json]
 
 Composes the config (default ``experiment=ddpm/cifar10``; e.g.
-``experiment=latent_ddpm/cifar10``) through the port's config (bf16 on the
-card, seeded random weights), warms up, then runs ``--steps`` DDIM steps
-under ``torch.profiler``.  Prints the card's name and power limit, the top
+``experiment=latent_ddpm/cifar10`` or ``experiment=tar/mnist``) through the
+port's config (bf16 on the card, seeded random weights), warms up, then runs
+``--steps`` sampler steps under ``torch.profiler``: DDIM steps for a
+diffusion model, KV-cached decode steps from the ``<sos>`` token for TAR
+(``--steps 784`` decodes a whole 28x28 image).  Prints the card's name and power limit, the top
 kernels by device time, and one JSON line: wall time per step (measured
 once without and once under the profiler), device busy time per step (the
 sum of kernel times; one stream, so they do not overlap), the idle share,
@@ -47,15 +49,21 @@ def main(argv=None) -> None:
     cfg = compose(REPO / "configs", [*args.overrides, "print_config=False"])
     model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
     gen = torch.Generator("cuda").manual_seed(0)
-    model.ddim_sample(args.batch, steps=3, generator=gen)
+    if hasattr(model, "ddim_sample"):
+        def run(steps):
+            model.ddim_sample(args.batch, steps=steps, generator=gen)
+    else:                                   # TAR: one KV decode step per position
+        def run(steps):
+            model.sample_tokens(model.start_tokens(args.batch)[:, :steps + 1], gen)
+    run(3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.ddim_sample(args.batch, steps=args.steps, generator=gen)
+    run(args.steps)
     torch.cuda.synchronize()
     wall_unprofiled = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.ddim_sample(args.batch, steps=args.steps, generator=gen)
+        run(args.steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))

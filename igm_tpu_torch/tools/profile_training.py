@@ -4,7 +4,9 @@
         [--batch 256] [--trace trace.json]
 
 Composes the config (default ``experiment=ddpm/cifar10``; e.g.
-``experiment=vqvae/cifar10``) through the port's config (bf16 on the card
+``experiment=vqvae/cifar10``, or ``experiment=tar/mnist
+model.flash_attention=dropout --batch 128`` for TAR with the dropout
+flash-attention kernels) through the port's config (bf16 on the card
 where the model has a compute dtype, seeded random weights), builds the
 train state, warms up, then runs ``--steps`` train steps (the model's
 ``train_step``: forward, backward, Adam) on one

@@ -13,6 +13,9 @@ GROUPS = (("group_norm_mish_bwd", ("group_norm_mish_bwd", "sum_partials")),
           ("linear_attention_bwd", ("linear_attention_bwd",)),
           ("linear_attention", ("linear_attention",)),
           ("nearest_codebook", ("nearest_codebook",)),
+          ("dropout_attention_fwd", ("dropout_attention_fwd",)),
+          ("dropout_attention_dq", ("dropout_attention_dq",)),
+          ("dropout_attention_dkv", ("dropout_attention_dkv",)),
           ("conv", ("conv", "xmma", "cudnn", "implicit", "dgrad", "wgrad", "sm90_",
                     "cutlass", "gemm", "nhwc", "nchw")),
           ("optimizer", ("adam", "foreach", "multi_tensor")),

@@ -128,3 +128,62 @@ def test_vqvae_then_latent_ddpm_then_sample(tmp_path, monkeypatch):
                  str(vq_run / "checkpoints"), "--n", "2", "--device", "cpu",
                  "--out", str(tmp_path / "codes.png")])
     assert _grid(tmp_path / "codes.png").shape == (2 + 18, 2 + 2 * 18, 3)
+
+
+TAR_TINY = ["experiment=tar/mnist", "datamodule.width=6", "datamodule.height=6",
+            "model.d_model=16", "model.nhead=2", "model.num_layers=1",
+            "model.flash_attention=dropout"]
+
+
+def test_tar_train_resume_and_sample(tmp_path, monkeypatch):
+    """TAR through the CLIs with the dropout flash attention (its plain
+    versions on the CPU): train with validation (samples and the masked
+    completion), resume at the saved step, sample from the checkpoints."""
+    from igm_tpu_torch.cli import train_main
+    monkeypatch.chdir(tmp_path)
+    common = ["trainer.limit_train_batches=2", "trainer.limit_val_batches=1",
+              "trainer.check_val_every_n_epoch=1", "datamodule.batch_size=8", "logger=null",
+              "print_config=False", "optimized_metric=val_log/bpd",
+              f"datamodule.data_dir={tmp_path / 'data'}", "--device", "cpu"]
+    run = tmp_path / "logs" / "runs" / "tar" / "mnist"
+    for epochs, ckpts, grids in ((1, ["step_2.pt"], ["0.jpg", "mask_image_0.jpg"]),
+                                 (2, ["step_2.pt", "step_4.pt"],
+                                  ["0.jpg", "1.jpg", "mask_image_0.jpg", "mask_image_1.jpg"])):
+        bpd = train_main([*TAR_TINY, f"trainer.max_epochs={epochs}",
+                          f"trainer.resume={run / 'checkpoints'}", *common])
+        assert np.isfinite(bpd)
+        assert sorted(p.name for p in (run / "checkpoints").iterdir()) == ckpts
+        assert sorted(p.name for p in (run / "results").iterdir()) == grids
+    out = tmp_path / "tar.png"
+    sample_main([*TAR_TINY, "--ckpt", str(run / "checkpoints"), "--n", "4", "--device",
+                 "cpu", "--out", str(out)])
+    grid = _grid(out)
+    assert grid.shape == (2 + 8, 2 + 4 * 8, 3)
+    # samples are binary pixels: black or white in the grid, padding black
+    assert set(np.unique(grid)) <= {0, 127, 128, 255}
+
+
+def test_tar_weights_load_into_the_net(tmp_path):
+    """--weights takes TAR's net: an .npz of igm_tpu's TARNet leaves samples
+    exactly as the same weights converted and saved by torch."""
+    import jax
+
+    from igm_tpu.config import compose as jax_compose
+    from igm_tpu.config import instantiate as jax_instantiate
+    from igm_tpu_torch.interop import flax_to_torch
+
+    cfg = jax_compose(REPO / "configs", TAR_TINY)
+    jm = jax_instantiate(cfg.model, datamodule=cfg.datamodule)
+    jm.steps_per_epoch = 1
+    params = jm.init_state(jax.random.PRNGKey(3)).params["net"]
+    flat = {"/".join(k.key for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+    np.savez(tmp_path / "w.npz", **flat)
+    torch.save(flax_to_torch(flat), tmp_path / "w.pt")
+    for ext in ("npz", "pt"):
+        sample_main([*TAR_TINY, "--n", "3", "--device", "cpu", "--weights",
+                     str(tmp_path / f"w.{ext}"), "--out", str(tmp_path / f"{ext}.png")])
+    sample_main([*TAR_TINY, "--n", "3", "--device", "cpu", "--out", str(tmp_path / "r.png")])
+    a, b, c = (_grid(tmp_path / f"{s}.png") for s in ("npz", "pt", "r"))
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)

@@ -7,7 +7,8 @@ ulp of the value.  The f32 parameter gradients of GroupNorm+Mish sum up to
 N*H*W products per channel: held to 1e-4 of their largest value.  The
 nearest-codebook indices are equal except at near-ties, where the plain
 version's scores at the two indices differ by at most
-1e-5 (||e||^2 + 2 ||z|| ||e||) (``near_tie_gaps`` <= 1).
+1e-5 (||e||^2 + 2 ||z|| ||e||) (``near_tie_gaps`` <= 1).  The dropout
+flash attention's lse is float32 in both dtypes: held to 1e-5.
 """
 import sys
 from pathlib import Path
@@ -17,6 +18,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from igm_tpu_torch.ops import dropout_attention as da  # noqa: E402
 from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
     GroupNormMishFn, group_norm_mish, group_norm_mish_bwd, group_norm_mish_bwd_plain,
     group_norm_mish_plain)
@@ -227,3 +229,94 @@ def test_nearest_codebook_kernel_rejects_what_it_cannot_take(gen):
         nearest_codebook(z.t(), book)                            # (64, 64) strided
     with pytest.raises(ValueError):
         nearest_codebook(z, book.cpu())
+
+
+# (B, S, H) with D = 64: ragged S (TAR's 785, 200, 130), one tile, one token
+ATTN_SHAPES = [(2, 200, 2), (3, 785, 4), (2, 64, 3), (1, 130, 2), (1, 1, 1)]
+
+
+def _attn_inputs(gen, b, s, h, dtype):
+    return tuple(torch.randn(b, s, h, 64, generator=gen, device="cuda").to(dtype)
+                 for _ in range(4))                                 # q, k, v, do
+
+
+def _attn_launches():
+    return (da.dropout_attention_fwd.launches, da.dropout_attention_dq.launches,
+            da.dropout_attention_dkv.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 123), (0.1, 2 ** 32 - 3), (0.5, 7)])
+@pytest.mark.parametrize("b,s,h", ATTN_SHAPES)
+def test_dropout_attention_kernels(gen, dtype, rate, seed, b, s, h):
+    """The forward, dq and dk/dv kernels against their plain versions on the
+    same inputs (the plain forward's lse and delta feed both backwards); a
+    seed near 2**32 wraps when b*H + h is added."""
+    q, k, v, do = _attn_inputs(gen, b, s, h, dtype)
+    sd = torch.tensor(seed, device="cuda")
+    before = _attn_launches()
+    o, lse = da.dropout_attention_fwd(q, k, v, sd, rate)
+    want_o, want_lse = da.dropout_attention_fwd_plain(q, k, v, sd, rate)
+    args = (q, k, v, do, want_lse, da.attention_delta(do, want_o), sd, rate)
+    dq = da.dropout_attention_dq(*args)
+    dk, dv = da.dropout_attention_dkv(*args)
+    torch.cuda.synchronize()
+    assert [a - b_ for a, b_ in zip(_attn_launches(), before)] == [1, 1, 1]
+    _close(o, want_o, dtype)
+    assert lse.dtype == torch.float32 and lse.shape == (b * h, s)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    _close(dq, da.dropout_attention_dq_plain(*args), dtype)
+    for got, want in zip((dk, dv), da.dropout_attention_dkv_plain(*args)):
+        _close(got, want, dtype)
+
+
+def test_dropout_attention_seed_as_int_or_tensor(gen):
+    q, k, v, _ = _attn_inputs(gen, 2, 150, 2, torch.float32)
+    a, _ = da.dropout_attention_fwd(q, k, v, 2 ** 32 - 1, 0.1)
+    b, _ = da.dropout_attention_fwd(q, k, v, torch.tensor(2 ** 32 - 1, device="cuda"), 0.1)
+    c, _ = da.dropout_attention_fwd(q, k, v, 5, 0.1)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_dropout_attention_fn_matches_autograd_of_plain(gen):
+    """DropoutAttentionFn: one launch of each kernel, gradients as torch
+    autograd through the plain forward (f32)."""
+    q, k, v, do = _attn_inputs(gen, 2, 300, 2, torch.float32)
+    seed = torch.tensor(99, device="cuda")
+    before = _attn_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    da.flash_causal_attention_dropout(*leaves, seed, 0.1).backward(do)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_attn_launches(), before)] == [1, 1, 1]
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    da.dropout_attention_fwd_plain(*ref, seed, 0.1)[0].backward(do)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4 * float(b.grad.abs().max()),
+                                   rtol=1e-4)
+
+
+def test_dropout_attention_backward_repeats_exactly(gen):
+    """No atomics: the same inputs and seed give the same gradient bits."""
+    q, k, v, do = _attn_inputs(gen, 2, 785, 4, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        da.flash_causal_attention_dropout(*leaves, torch.tensor(7, device="cuda"),
+                                          0.1).backward(do)
+        runs.append([t.grad for t in leaves])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_dropout_attention_rejects_what_it_cannot_take(gen):
+    q = torch.randn(2, 16, 2, 64, generator=gen, device="cuda")
+    r = torch.randn(2, 16, 2, 32, generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        da.dropout_attention_fwd(r, r, r, 0, 0.1)                              # D = 32
+    with pytest.raises(ValueError):
+        da.dropout_attention_fwd(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2),
+                                 0, 0.1)                                       # strided
+    with pytest.raises(TypeError):
+        da.dropout_attention_fwd(q.half(), q.half(), q.half(), 0, 0.1)
+    with pytest.raises(ValueError):
+        da.dropout_attention_fwd(q, q, q, 0, 1.0)

@@ -12,7 +12,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from igm_tpu.data.cifar10 import CIFAR10DataModule as JaxCIFAR  # noqa: E402
 from igm_tpu.data.loader import epoch_batches as jax_epoch_batches  # noqa: E402
+from igm_tpu.data.mnist import MNISTDataModule as JaxMNIST  # noqa: E402
 from igm_tpu_torch.data.cifar10 import CIFAR10DataModule  # noqa: E402
+from igm_tpu_torch.data.mnist import MNISTDataModule  # noqa: E402
 from igm_tpu_torch.data.loader import DevicePrefetcher, epoch_batches  # noqa: E402
 
 torch.set_num_threads(1)
@@ -68,6 +70,55 @@ def test_cifar_pickle_parser_matches(tmp_path, monkeypatch):
         raw = pickle.load(fh, encoding="bytes")
     # planes -> NHWC: pixel (0, 0) of image 0 is (R, G, B) at 0, 1024, 2048
     np.testing.assert_array_equal(imgs[0, 0, 0], raw[b"data"][0, [0, 1024, 2048]])
+
+
+@pytest.fixture(scope="module")
+def mnist_dir(tmp_path_factory):
+    """The MNIST/raw IDX files (gzip, real headers) that igm_tpu's
+    prepare_data packages from the bundled digit scans: 1437 train and 360
+    test images."""
+    from igm_tpu.data.packaged import load_real_digits, make_mnist
+    root = tmp_path_factory.mktemp("mnist")
+    make_mnist(root, *load_real_digits())
+    return root
+
+
+@pytest.mark.parametrize("size", [28, 14], ids=["native", "resized"])
+def test_mnist_idx_parser_matches_on_the_repo_subset(mnist_dir, monkeypatch, size):
+    """The same arrays as igm_tpu's parser on the packaged digit scans, at
+    the native 28x28 and resized."""
+    monkeypatch.setenv("IGM_SYNTHETIC_DATA", "0")
+    dms = []
+    for cls in (MNISTDataModule, JaxMNIST):
+        dm = cls(data_dir=str(mnist_dir), channels=1, width=size, height=size,
+                 batch_size=128, transforms={"grayscale": True})
+        dm.prepare_data()
+        dm.setup()
+        dms.append(dm)
+    for split in ("train_arrays", "val_arrays"):
+        ours, theirs = (getattr(dm, split)() for dm in dms)
+        assert ours[0].shape[1:] == (size, size, 1) and ours[0].dtype == np.uint8
+        for a, b in zip(ours, theirs):
+            np.testing.assert_array_equal(a, b)
+    assert len(dms[0].train_arrays()[0]) == 1437 and len(dms[0].val_arrays()[0]) == 360
+
+
+def test_mnist_idx_parser_reads_plain_and_gzip_and_checks_the_header(tmp_path):
+    from igm_tpu_torch.data.mnist import read_idx
+    data = np.arange(24, dtype=np.uint8).reshape(2, 3, 4)
+    header = bytes([0, 0, 0x08, 3]) + b"".join(int(n).to_bytes(4, "big") for n in data.shape)
+    (tmp_path / "x-idx3-ubyte").write_bytes(header + data.tobytes())
+    np.testing.assert_array_equal(read_idx(tmp_path / "x-idx3-ubyte"), data)
+    import gzip
+    with gzip.open(tmp_path / "x.gz", "wb") as fh:
+        fh.write(header + data.tobytes())
+    np.testing.assert_array_equal(read_idx(tmp_path / "x.gz"), data)
+    (tmp_path / "bad").write_bytes(bytes([0, 0, 0x0D, 3]) + header[4:] + data.tobytes())
+    with pytest.raises(FileNotFoundError, match="magic"):
+        read_idx(tmp_path / "bad")
+    (tmp_path / "short").write_bytes(header + data.tobytes()[:-1])
+    with pytest.raises(FileNotFoundError, match="payload"):
+        read_idx(tmp_path / "short")
 
 
 def test_epoch_batches_follow_igm_tpu_order():

@@ -57,7 +57,9 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
         assert model.hparams.hidden_dim == 64 and model.timesteps == 1000
         from igm_tpu_torch.models.latent_ddpm import LatentDDPM
         from igm_tpu_torch.models.vqvae import VQVAE
-        for exp, cls in (("vqvae/cifar10", VQVAE), ("latent_ddpm/cifar10", LatentDDPM)):
+        from igm_tpu_torch.models.tar import TAR
+        for exp, cls in (("vqvae/cifar10", VQVAE), ("latent_ddpm/cifar10", LatentDDPM),
+                         ("tar/mnist", TAR), ("tar/mnist_cond", TAR)):
             cfg = compose({str(REPO / "configs")!r}, ["experiment=" + exp])
             model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cpu")
             assert type(model) is cls, type(model)
@@ -73,9 +75,13 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
 
 
 def test_targets_resolve_to_the_port():
+    from igm_tpu_torch.data.mnist import MNISTDataModule
     from igm_tpu_torch.models.ddpm import DDPM
+    from igm_tpu_torch.models.tar import TAR
     assert resolve_target("igm_tpu.models.ddpm.DDPM") is DDPM
     assert resolve_target("src.models.ddpm.DDPM") is DDPM
+    assert resolve_target("igm_tpu.models.tar.TAR") is TAR
+    assert resolve_target("igm_tpu.data.mnist.MNISTDataModule") is MNISTDataModule
 
 
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
