@@ -17,11 +17,15 @@ non-zero:
           where the kernel wrappers take their plain versions; and the launch
           counts of one forward (25 GroupNorm+Mish, 6 linear attention)
   slice   experiment=ddpm/cifar10 composed through the port's config, bf16 on
-          the card: DDIM-50 and the ancestral 1000-step chain at batch 64
-          (sample_batch), then the sampling CLI to a PNG.  The kernels'
-          launch counters are zeroed just before and read just after, and
-          must show 25 and 6 launches per UNet forward.  Then a short f32
-          ancestral chain on the card against the CPU.
+          the card: DDIM-50, DPM-Solver++ with dpm_steps (20) and the
+          ancestral 1000-step chain at batch 64 (sample_batch), then the
+          sampling CLI to PNGs: --sampler ddim, --sampler dpm, and --inpaint
+          center on 8 validation images (RePaint over all 1000 steps; the
+          known pixels of the results must equal the inputs bit for bit).
+          The kernels' launch counters are zeroed just before and read just
+          after, and must show 25 and 6 launches per UNet forward (one
+          forward per timestep of the DPM grid).  Then a short f32 ancestral
+          chain and a DPM-20 chain (karras grid) on the card against the CPU.
   parity  (backward) each backward kernel against its plain backward, at the
           same shapes, dtypes and timings; GroupNorm+Mish's yardstick is the
           autograd backward of F.mish(F.group_norm(...))
@@ -48,8 +52,10 @@ non-zero:
           experiment=latent_ddpm/cifar10 with model.first_stage_ckpt (2
           epochs of 3 steps, DDIM validation, the calibrated latent scale),
           then a resume for 1 more epoch; the sampling CLI with --ckpt,
-          DDIM-50 at batch 64 to a PNG; timed DDIM-50 and ancestral chains at
-          batch 64 (bf16 denoiser, latent images/s); timed VQ-VAE and latent
+          DDIM-50 at batch 64 to a PNG; timed DDIM-50, DPM-20 and ancestral
+          chains at batch 64 (bf16 denoiser, latent images/s); the sampling
+          CLI with --ckpt and --inpaint center on 8 images (latent RePaint,
+          known pixels exact); timed VQ-VAE and latent
           train steps at batch 128 (train images/s); a 10-step f32 latent
           chain and its decode on the card against the CPU.  Launches are
           checked exactly: 17 GroupNorm+Mish and 4 linear attention per
@@ -68,6 +74,17 @@ non-zero:
           masked completion), a resume, one epoch of experiment=tar/mnist_cond
           and the sampling CLI with --ckpt to a PNG; timed train steps at
           batch 128 bf16 with flash_attention=dropout and =off, and sample(64).
+  fused_block  the bench tool's path (python -m
+          igm_tpu_torch.tools.bench_fused_block, in-process, --iters 3),
+          counters zeroed just before and read just after: every variant
+          timed, the kernel within the bf16 tolerance of the plain version at
+          each flagship level, and exactly 3 x (20 x (1 + 3) + 1) launches of
+          the fused-block kernel (and of the Block's GroupNorm+Mish); no
+          other path launches it.
+The fused-block parity rows run with the other parity rows: the kernel
+against block_fwd_plain at the three flagship levels (batch 256 bf16 and
+batch 32 f32, with the kernel's, the plain version's and the UNet Block's
+times and the bound) and tests/test_fused_block.py's four cases.
 The nearest_codebook parity rows (f32, M x K x D = 8192 x 512 x 64, 4096 x
 512 x 64 and a ragged 1000 x 500 x 64) run with the other parity rows: the
 indices are equal except at near-ties (counted), with the kernel's time,
@@ -141,6 +158,16 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # H100's reading (1.07e-4) and 7x the CPU's own spread between two attention
 # orders (5.7e-5), both at the same Dense_0 weight
 GRAD_TOL = 4e-4
+# the fused conv3x3+GroupNorm+Mish block (Pallas row 4): its f32 rows at a
+# batch that keeps the phase short, held to the 3e-5 that
+# tests/test_fused_block.py holds the Pallas kernel to against XLA
+FUSED_F32_BATCH = 32
+FUSED_F32_ATOL = 3e-5
+# tests/test_fused_block.py's cases: (N, H, W, Cin, Cout, dtype)
+FUSED_TEST_CASES = [(4, 8, 8, 16, 16, "float32"), (2, 6, 5, 8, 24, "float32"),
+                    (2, 4, 4, 3, 16, "float32"), (2, 8, 8, 16, 16, "bfloat16")]
+BENCH_ITERS = 3
+INPAINT_N = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -420,9 +447,82 @@ def parity_la_bwd(dtype) -> list[dict]:
     return rows
 
 
+def fused_block_bound(n: int, h: int, w: int, ci: int, co: int, dtype) -> dict:
+    """The least time of one fused-block call: its bytes (x read and the
+    output written once, the weights and the three (Cout,) f32 vectors) over
+    the memory rate, against its products (2 N H W 9 Cin Cout) at the rate of
+    its type; the GroupNorm and Mish arithmetic adds under 2% and is left out."""
+    import torch
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = (n * h * w * (ci + co) + 9 * ci * co) * elt + 3 * co * 4
+    key = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = 2 * n * h * w * 9 * ci * co / PEAK_OPS[key]
+    return dict(bytes=nbytes, bound_ms=1e3 * max(bytes_s, ops_s),
+                bound_by="bytes" if bytes_s >= ops_s else "operations",
+                bound_terms_ms={"bytes": 1e3 * bytes_s, "products": 1e3 * ops_s})
+
+
+def parity_fused_block() -> list[dict]:
+    """fused_block_fwd against block_fwd_plain: the bench tool's three
+    flagship shapes at batch 256 in bf16 (timed: the kernel, the plain
+    version, the UNet's cuDNN-conv Block and the bound) and at batch
+    FUSED_F32_BATCH in f32, then tests/test_fused_block.py's four cases."""
+    import numpy as np
+    import torch
+    from igm_tpu_torch.ops.fused_block import block_fwd_plain, fused_block_fwd
+    from igm_tpu_torch.tools.bench_fused_block import SHAPES, unet_block
+    rows = []
+    cases = ([(BATCH, *s, "bfloat16") for s in SHAPES]
+             + [(FUSED_F32_BATCH, *s, "float32") for s in SHAPES])
+    for n, h, w, ci, co, dname in cases + FUSED_TEST_CASES:
+        dtype = getattr(torch, dname)
+        flagship = (h, w, ci, co) in SHAPES
+        if flagship:
+            g = torch.Generator(device="cuda").manual_seed(n * 1000 + h + co)
+
+            def make(i, n=n, h=h, w=w, ci=ci, co=co, dtype=dtype, g=g):
+                return (torch.randn(n, h, w, ci, generator=g, device="cuda").to(dtype),
+                        (torch.randn(3, 3, ci, co, generator=g, device="cuda") * 0.05).to(dtype),
+                        torch.randn(co, generator=g, device="cuda") * 0.1,
+                        1 + torch.randn(co, generator=g, device="cuda") * 0.1,
+                        torch.randn(co, generator=g, device="cuda") * 0.1)
+
+            bound = fused_block_bound(n, h, w, ci, co, dtype)
+            sets = rotation(make, bound["bytes"])
+        else:                           # tests/test_fused_block.py's inputs
+            rng = np.random.default_rng(0)
+            arrays = (rng.normal(size=(n, h, w, ci)), rng.normal(size=(3, 3, ci, co)) * 0.1,
+                      rng.normal(size=(co,)) * 0.1, 1 + rng.normal(size=(co,)) * 0.1,
+                      rng.normal(size=(co,)) * 0.1)
+            sets = [tuple(torch.tensor(np.asarray(a, np.float32), device="cuda").to(
+                dtype if i < 2 else torch.float32) for i, a in enumerate(arrays))]
+        got = fused_block_fwd(*sets[0])
+        want = block_fwd_plain(*sets[0])
+        torch.cuda.synchronize()
+        atol, rtol = (FUSED_F32_ATOL, 0.0) if dtype == torch.float32 else tolerance(dtype)
+        err = (got.float() - want.float()).abs()
+        check(got.dtype == dtype and bool((err <= atol + rtol * want.float().abs()).all()),
+              f"fused_block_fwd {dname} {n}x{h}x{w}x{ci}->{co}: max err "
+              f"{err.max().item()} beyond atol {atol} rtol {rtol}")
+        row = dict(kernel="fused_block_fwd", dtype=dname, shape=[n, h, w, ci, co],
+                   max_abs_err=err.max().item(), atol=atol, rtol=rtol)
+        if flagship:
+            block = unet_block(*sets[0][1:], dtype)
+            with torch.no_grad():
+                row.update(
+                    kernel_ms=time_ms(fused_block_fwd, sets),
+                    plain_ms=time_ms(block_fwd_plain, sets),
+                    block_ms=time_ms(lambda x, *_: block(x), sets),
+                    library_ms=None, **{k: v for k, v in bound.items() if k != "bytes"})
+        rows.append(row)
+        emit("parity", **row)
+    return rows
+
+
 KERNELS = ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
            "linear_attention_bwd", "nearest_codebook", "dropout_attention_fwd",
-           "dropout_attention_dq", "dropout_attention_dkv")
+           "dropout_attention_dq", "dropout_attention_dkv", "fused_block_fwd")
 # the kernels each path must launch; the others may stay at 0 there
 PATH_KERNELS = {
     "sampling": ("group_norm_mish", "linear_attention"),
@@ -431,6 +531,7 @@ PATH_KERNELS = {
     "latent": ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
                "linear_attention_bwd", "nearest_codebook"),
     "tar": ("dropout_attention_fwd", "dropout_attention_dq", "dropout_attention_dkv"),
+    "fused_block": ("fused_block_fwd",),
 }
 
 
@@ -438,13 +539,14 @@ def _counters():
     from igm_tpu_torch.ops.dropout_attention import (dropout_attention_dkv,
                                                      dropout_attention_dq,
                                                      dropout_attention_fwd)
+    from igm_tpu_torch.ops.fused_block import fused_block_fwd
     from igm_tpu_torch.ops.groupnorm import group_norm_mish, group_norm_mish_bwd
     from igm_tpu_torch.ops.linear_attention import (linear_attention_flat,
                                                     linear_attention_flat_bwd)
     from igm_tpu_torch.ops.vq import nearest_codebook
     return (group_norm_mish, linear_attention_flat, group_norm_mish_bwd,
             linear_attention_flat_bwd, nearest_codebook, dropout_attention_fwd,
-            dropout_attention_dq, dropout_attention_dkv)
+            dropout_attention_dq, dropout_attention_dkv, fused_block_fwd)
 
 
 def expected(**named: int) -> tuple[int, ...]:
@@ -527,10 +629,15 @@ def phase_slice() -> dict:
     model.ddim_sample(n, steps=2, generator=torch.Generator("cuda").manual_seed(9))
     torch.cuda.synchronize()                          # warm-up, not counted
 
+    dpm_steps = int(model.hparams.dpm_steps)
+    # np.unique may shorten the grid: one forward per timestep that remains
+    dpm_forwards = len(model._dpm_timesteps(dpm_steps, str(model.hparams.dpm_schedule)))
     out = {"batch": n}
     reset_counts()
     for name, run, forwards in (
             ("ddim", lambda g: model.ddim_sample(n, steps=steps, generator=g), steps),
+            ("dpm", lambda g: model.dpm_sample(n, steps=dpm_steps, generator=g),
+             dpm_forwards),
             ("ancestral", lambda g: model.sample(n, g), model.timesteps)):
         before = counts()
         t0 = time.perf_counter()
@@ -546,21 +653,33 @@ def phase_slice() -> dict:
                          group_norm_mish_launches=gn, linear_attention_launches=la)
         emit("slice", sampler=name, **out[name])
 
-    before = counts()
+    # the sampling CLI: DDIM-50 and DPM-20 at batch 64, RePaint (one pass per
+    # step over all T) on INPAINT_N validation images
     with tempfile.TemporaryDirectory() as tmp:
-        png = Path(tmp) / "grid.png"
-        t0 = time.perf_counter()
-        sample_main([*overrides, "--n", str(n), "--sampler", "ddim", "--steps",
-                     str(steps), "--out", str(png)])
-        sec = time.perf_counter() - t0
-        with Image.open(png) as img:
-            size = img.size
-    gn, la, *_ = (a - b for a, b in zip(counts(), before))
-    check(size == (2 + 8 * 34, 2 + 8 * 34), f"cli grid size {size}")
-    check((gn, la) == (25 * steps, 6 * steps), f"cli: {gn}/{la} launches")
-    out["cli"] = dict(seconds=sec, grid=list(size), group_norm_mish_launches=gn,
-                      linear_attention_launches=la)
-    emit("slice", sampler="cli", **out["cli"])
+        for name, args, forwards, grid in (
+                ("cli", ["--n", str(n), "--sampler", "ddim", "--steps", str(steps)], steps,
+                 (2 + 8 * 34, 2 + 8 * 34)),
+                ("cli_dpm", ["--n", str(n), "--sampler", "dpm"], dpm_forwards,
+                 (2 + 8 * 34, 2 + 8 * 34)),
+                ("cli_inpaint", ["--n", str(INPAINT_N), "--inpaint", "center",
+                                 f"datamodule.data_dir={Path(tmp) / 'data'}"],
+                 model.timesteps, (2 + 8 * 34, 2 + 2 * 34))):
+            png = Path(tmp) / f"{name}.png"
+            before = counts()
+            t0 = time.perf_counter()
+            imgs = sample_main([*overrides, *args, "--out", str(png)])
+            sec = time.perf_counter() - t0
+            with Image.open(png) as img:
+                size = img.size
+            gn, la, *_ = since(before)
+            check(size == grid, f"{name} grid size {size}")
+            check((gn, la) == (25 * forwards, 6 * forwards),
+                  f"{name}: {gn}/{la} launches for {forwards} forwards")
+            out[name] = dict(seconds=sec, grid=list(size), forwards=forwards,
+                             group_norm_mish_launches=gn, linear_attention_launches=la)
+            if name == "cli_inpaint":
+                out[name].update(inpaint_known_pixels(imgs, INPAINT_N))
+            emit("slice", sampler=name, **out[name])
     out["launches"] = counts()
 
     # the same config in f32: a short ancestral chain on the card (kernels)
@@ -581,7 +700,37 @@ def phase_slice() -> dict:
     out["reference"] = dict(steps=t_start, batch=shape[0], max_abs_err=err,
                             atol=atol)
     emit("slice", sampler="reference", **out["reference"])
+
+    # DPM-20 in f32, card against CPU from the same x_T, on the karras grid:
+    # its first step (sigma 80) divides the eps gap by sqrt(alphas_cumprod)
+    # = 0.0125, where the uniform grid's t = 999 divides it by 4.9e-5
+    x_T = torch.randn(shape, generator=gen)
+    got = f32[0].dpm_sample(shape[0], steps=20, schedule="karras", x_T=x_T.cuda()).cpu()
+    want = f32[1].dpm_sample(shape[0], steps=20, schedule="karras", x_T=x_T)
+    err = (got - want).abs().max().item()
+    check(math.isfinite(err) and err <= atol,
+          f"f32 DPM-20: card vs CPU max err {err} beyond {atol}")
+    out["reference_dpm"] = dict(steps=20, schedule="karras", batch=shape[0],
+                                max_abs_err=err, atol=atol)
+    emit("slice", sampler="reference_dpm", **out["reference_dpm"])
     return out
+
+
+def inpaint_known_pixels(imgs, n: int) -> dict:
+    """The --inpaint center grid's images: n masked inputs (holes 0), then n
+    results, whose known pixels must equal the inputs' bit for bit."""
+    import torch
+    h, w = imgs.shape[1:3]
+    known = torch.ones(h, w, dtype=torch.bool, device=imgs.device)
+    known[h // 4: 3 * h // 4, w // 4: 3 * w // 4] = False
+    masked, painted = imgs[:n], imgs[n:]
+    check(tuple(imgs.shape[:1]) == (2 * n,) and bool(torch.isfinite(painted).all()),
+          f"inpaint: {tuple(imgs.shape)} or non-finite results")
+    check(torch.equal(painted[:, known], masked[:, known]),
+          "inpaint: known pixels differ from the input")
+    check(bool((masked[:, ~known] == 0).all()), "inpaint: holes not erased in the inputs")
+    return dict(known_pixels=int(known.sum()) * n, known_pixels_equal=True,
+                hole_abs_mean=painted[:, ~known].abs().mean().item())
 
 
 def phase_train_unet() -> dict:
@@ -931,14 +1080,19 @@ def phase_latent() -> dict:
         out["cli"] = dict(seconds=sec, grid=list(size), launches=dict(zip(KERNELS, launches)))
         emit("latent", run="cli", **out["cli"])
 
+
         # 4. timed sampling, bf16 denoiser, batch 64, the trained weights
         model = _latent_model(run / "checkpoints")
         check(model.compute_dtype == torch.bfloat16, "latent compute dtype is not bf16")
         n = int(model.hparams.sample_batch)
         model.ddim_sample(n, steps=2, generator=torch.Generator("cuda").manual_seed(9))
         torch.cuda.synchronize()                              # warm-up
+        dpm_steps = int(model.hparams.dpm_steps)
+        dpm_forwards = len(model._dpm_timesteps(dpm_steps, str(model.hparams.dpm_schedule)))
         for name, fn, forwards in (
                 ("ddim", lambda g: model.ddim_sample(n, steps=50, generator=g), 50),
+                ("dpm", lambda g: model.dpm_sample(n, steps=dpm_steps, generator=g),
+                 dpm_forwards),
                 ("ancestral", lambda g: model.sample(n, g), model.timesteps)):
             before = counts()
             t0 = time.perf_counter()
@@ -954,6 +1108,27 @@ def phase_latent() -> dict:
             out[name] = dict(batch=n, steps=forwards, seconds=sec, images_per_s=n / sec,
                              launches=dict(zip(KERNELS, launches)))
             emit("latent", run=name, **out[name])
+
+        # 4b. latent RePaint through the CLI: all T steps in latent space, the
+        # encode and one decode, the known pixels composited back
+        png = tmp / "inpaint.png"
+        before = counts()
+        t0 = time.perf_counter()
+        imgs = sample_main([*overrides, "--ckpt", str(run / "checkpoints"), "--n",
+                            str(INPAINT_N), "--inpaint", "center", "--out", str(png),
+                            f"datamodule.data_dir={tmp / 'data'}"])
+        sec = time.perf_counter() - t0
+        launches = since(before)
+        with Image.open(png) as img:
+            size = img.size
+        check(size == (2 + 8 * 34, 2 + 2 * 34), f"latent inpaint grid size {size}")
+        steps_t = model.timesteps
+        check(launches == expected(group_norm_mish=17 * steps_t, linear_attention=4 * steps_t,
+                                   nearest_codebook=1), f"latent inpaint: launches {launches}")
+        out["inpaint"] = dict(n=INPAINT_N, seconds=sec, grid=list(size),
+                              launches=dict(zip(KERNELS, launches)),
+                              **inpaint_known_pixels(imgs, INPAINT_N))
+        emit("latent", run="inpaint", **out["inpaint"])
 
         # 5. timed train steps at the config's batch 128: the VQ-VAE and the
         # latent DDPM, with their launches per step
@@ -1377,6 +1552,50 @@ def phase_tar() -> dict:
     return out
 
 
+def phase_fused_block() -> dict:
+    """The bench tool's path, run in-process at --iters BENCH_ITERS: every
+    variant line has a time, every shape's kernel output is within the bf16
+    tolerance of the plain version's, and the kernel launched exactly
+    DEPTH * (1 + iters) + 1 times per shape (the warm-up composition, the
+    timed ones, one comparison), as did the Block's GroupNorm+Mish; the
+    caller zeroes the counters before it."""
+    import contextlib
+    import io
+    import torch
+    from igm_tpu_torch.tools import bench_fused_block as bench
+    before = counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        records = bench.main(["--iters", str(BENCH_ITERS)])
+    sec = time.perf_counter() - t0
+    launched = since(before)
+    lines = [json.loads(x) for x in printed.getvalue().splitlines() if x.startswith("{")]
+    check(lines == records, "bench_fused_block: printed lines differ from its records")
+    atol, rtol = tolerance(torch.bfloat16)
+    out = {}
+    for h, w, ci, co in bench.SHAPES:
+        shape = f"{BATCH}x{h}x{w}x{ci}->{co}"
+        mine = [r for r in records if r["shape"] == shape]
+        ms = {r["variant"]: r["ms"] for r in mine if "variant" in r}
+        (diff,) = [r for r in mine if "variant" not in r]
+        check(sorted(ms) == ["block", "cuda", "plain"]
+              and all(math.isfinite(v) and v > 0 for v in ms.values()),
+              f"bench_fused_block {shape}: times {ms}")
+        limit = atol + rtol * diff["ref_abs_max"]
+        check(diff["max_abs_diff"] is not None and diff["max_abs_diff"] <= limit,
+              f"bench_fused_block {shape}: max_abs_diff {diff['max_abs_diff']} > {limit}")
+        out[shape] = dict(ms=ms, max_abs_diff=diff["max_abs_diff"], limit=limit,
+                          depth_max_abs_diff=diff["depth_max_abs_diff"],
+                          block_max_abs_diff=diff["block_max_abs_diff"])
+    per_shape = bench.DEPTH * (1 + BENCH_ITERS) + 1
+    want = expected(fused_block_fwd=3 * per_shape, group_norm_mish=3 * per_shape)
+    check(launched == want, f"bench_fused_block: launches {launched}, expected {want}")
+    row = dict(iters=BENCH_ITERS, depth=bench.DEPTH, seconds=sec, shapes=out,
+               launches=dict(zip(KERNELS, launched)))
+    emit("fused_block", **row)
+    return row
+
+
 def totals(rows: list[dict], key: str):
     vals = [r[key] for r in rows]
     if any(v is None for v in vals):
@@ -1404,6 +1623,7 @@ def main() -> int:
     la_bwd_rows = parity_la_bwd(torch.bfloat16) + parity_la_bwd(torch.float32)
     vq_rows = parity_vq()
     da_rows = parity_dropout_attention(torch.bfloat16) + parity_dropout_attention(torch.float32)
+    fb_rows = parity_fused_block()
     phase_unet()
     sl = phase_slice()                  # the sampling path: zeroes, then reads
     check_path("sampling", sl["launches"])
@@ -1425,8 +1645,17 @@ def main() -> int:
     tar_launches = counts()
     check_path("tar", tar_launches)
     emit("tar", run="path", launches=dict(zip(KERNELS, tar_launches)))
+    reset_counts()                      # the fused-block bench tool
+    fb = phase_fused_block()
+    fb_launches = counts()
+    check_path("fused_block", fb_launches)
     path_launches = {"sampling": sl["launches"], "training": tr_launches,
-                     "latent": lat_launches, "tar": tar_launches}
+                     "latent": lat_launches, "tar": tar_launches,
+                     "fused_block": fb_launches}
+    # row 4 is wired into no model: no other path may launch it
+    fb_index = KERNELS.index("fused_block_fwd")
+    elsewhere = {p: n[fb_index] for p, n in path_launches.items() if p != "fused_block"}
+    check(not any(elsewhere.values()), f"fused_block_fwd launched on {elsewhere}")
 
     def by_path(i: int) -> dict:
         return {path: n[i] for path, n in path_launches.items()}
@@ -1483,10 +1712,27 @@ def main() -> int:
                 f"{TAR_RATE} (a TAR train step makes 4); library_ms is "
                 + ("F.scaled_dot_product_attention with dropout" if kind == "fwd" else
                    "the autograd backward of that SDPA call, dq, dk and dv together")))
+    fb_main = [r for r in fb_rows if r["dtype"] == "bfloat16" and "kernel_ms" in r]
+    kernels.append(dict(
+        name="fused_block_fwd", route="cuda", source="igm_tpu_torch/csrc/fused_block.cu",
+        replaces="igm_tpu/ops/pallas_fused_block.py:105", launches=sum(by_path(fb_index).values()),
+        launches_by_path=by_path(fb_index), max_abs_err=max(r["max_abs_err"] for r in fb_rows),
+        ms=sum(r["kernel_ms"] for r in fb_main), plain_ms=sum(r["plain_ms"] for r in fb_main),
+        block_ms=sum(r["block_ms"] for r in fb_main),
+        bound_ms=sum(r["bound_ms"] for r in fb_main),
+        bound_by="bytes" if sum(r["bound_terms_ms"]["bytes"] for r in fb_main)
+        >= sum(r["bound_terms_ms"]["products"] for r in fb_main) else "operations",
+        library_ms=None,
+        per="one call at each of the three flagship levels (256x32x32x64->64, "
+            "256x16x16x128->128, 256x8x8x256->256), bf16, summed; no one PyTorch call "
+            "computes conv + GroupNorm + Mish, so library_ms is null; block_ms is the "
+            "UNet's Block (cuDNN conv, then the GroupNorm+Mish kernel)"))
     emit("summary", train_images_per_s=tr["speed"]["images_per_s"],
          train_ms_per_step=tr["speed"]["ms_per_step"],
          ddim_images_per_s=sl["ddim"]["images_per_s"],
          ancestral_images_per_s=sl["ancestral"]["images_per_s"],
+         dpm_images_per_s=sl["dpm"]["images_per_s"],
+         latent_dpm_images_per_s=lat["dpm"]["images_per_s"],
          latent_ddim_images_per_s=lat["ddim"]["images_per_s"],
          latent_ancestral_images_per_s=lat["ancestral"]["images_per_s"],
          vqvae_train_images_per_s=lat["vqvae_train"]["images_per_s"],

@@ -9,14 +9,21 @@ composes the config, changes into the run directory ``hydra.run.dir``
 TensorBoard files go) and trains (``igm_tpu_torch.train.train``).
 
     python -m igm_tpu_torch.cli experiment=ddpm/cifar10 [--ckpt DIR | --weights w.pt] \\
-        [--n 64] [--seed 0] [--out samples.png] [--sampler ddim] [--steps 50] \\
+        [--n 64] [--seed 0] [--out samples.png] [--sampler ddim|dpm] [--steps 50] \\
+        [--label 3] [--inpaint left|right|top|bottom|center [--resample 1]] \\
         [--device cpu]
 
 Composes the config, instantiates the port's model on the card (or on the
 device ``--device`` names), loads the weights, runs the model's sampler
-(diffusion: ancestral, or ``--sampler ddim``; ``experiment=vqvae/*``:
+(diffusion: ancestral, or ``--sampler ddim|dpm``; ``experiment=vqvae/*``:
 decoded random codes; ``experiment=tar/*``: the KV-cached decode), and
-writes a grid image.  ``--ckpt`` restores the
+writes a grid image.  ``--sampler heun|multistep`` (the EDM and consistency
+samplers) exit with a message for a model that lacks them.  ``--label``
+draws every sample from one class (class-conditional models).  ``--inpaint``
+erases a region of the first n validation images of the datamodule
+(synthetic when its files are absent) and fills it with RePaint, with
+``--resample`` passes per step; the grid shows the masked inputs, then the
+results.  ``--ckpt`` restores the
 whole train state from the newest of the port's checkpoints in DIR: every
 module (for latent DDPM the denoiser, the first stage, the codebook and the
 latent scale) and the EMA shadow the samplers use.  ``--weights`` takes the
@@ -101,7 +108,9 @@ def train_main(argv=None):
     return result
 
 
-def sample_main(argv=None) -> None:
+def sample_main(argv=None) -> torch.Tensor:
+    """Writes the grid; returns the images it shows (model space, on the
+    model's device)."""
     parser = argparse.ArgumentParser(prog="python -m igm_tpu_torch.cli")
     parser.add_argument("overrides", nargs="*",
                         help="config overrides (experiment=...)")
@@ -116,8 +125,20 @@ def sample_main(argv=None) -> None:
     parser.add_argument("--n", type=int, default=64)
     parser.add_argument("--out", default="samples.png")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--sampler", default=None, choices=["ddim"],
-                        help="fast sampler instead of the ancestral chain")
+    parser.add_argument("--label", type=int, default=None,
+                        help="class label (conditional models, e.g. ddpm/cond_mnist): "
+                             "draw all n samples from this class")
+    parser.add_argument("--inpaint", default=None,
+                        choices=["left", "right", "top", "bottom", "center"],
+                        help="diffusion models: erase this region of n validation "
+                             "images and inpaint it (RePaint); the grid shows the "
+                             "masked inputs, then the results")
+    parser.add_argument("--resample", type=int, default=1,
+                        help="RePaint resampling passes per step (U)")
+    parser.add_argument("--sampler", default=None,
+                        choices=["ddim", "dpm", "heun", "multistep"],
+                        help="a fast sampler instead of the model's default (ddim, "
+                             "dpm: the DDPM family; heun: EDM; multistep: consistency)")
     parser.add_argument("--steps", type=int, default=None,
                         help="fast-sampler step count (default: config)")
     parser.add_argument("--device", default=None,
@@ -148,17 +169,49 @@ def sample_main(argv=None) -> None:
         model.init_params(args.seed)
         print(f"no --ckpt or --weights: random init from seed {args.seed}")
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    if args.sampler == "ddim":
-        if not hasattr(model, "ddim_sample"):
-            raise SystemExit(f"--sampler ddim: {type(model).__name__} has no DDIM sampler")
-        steps = args.steps or int(model.hparams.ddim_steps)
-        imgs = torch.clamp(model.ddim_sample(args.n, steps=steps,
-                                             generator=generator), -1.0, 1.0)
+    kwargs = {}
+    if args.label is not None:
+        import inspect
+        target = getattr(model, "inpaint" if args.inpaint else "sample", None)
+        if target is None or "y" not in inspect.signature(target).parameters:
+            raise SystemExit(f"--label: {type(model).__name__} is not class-conditional")
+        kwargs["y"] = torch.full((args.n,), args.label, dtype=torch.long, device=device)
+
+    if args.inpaint:
+        if not hasattr(model, "inpaint"):
+            raise SystemExit(f"--inpaint: {type(model).__name__} has no inpaint sampler "
+                             "(diffusion models only)")
+        dm = instantiate(cfg.datamodule)
+        dm.prepare_data()
+        dm.setup()
+        x0 = model.preprocess(torch.from_numpy(dm.val_arrays()[0][:args.n]))
+        h, w = x0.shape[1], x0.shape[2]
+        mask = torch.ones((1, h, w, 1), device=x0.device)       # 1 = known, 0 = hole
+        region = {"left": np.s_[:, :, : w // 2], "right": np.s_[:, :, w // 2:],
+                  "top": np.s_[:, : h // 2], "bottom": np.s_[:, h // 2:],
+                  "center": np.s_[:, h // 4: 3 * h // 4, w // 4: 3 * w // 4]}
+        mask[region[args.inpaint]] = 0.0
+        painted = model.inpaint(x0, mask, resample=args.resample, generator=generator,
+                                **kwargs)
+        imgs = torch.cat([mask * x0, painted])       # holes render mid-gray in [-1, 1]
+        n_show = 2 * args.n
+    elif args.sampler:
+        method = getattr(model, f"{args.sampler}_sample", None)
+        if method is None:
+            raise SystemExit(f"--sampler {args.sampler}: {type(model).__name__} has no "
+                             f"{args.sampler}_sample")
+        steps = args.steps or int(model.hparams.get(f"{args.sampler}_steps")
+                                  or model.hparams.get("sample_steps"))
+        imgs = torch.clamp(method(args.n, steps=steps, generator=generator, **kwargs),
+                           -1.0, 1.0)
+        n_show = args.n
     else:
-        imgs = model.sample(args.n, generator)
-    grid = get_grid_images(imgs.float().cpu().numpy(), model, nimgs=args.n)
+        imgs = model.sample(args.n, generator, **kwargs)
+        n_show = args.n
+    grid = get_grid_images(imgs.float().cpu().numpy(), model, nimgs=n_show)
     save_image_grid(grid, args.out)
-    print(f"wrote {args.out} ({args.n} images)")
+    print(f"wrote {args.out} ({n_show} images)")
+    return imgs
 
 
 if __name__ == "__main__":

@@ -1,19 +1,19 @@
 """DDPM: counterpart of ``igm_tpu/models/ddpm.py``'s constructor, train
 state, train step (l1/l2 loss on an eps or v target, Min-SNR weight,
 classifier-free-guidance label drop, EMA shadow), validation step, denoiser
-call, classifier-free guidance, and the ancestral and DDIM samplers.
+call, classifier-free guidance, and the samplers: ancestral, DDIM,
+DPM-Solver++(2M), interpolation and RePaint inpainting.
 
 ``igm_tpu`` runs each chain as one ``lax.scan``; here it is a Python loop
 over the timesteps, one UNet forward per step.  Random draws take an
 explicit ``torch.Generator`` (training: the TrainState's); for tests, the
 train step also takes its timesteps, noise and label drop as tensors, and
-the samplers the initial ``x`` and the per-step noise.
+the samplers their initial ``x`` and per-step draws.
 
 ``denoise_channels``, ``_sample_shape`` and ``_to_diffusion_space`` are the
 hooks through which ``LatentDDPM`` diffuses in a VQ-VAE's latent space.
 
-Not yet ported (they wait for later slices): ``dpm_sample`` (and so
-``val_sampler=dpm``), ``interpolate``, ``inpaint``, and the DiT backbone.
+Not yet ported (it waits for a later slice): the DiT backbone.
 """
 from __future__ import annotations
 
@@ -62,9 +62,6 @@ class DDPM(BaseModel):
                              f"got {parameterization!r}")
         if loss_type not in ("l1", "l2"):
             raise NotImplementedError(f"loss_type={loss_type!r}")
-        if val_sampler == "dpm":
-            raise NotImplementedError("val_sampler=dpm: the port has no "
-                                      "dpm_sample yet (ancestral|ddim)")
         if network != "unet":
             raise NotImplementedError(
                 f"network={network!r}: the port has the unet backbone only")
@@ -190,7 +187,7 @@ class DDPM(BaseModel):
     def validation_step(self, state: TrainState, batch,
                         generator: torch.Generator, sample: bool = False):
         """The batch, the batch diffused to t = T-1, and with ``sample`` a
-        ``sample_batch`` of samples from ``val_sampler`` (ancestral|ddim)."""
+        ``sample_batch`` of samples from ``val_sampler`` (ancestral|ddim|dpm)."""
         imgs = self.preprocess(batch[0])
         n = imgs.shape[0]
         t = torch.full((n,), self.timesteps - 1, dtype=torch.long,
@@ -203,15 +200,20 @@ class DDPM(BaseModel):
         return result, {}
 
     def _validation_samples(self, generator: torch.Generator) -> torch.Tensor:
-        """``sample_batch`` samples from ``val_sampler`` (ancestral|ddim)."""
+        """``sample_batch`` samples from ``val_sampler``: ddim and dpm with
+        their configured steps (and, conditional, the class blocks under
+        ``guidance_scale``), else the ancestral chain."""
         n_s = int(self.hparams.sample_batch)
-        if self.hparams.val_sampler == "ddim":
+        fast = {"ddim": (self.ddim_sample, "ddim_steps"),
+                "dpm": (self.dpm_sample, "dpm_steps")}
+        if self.hparams.val_sampler in fast:
+            fn, steps_key = fast[self.hparams.val_sampler]
             cond = {}
             if self.num_classes:
                 cond = dict(y=self._default_labels(n_s),
                             guidance=float(self.hparams.guidance_scale))
-            return self.ddim_sample(n_s, steps=int(self.hparams.ddim_steps),
-                                    generator=generator, **cond)
+            return fn(n_s, steps=int(self.hparams[steps_key]), generator=generator,
+                      **cond)
         return self.sample(n_s, generator)
 
     def _noise(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -351,3 +353,137 @@ class DDPM(BaseModel):
                          else noises[i])
                 x = x + sigma * noise
         return x
+
+    def _dpm_timesteps(self, steps: int, schedule: str,
+                       rho: float = 7.0) -> np.ndarray:
+        """The ascending timestep subsequence of :meth:`dpm_sample`, in numpy
+        on the float32 tables upcast to float64, as ``igm_tpu`` computes it:
+        ``uniform`` spaces t evenly; ``logsnr`` spaces the half-log-SNR
+        lambda evenly; ``karras`` spaces sigma^(1/rho) evenly with sigma_max
+        clamped to 80.  Targets map to the nearest discrete t and duplicates
+        are dropped, so the result can be shorter than ``steps``."""
+        if schedule == "uniform":
+            return np.linspace(0, self.timesteps - 1, steps).round().astype(np.int32)
+        acp = self.tables.alphas_cumprod.cpu().numpy().astype(np.float64)
+        sig = np.sqrt((1.0 - acp) / acp)            # VP sigma(t), ascending in t
+        if schedule == "logsnr":
+            lam = 0.5 * np.log(acp / (1.0 - acp))
+            targets = np.linspace(lam[-1], lam[0], steps)
+            t = np.abs(lam[None, :] - targets[:, None]).argmin(axis=1)
+        elif schedule == "karras":
+            smin, smax = sig[0], min(float(sig[-1]), 80.0)
+            frac = np.linspace(0.0, 1.0, steps)
+            sk = (smax ** (1 / rho) + frac * (smin ** (1 / rho) - smax ** (1 / rho))) ** rho
+            t = np.abs(sig[None, :] - sk[:, None]).argmin(axis=1)
+        else:
+            raise ValueError(f"dpm schedule must be uniform|logsnr|karras, "
+                             f"got {schedule!r}")
+        return np.unique(t).astype(np.int32)
+
+    @torch.no_grad()
+    def dpm_sample(self, n: int, steps: int = 20, y=None, guidance: float = 1.0,
+                   schedule: Optional[str] = None,
+                   generator: Optional[torch.Generator] = None,
+                   x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """DPM-Solver++(2M) (Lu et al. 2022): the deterministic second-order
+        multistep sampler in half-log-SNR space, data-prediction form, one
+        UNet forward per timestep of :meth:`_dpm_timesteps` (``schedule``:
+        ``hparams.dpm_schedule`` when None).  The last step goes to a virtual
+        t = -1 at lambda + 30 (alpha 1, sigma 0); the first and the last step
+        are first order.  The implied x0 is clipped by ``_clip_x0`` every
+        step.  ``x_T`` replaces the initial draw."""
+        shape = self._sample_shape(n)
+        x = self._noise(shape, generator) if x_T is None else x_T
+        if schedule is None:
+            schedule = str(self.hparams.dpm_schedule)
+        seq = self._dpm_timesteps(steps, schedule)
+        t_next = np.concatenate([[-1], seq[:-1]])
+        # the step coefficients depend on the timesteps alone: float32 numpy
+        # scalars on the host, as igm_tpu computes them in float32 in its scan
+        acp = self.tables.alphas_cumprod.cpu().numpy()
+        one = np.float32(1.0)
+
+        def lam(a):
+            return np.float32(0.5) * (np.log(a) - np.log1p(-a))
+
+        x0_prev, h_prev = None, np.float32(0.0)
+        for t, tn in zip(seq[::-1].tolist(), t_next[::-1].tolist()):
+            a_cur = acp[t]
+            sigma_cur, lam_cur = np.sqrt(one - a_cur), lam(a_cur)
+            final = tn < 0
+            if final:                   # h = 30: expm1(-h) == -1 in float32
+                alpha_n, sigma_n, lam_n = one, np.float32(0.0), lam_cur + np.float32(30.0)
+            else:
+                a_next = acp[tn]
+                alpha_n, sigma_n, lam_n = np.sqrt(a_next), np.sqrt(one - a_next), lam(a_next)
+            tb = torch.full((n,), t, dtype=torch.long, device=self.device)
+            eps = self._eps(x, tb.float(), y, guidance)
+            x0 = self._clip_x0(gd.predict_start_from_noise(self.tables, x, tb, eps))
+            h = lam_n - lam_cur
+            d = x0
+            if h_prev != 0 and not final:           # second order
+                r = h_prev / (h if h != 0 else one)
+                d = x0 + (x0 - x0_prev) / float(max(np.float32(2.0) * r, np.float32(1e-12)))
+            x = float(sigma_n / sigma_cur) * x - float(alpha_n * np.expm1(-h)) * d
+            x0_prev, h_prev = x0, h
+        return x
+
+    @torch.no_grad()
+    def interpolate(self, x1: torch.Tensor, x2: torch.Tensor, t: Optional[int] = None,
+                    weight: float = 0.5, generator: Optional[torch.Generator] = None,
+                    diffuse_noise: Optional[Sequence[torch.Tensor]] = None,
+                    noises: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Diffuse x1 and x2 to level t (default T-1), lerp by ``weight``,
+        then run the ancestral chain from ``t_start = t``: its first step is
+        t - 1, as in ``igm_tpu``.  ``diffuse_noise`` replaces the two forward
+        draws, ``noises`` the chain's."""
+        t = self.timesteps - 1 if t is None else t
+        tb = torch.full((x1.shape[0],), t, dtype=torch.long, device=self.device)
+        z1, z2 = (diffuse_noise if diffuse_noise is not None else
+                  (self._noise(x1.shape, generator), self._noise(x2.shape, generator)))
+        img = ((1.0 - weight) * gd.q_sample(self.tables, x1, tb, z1)
+               + weight * gd.q_sample(self.tables, x2, tb, z2))
+        return self.p_sample_loop(x1.shape, generator, t_start=t, init_x=img,
+                                  noises=noises)
+
+    @torch.no_grad()
+    def inpaint(self, x0: torch.Tensor, mask: torch.Tensor, resample: int = 1,
+                y=None, guidance: float = 1.0,
+                generator: Optional[torch.Generator] = None,
+                x_T: Optional[torch.Tensor] = None,
+                draws: Optional[Sequence[tuple]] = None) -> torch.Tensor:
+        """RePaint (Lugmayr et al. 2022, Alg. 1): the ancestral chain over all
+        T steps, where after every reverse step the known region (``mask`` 1,
+        broadcast to x0; 0 = hole) is replaced by x0 diffused to the level
+        the step produced (t - 1; x0 itself at t = 0).  ``resample=U`` runs
+        each step U times, re-diffusing one beta_t step between passes (not
+        after the last pass, nor at t = 0).  Ends with the exact composite,
+        so known pixels come back bit for bit.
+
+        ``x_T`` replaces the initial draw and ``draws[i]`` the i-th pass's
+        (reverse, known, forward) draws, passes counted over t = T-1 .. 0
+        and u = 0 .. U-1."""
+        mask = torch.broadcast_to(mask, x0.shape).to(x0.dtype)
+        x = self._noise(x0.shape, generator) if x_T is None else x_T
+        u_total = max(int(resample), 1)
+        betas = self.tables.betas
+        n = x0.shape[0]
+        i = 0
+        for t in range(self.timesteps - 1, -1, -1):
+            tb = torch.full((n,), t, dtype=torch.long, device=self.device)
+            for u in range(u_total):
+                rev, known, fwd = draws[i] if draws is not None else (None,) * 3
+                i += 1
+                x_un = self.p_sample(x, tb, generator, y=y, guidance=guidance, noise=rev)
+                if t > 0:
+                    if known is None:
+                        known = self._noise(x0.shape, generator)
+                    x_kn = gd.q_sample(self.tables, x0, tb - 1, known)
+                else:
+                    x_kn = x0
+                x = mask * x_kn + (1.0 - mask) * x_un
+                if u < u_total - 1 and t > 0:
+                    if fwd is None:
+                        fwd = self._noise(x.shape, generator)
+                    x = torch.sqrt(1.0 - betas[t]) * x + torch.sqrt(betas[t]) * fwd
+        return mask * x0 + (1.0 - mask) * x

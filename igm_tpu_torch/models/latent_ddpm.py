@@ -18,7 +18,8 @@ The latent scale is the buffer ``modules["latent"].scale``, so it rides the
 checkpoints into the sampling CLI: ``latent_scale=auto`` is resolved once in
 ``on_fit_start`` and every later user reads the calibrated value.
 
-Not ported yet (they wait with DDPM's own): ``dpm_sample`` and ``inpaint``.
+The samplers decode their latents; ``inpaint`` takes pixel-space images and
+masks; ``interpolate`` is DDPM's, on latents.
 """
 from __future__ import annotations
 
@@ -185,6 +186,36 @@ class LatentDDPM(DDPM):
         return self.decode(super().ddim_sample(
             n, steps=steps, eta=eta, generator=generator, y=y, guidance=guidance,
             clip_denoised=clip_denoised, x_T=x_T, noises=noises))
+
+    @torch.no_grad()
+    def dpm_sample(self, n: int, steps: int = 20, y=None, guidance: float = 1.0,
+                   schedule: Optional[str] = None,
+                   generator: Optional[torch.Generator] = None,
+                   x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decode(super().dpm_sample(
+            n, steps=steps, y=y, guidance=guidance, schedule=schedule,
+            generator=generator, x_T=x_T))
+
+    @torch.no_grad()
+    def inpaint(self, x0: torch.Tensor, mask: torch.Tensor, resample: int = 1,
+                y=None, guidance: float = 1.0,
+                generator: Optional[torch.Generator] = None,
+                x_T: Optional[torch.Tensor] = None, draws=None) -> torch.Tensor:
+        """Latent-space RePaint: x0 (preprocessed images) is encoded, the
+        pixel mask is min-pooled to the latent grid (a latent cell is known
+        only where every pixel it covers is known), DDPM's ``inpaint`` runs
+        on the latents (``x_T`` and ``draws`` in latent shape), the result is
+        decoded and the known pixels are composited back exactly."""
+        mask = torch.broadcast_to(mask, x0.shape).to(x0.dtype)
+        n, h, w = x0.shape[:3]
+        fh, fw = h // self.latent_h, w // self.latent_w
+        zmask = (mask.amin(dim=-1)
+                 .reshape(n, self.latent_h, fh, self.latent_w, fw)
+                 .amin(dim=(2, 4))[..., None])
+        z = super().inpaint(self._to_diffusion_space(x0), zmask, resample=resample,
+                            y=y, guidance=guidance, generator=generator, x_T=x_T,
+                            draws=draws)
+        return mask * x0 + (1.0 - mask) * self.decode(z)
 
     @torch.no_grad()
     def validation_step(self, state: TrainState, batch,

@@ -187,3 +187,55 @@ def test_tar_weights_load_into_the_net(tmp_path):
     a, b, c = (_grid(tmp_path / f"{s}.png") for s in ("npz", "pt", "r"))
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c)
+
+
+def test_sample_main_dpm_sampler(tmp_path):
+    out = tmp_path / "dpm.png"
+    imgs = sample_main([*TINY, "--n", "4", "--device", "cpu", "--sampler", "dpm",
+                        "--steps", "3", "--out", str(out)])
+    assert imgs.shape == (4, 32, 32, 3) and imgs.abs().max() <= 1.0
+    assert _grid(out).shape == (2 + 34, 2 + 4 * 34, 3)
+
+
+COND_TINY = ["experiment=ddpm/cond_mnist", "model.hidden_dim=8", "model.dim_mults=[1,2]",
+             "model.timesteps=6"]
+
+
+def test_sample_main_label_on_a_conditional_model(tmp_path):
+    """--label draws every sample from one class: the class changes the
+    samples of the same seed; a model without labels refuses it."""
+    common = [*COND_TINY, f"datamodule.data_dir={tmp_path / 'data'}", "--n", "4",
+              "--device", "cpu", "--sampler", "ddim", "--steps", "3"]
+    grids = []
+    for label in (1, 7):
+        out = tmp_path / f"label{label}.png"
+        sample_main([*common, "--label", str(label), "--out", str(out)])
+        grids.append(_grid(out))
+        assert grids[-1].shape == (2 + 30, 2 + 4 * 30, 3)
+    assert not np.array_equal(*grids)
+    with pytest.raises(SystemExit, match="VQVAE is not class-conditional"):
+        sample_main(["experiment=vqvae/cifar10", *FIRST_STAGE_TINY, "--label", "1", "--n",
+                     "2", "--device", "cpu", "--out", str(tmp_path / "vq.png")])
+
+
+def test_sample_main_inpaint(tmp_path):
+    """--inpaint center --resample 2 on validation images: the grid holds the
+    masked inputs, then the results, whose known pixels are the inputs'."""
+    out = tmp_path / "inpaint.png"
+    imgs = sample_main([*TINY, f"datamodule.data_dir={tmp_path / 'data'}", "--n", "3",
+                        "--device", "cpu", "--inpaint", "center", "--resample", "2",
+                        "--out", str(out)])
+    assert imgs.shape == (6, 32, 32, 3)
+    known = torch.ones(32, 32, dtype=torch.bool)
+    known[8:24, 8:24] = False
+    masked, painted = imgs[:3], imgs[3:]
+    assert torch.equal(painted[:, known], masked[:, known])
+    assert (masked[:, ~known] == 0).all() and not (painted[:, ~known] == 0).all()
+    assert _grid(out).shape == (2 + 34, 2 + 6 * 34, 3)
+
+
+@pytest.mark.parametrize("sampler", ["heun", "multistep"])
+def test_sample_main_refuses_a_sampler_the_model_lacks(tmp_path, sampler):
+    with pytest.raises(SystemExit, match=f"--sampler {sampler}: DDPM has no {sampler}_sample"):
+        sample_main([*TINY, "--n", "2", "--device", "cpu", "--sampler", sampler,
+                     "--out", str(tmp_path / "x.png")])

@@ -8,7 +8,9 @@ N*H*W products per channel: held to 1e-4 of their largest value.  The
 nearest-codebook indices are equal except at near-ties, where the plain
 version's scores at the two indices differ by at most
 1e-5 (||e||^2 + 2 ||z|| ||e||) (``near_tie_gaps`` <= 1).  The dropout
-flash attention's lse is float32 in both dtypes: held to 1e-5.
+flash attention's lse is float32 in both dtypes: held to 1e-5.  The fused
+conv3x3+GroupNorm+Mish block in float32 is held to atol 3e-5, as
+tests/test_fused_block.py holds the Pallas kernel to XLA.
 """
 import sys
 from pathlib import Path
@@ -19,6 +21,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from igm_tpu_torch.ops import dropout_attention as da  # noqa: E402
+from igm_tpu_torch.ops.fused_block import block_fwd_plain, fused_block_fwd  # noqa: E402
 from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
     GroupNormMishFn, group_norm_mish, group_norm_mish_bwd, group_norm_mish_bwd_plain,
     group_norm_mish_plain)
@@ -320,3 +323,62 @@ def test_dropout_attention_rejects_what_it_cannot_take(gen):
         da.dropout_attention_fwd(q.half(), q.half(), q.half(), 0, 0.1)
     with pytest.raises(ValueError):
         da.dropout_attention_fwd(q, q, q, 0, 1.0)
+
+
+# (N, H, W, Cin, Cout): tests/test_fused_block.py's (odd spatial with cg = 3,
+# RGB input), N that is a multiple of nothing, and the flagship's middle level
+FUSED_SHAPES = [(4, 8, 8, 16, 16), (2, 6, 5, 8, 24), (2, 4, 4, 3, 16), (3, 7, 9, 5, 40),
+                (17, 16, 16, 128, 128)]
+# float32: the conv sums in another order than cuDNN's, as
+# tests/test_fused_block.py holds the Pallas kernel to XLA
+FUSED_F32_ATOL = 3e-5
+
+
+def _fused_inputs(gen, n, h, w, ci, co, dtype):
+    return ((torch.randn(n, h, w, ci, generator=gen, device="cuda")).to(dtype),
+            (torch.randn(3, 3, ci, co, generator=gen, device="cuda") * 0.1).to(dtype),
+            torch.randn(co, generator=gen, device="cuda") * 0.1,
+            1 + torch.randn(co, generator=gen, device="cuda") * 0.1,
+            torch.randn(co, generator=gen, device="cuda") * 0.1)
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    """The plain version's f32 conv in full float32 (cuDNN's default is TF32)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n,h,w,ci,co", FUSED_SHAPES)
+def test_fused_block_kernel(gen, no_tf32, dtype, n, h, w, ci, co):
+    args = _fused_inputs(gen, n, h, w, ci, co, dtype)
+    before = fused_block_fwd.launches
+    got = fused_block_fwd(*args)
+    torch.cuda.synchronize()
+    assert fused_block_fwd.launches == before + 1
+    want = block_fwd_plain(*args)
+    if dtype == torch.float32:
+        assert got.dtype == want.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got, want, atol=FUSED_F32_ATOL, rtol=0)
+    else:
+        _close(got, want, dtype)
+
+
+def test_fused_block_kernel_repeats_exactly(gen):
+    """No atomics: the same inputs give the same bits."""
+    args = _fused_inputs(gen, 8, 32, 32, 64, 64, torch.bfloat16)
+    assert torch.equal(fused_block_fwd(*args), fused_block_fwd(*args))
+
+
+def test_fused_block_kernel_rejects_what_it_cannot_take(gen):
+    x, w, b, sc, bi = _fused_inputs(gen, 1, 64, 64, 8, 64, torch.float32)
+    before = fused_block_fwd.launches
+    with pytest.raises(ValueError, match="limit is 1024"):
+        fused_block_fwd(x, w, b, sc, bi, groups=1)                    # oversize group
+    with pytest.raises(ValueError):
+        fused_block_fwd(x.transpose(1, 2), w, b, sc, bi)             # not contiguous
+    with pytest.raises(TypeError):
+        fused_block_fwd(x.half(), w, b, sc, bi)
+    with pytest.raises(ValueError):
+        fused_block_fwd(x, w, b.cpu(), sc, bi)
+    assert fused_block_fwd.launches == before

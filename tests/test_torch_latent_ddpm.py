@@ -290,3 +290,36 @@ def test_checkpoint_keeps_the_scale_and_ema_codebook_and_wins_on_resume(tmp_path
     assert torch.equal(resumed.modules["vq"].cluster_size, torch.full((16,), 3.0))
     # a fit from scratch calibrates the first stage's own scale
     assert float(fit(1).scale) == scale
+
+
+def test_dpm_sample_then_decode_matches_igm_tpu(pair):
+    jm, state, tm = pair
+    rng = jax.random.PRNGKey(8)
+    want = np.asarray(jm.dpm_sample(state, rng, 2, steps=6, schedule="logsnr"))
+    init_rng, _ = jax.random.split(rng)              # as dpm_sample draws x_T
+    x_T = np.asarray(jax.random.normal(init_rng, (2, 4, 4, 8)))
+    got = tm.dpm_sample(2, steps=6, schedule="logsnr", x_T=torch.from_numpy(x_T.copy()))
+    assert got.shape == (2, 16, 16, 3)
+    # no x0 clip in latent space, as DDIM
+    np.testing.assert_allclose(got.numpy(), want, atol=DDIM_ATOL, rtol=DDIM_RTOL)
+
+
+def test_inpaint_matches_igm_tpu(pair):
+    """Latent RePaint with a hole that straddles latent cells: the pixel mask
+    min-pooled to the 4x4 latent grid (holes grow to whole cells), the draws
+    of igm_tpu's key schedule in latent shape, the decode, then the known
+    pixels composited back bit for bit."""
+    from test_torch_ddpm import repaint_draws
+    jm, state, tm = pair
+    x0 = np.asarray(jm.preprocess(jnp.asarray(_imgs(2, 9))))
+    mask = np.ones((1, 16, 16, 1), np.float32)
+    mask[:, 3:9, 5:14] = 0.0                         # rows 3-8, cols 5-13: cells 0-2 x 1-3
+    key = jax.random.PRNGKey(9)
+    want = np.asarray(jm.inpaint(state, key, jnp.asarray(x0), jnp.asarray(mask)))
+    x_T, draws = repaint_draws(key, T_STEPS, 1, (2, 4, 4, 8))
+    got = tm.inpaint(torch.from_numpy(x0.copy()), torch.from_numpy(mask), x_T=x_T,
+                     draws=draws)
+    assert got.shape == (2, 16, 16, 3)
+    known = np.broadcast_to(mask, x0.shape) == 1
+    np.testing.assert_array_equal(got.numpy()[known], x0[known])      # bit for bit
+    np.testing.assert_allclose(got.numpy(), want, atol=DDIM_ATOL, rtol=DDIM_RTOL)
