@@ -8,6 +8,7 @@ non-zero:
 
   device  the card's name and power limit (nvidia-smi), torch and CUDA versions
   build   builds every kernel from igm_tpu_torch/csrc (one nvcc per source)
+          and prints ptxas's registers and spill bytes of each kernel
   parity  each kernel against its plain PyTorch version on the card, at the
           flagship shapes with batch 256, in bf16 and f32, with its time, the
           plain version's, the least time the card could take (bound) and,
@@ -66,10 +67,12 @@ non-zero:
           counters zeroed just before and read just after: the dropout
           flash-attention parity rows (forward at rates 0 and 0.1, dq and
           dk/dv, B=128, S=785, H=4, D=64, bf16 and f32, one seed that wraps
-          past 2**32, SDPA with dropout as the yardstick); one TARNet forward,
-          loss and f32 gradients (batch 8, dropout 0) on the card against the
-          CPU; exact launches: 4/4/4 per train step, 4 forwards at rate 0 per
-          cal_loss (8 per validation batch), none per KV decode step; the
+          past 2**32, SDPA with dropout as the yardstick; the dq and dk/dv
+          rows name their design: bf16 on the tensor cores, f32 as FMAs);
+          one TARNet forward, loss and f32 gradients (batch 8, dropout 0) on
+          the card against the CPU; exact launches: 4/4/4 per train step, 4
+          forwards at rate 0 per cal_loss (8 per validation batch), none per
+          KV decode step; the
           train CLI (2 epochs of 3 steps, validation with samples and the
           masked completion), a resume, one epoch of experiment=tar/mnist_cond
           and the sampling CLI with --ckpt to a PNG; timed train steps at
@@ -149,10 +152,11 @@ TAR_SEEDS = (20261016, 2 ** 32 - 5)  # the second wraps: seed + b*H + h passes 2
 TAR_STEPS = 10
 # the dropout hash's integer operations per live (query, key) pair, with the
 # row term (qi * C1 ^ seed) and the column term (kj * C2) hoisted out of the
-# pair loop: 1 xor of the two terms, 3 shift+xor rounds (6), 2 multiplies, the
-# compare and the select = 11, on the CUDA cores' int32 lanes: 132 SMs x 64
-# lanes x 1.98 GHz
-HASH_OPS_PER_PAIR = 11
+# pair loop, each with the first shift+xor round folded in (h ^ h >> 16
+# distributes over the xor of the two terms): 1 xor of the two terms, 2
+# shift+xor rounds (4), 2 multiplies, the compare and the select = 9, on the
+# CUDA cores' int32 lanes: 132 SMs x 64 lanes x 1.98 GHz
+HASH_OPS_PER_PAIR = 9
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # TARNet's f32 gradients, card against CPU, over the largest entry: 4x an
 # H100's reading (1.07e-4) and 7x the CPU's own spread between two attention
@@ -234,12 +238,16 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds every kernel library; returns ptxas's registers and spills of
+    each kernel, by library."""
     from igm_tpu_torch.ops import _build
     t0 = time.perf_counter()
     libs = _build.libraries()
+    usage = {lib: _build.resource_usage(lib) for lib in sorted(libs)}
     emit("build", seconds=time.perf_counter() - t0, libraries=sorted(libs),
-         flags=list(_build.NVCC_FLAGS))
+         flags=list(_build.NVCC_FLAGS), ptxas=usage)
+    return usage
 
 
 def parity_gn(dtype) -> list[dict]:
@@ -1232,6 +1240,16 @@ def attention_bound(kind: str, dtype, rate: float) -> dict:
                 bound_terms_ms={k: 1e3 * v for k, v in terms.items()})
 
 
+def attention_design(dtype) -> dict:
+    """How the dq and dk/dv kernels compute in ``dtype``: bf16 on the tensor
+    cores (mma.sync, the redesigned kernels), float32 as FMAs on the CUDA
+    cores (the first design, kept for the f32 checks)."""
+    import torch
+    if dtype == torch.bfloat16:
+        return dict(design="mma.sync bf16", redesigned=True)
+    return dict(design="f32 FMA", redesigned=False)
+
+
 def parity_dropout_attention(dtype) -> list[dict]:
     """The dropout flash-attention kernels against their plain versions at
     TAR's shapes: the forward at rate 0 (evaluation) and 0.1 (training), the
@@ -1322,7 +1340,8 @@ def parity_dropout_attention(dtype) -> list[dict]:
             rows.append(dict(
                 kernel=f"dropout_attention_{kind}", dtype=key, shape=list(TAR_SHAPE),
                 rate=rate, seed=seed, max_abs_err=err, atol=atol, rtol=rtol,
-                **({"lse_max_abs_err": lse_err} if kind == "fwd" else {}),
+                **({"lse_max_abs_err": lse_err} if kind == "fwd" else
+                   attention_design(dtype)),
                 **times[kind], **attention_bound(kind, dtype, rate)))
             emit("parity", **rows[-1])
     return rows
@@ -1616,7 +1635,7 @@ def main() -> int:
     # float32 products and convs in full float32; the bf16 path ignores these
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    usage = phase_build()
     gn_rows = parity_gn(torch.bfloat16) + parity_gn(torch.float32)
     la_rows = parity_la(torch.bfloat16) + parity_la(torch.float32)
     gn_bwd_rows = parity_gn_bwd(torch.bfloat16) + parity_gn_bwd(torch.float32)
@@ -1708,6 +1727,10 @@ def main() -> int:
             ms=main["kernel_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], bound_term=main["bound_term"],
             library_ms=main["library_ms"],
+            **({} if kind == "fwd" else dict(
+                design=main["design"], ptxas={
+                    k: v for k, v in usage["dropout_attention"].items()
+                    if k.startswith(f"dropout_attention_{kind}_")})),
             per=f"one call at B, S, H, D = {', '.join(map(str, TAR_SHAPE))}, bf16, rate "
                 f"{TAR_RATE} (a TAR train step makes 4); library_ms is "
                 + ("F.scaled_dot_product_attention with dropout" if kind == "fwd" else
@@ -1739,6 +1762,8 @@ def main() -> int:
          latent_train_images_per_s=lat["latent_train"]["images_per_s"],
          tar_train_images_per_s=tar["train_dropout"]["images_per_s"],
          tar_train_off_images_per_s=tar["train_off"]["images_per_s"],
+         tar_train_dropout_over_off=tar["train_dropout"]["images_per_s"]
+         / tar["train_off"]["images_per_s"],
          tar_sample_images_per_s=tar["sample"]["images_per_s"],
          seconds=time.perf_counter() - T_START)
     print(smi, flush=True)

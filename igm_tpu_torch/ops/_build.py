@@ -5,7 +5,10 @@ Each source becomes its own shared library with a plain C interface, built
 at first use into ``igm_tpu_torch/_build/`` (ignored by git) under a name
 keyed by a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  All sources are compiled at once,
-one nvcc process each.  Nothing here runs at import time.
+one nvcc process each.  nvcc runs with ``-Xptxas -v``: ptxas's report of
+each kernel's registers, shared memory and spills is kept beside the library
+(``<library>.log``) and read by :func:`resource_usage`.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +25,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 SOURCES = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc() -> str:
@@ -64,6 +68,7 @@ def libraries() -> dict[str, ctypes.CDLL]:
             failed.append(f"{src.name}: nvcc exit {proc.returncode}\n{output}")
             tmp.unlink(missing_ok=True)
         else:
+            target.with_suffix(".log").write_text(output)
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -72,3 +77,44 @@ def libraries() -> dict[str, ctypes.CDLL]:
 
 def library(name: str) -> ctypes.CDLL:
     return libraries()[name]
+
+
+def _kernel_name(symbol: str) -> str:
+    """A kernel's name from its mangled symbol (namespaces dropped), with
+    its template arguments: ``group_norm_mish_kernel<bf16, 8>``."""
+    parts, i = [], 3 if symbol.startswith("_ZN") else 2
+    while m := re.match(r"\d+", symbol[i:]):
+        n, i = int(m.group()), i + m.end()
+        parts.append(symbol[i:i + n])
+        i += n
+    if not parts:
+        return symbol
+    m = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", symbol[i:])
+    if not m:
+        return parts[-1]
+    args = [{"f": "float", "13__nv_bfloat16": "bf16"}.get(a, a[2:-1])
+            for a in re.findall(r"f|13__nv_bfloat16|Li\d+E", m.group(1))]
+    return f"{parts[-1]}<{', '.join(args)}>"
+
+
+def resource_usage(name: str) -> dict[str, dict[str, int]]:
+    """Each kernel of library ``name`` as ptxas reported it when it was
+    built here: {kernel: {"registers", "stack_frame", "spill_stores",
+    "spill_loads"}} (the last three in bytes); empty where the report is
+    missing."""
+    log = _target(SOURCES / f"{name}.cu").with_suffix(".log")
+    if not log.exists():
+        return {}
+    out, current = {}, None
+    for line in log.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            current = out.setdefault(_kernel_name(m.group(1)), {})
+        elif current is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            current.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            current["registers"] = int(m.group(1))
+    return out

@@ -1,0 +1,52 @@
+"""The kernel build helper's reading of ptxas's ``-v`` report
+(igm_tpu_torch.ops._build), on the CPU: kernel names from mangled symbols
+and each kernel's registers, stack frame and spills from a saved report."""
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from igm_tpu_torch.ops import _build  # noqa: E402
+
+NS = "_ZN53_GLOBAL__N__80ca1e8f_20_dropout_attention_cu_efa49c01"
+
+
+@pytest.mark.parametrize("symbol,name", [
+    (NS + "31dropout_attention_dq_mma_kernelEPK13__nv_bfloat16S2_S2_S2_PKfS4_PKlPS0_iifjfi",
+     "dropout_attention_dq_mma_kernel"),
+    (NS + "28dropout_attention_fwd_kernelI13__nv_bfloat16EEvPKT_S4_S4_PKlPS2_Pfiifjfi",
+     "dropout_attention_fwd_kernel<bf16>"),
+    (NS + "27dropout_attention_dq_kernelIfEEvPKT_S3_S3_S3_PKfS5_PKlPS1_iifjfi",
+     "dropout_attention_dq_kernel<float>"),
+    ("_ZN51_GLOBAL__N__cc202229_18_group_norm_mish_cu_3252673626group_norm_mish_bwd_kernel"
+     "I13__nv_bfloat16Li8EEEvPKT_PKfS6_S4_PS2_PfS8_iiif", "group_norm_mish_bwd_kernel<bf16, 8>"),
+    ("_Z15group_norm_mishPKf", "group_norm_mish"),
+    ("not_mangled", "not_mangled"),
+])
+def test_kernel_name(symbol, name):
+    assert _build._kernel_name(symbol) == name
+
+
+def test_resource_usage_reads_the_saved_report(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert _build.resource_usage("dropout_attention") == {}
+    dq = NS + "31dropout_attention_dq_mma_kernelEPK13__nv_bfloat16S2_S2_S2_PKfS4_PKlPS0_iifjfi"
+    fwd = NS + "28dropout_attention_fwd_kernelIfEEvPKT_S3_S3_PKlPS1_Pfiifjfi"
+    report = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{dq}' for 'sm_90a'
+ptxas info    : Function properties for {dq}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'
+ptxas info    : Function properties for {fwd}
+    48 bytes stack frame, 48 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+    _build._target(_build.SOURCES / "dropout_attention.cu").with_suffix(".log").write_text(report)
+    assert _build.resource_usage("dropout_attention") == {
+        "dropout_attention_dq_mma_kernel": dict(registers=128, stack_frame=0, spill_stores=0,
+                                                spill_loads=0),
+        "dropout_attention_fwd_kernel<float>": dict(registers=64, stack_frame=48,
+                                                    spill_stores=48, spill_loads=32)}

@@ -8,7 +8,9 @@ N*H*W products per channel: held to 1e-4 of their largest value.  The
 nearest-codebook indices are equal except at near-ties, where the plain
 version's scores at the two indices differ by at most
 1e-5 (||e||^2 + 2 ||z|| ||e||) (``near_tie_gaps`` <= 1).  The dropout
-flash attention's lse is float32 in both dtypes: held to 1e-5.  The fused
+flash attention's lse is float32 in both dtypes: held to 1e-5; its bf16
+dq and dk/dv run on the tensor cores and sum in another order than the
+plain version, within the same bf16 tolerance.  The fused
 conv3x3+GroupNorm+Mish block in float32 is held to atol 3e-5, as
 tests/test_fused_block.py holds the Pallas kernel to XLA.
 """
@@ -234,8 +236,11 @@ def test_nearest_codebook_kernel_rejects_what_it_cannot_take(gen):
         nearest_codebook(z, book.cpu())
 
 
-# (B, S, H) with D = 64: ragged S (TAR's 785, 200, 130), one tile, one token
-ATTN_SHAPES = [(2, 200, 2), (3, 785, 4), (2, 64, 3), (1, 130, 2), (1, 1, 1)]
+# (B, S, H) with D = 64: ragged S (TAR's 785, 200, 130), one tile, one token;
+# the tile edges the kernels mask (one row short of a 64-row tile, one past,
+# two whole tiles, one past them); and TAR's S over many waves of CTAs
+ATTN_SHAPES = [(2, 200, 2), (3, 785, 4), (2, 64, 3), (1, 130, 2), (1, 1, 1),
+               (1, 63, 2), (2, 65, 1), (1, 128, 2), (1, 129, 3), (16, 785, 4)]
 
 
 def _attn_inputs(gen, b, s, h, dtype):
@@ -309,6 +314,28 @@ def test_dropout_attention_backward_repeats_exactly(gen):
         runs.append([t.grad for t in leaves])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", [da.dropout_attention_dq, da.dropout_attention_dkv],
+                         ids=["dq", "dkv"])
+def test_dropout_attention_backward_rejects_unaligned_bf16(gen, kernel):
+    """The bf16 backward copies rows with 16-byte cp.async: a contiguous
+    bf16 view 2 bytes past an aligned start raises, with no fallback."""
+    b, s, h = 1, 65, 2
+    n = b * s * h * 64
+    q, k, v, do = _attn_inputs(gen, b, s, h, torch.bfloat16)
+    o, lse = da.dropout_attention_fwd_plain(q, k, v, 3, 0.1)
+    delta = da.attention_delta(do, o)
+    buf = torch.randn(n + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    shifted = buf[1:].view(b, s, h, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = kernel.launches
+    for args in ((shifted, k, v, do), (q, k, v, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            kernel(*args, lse, delta, 3, 0.1)
+    assert kernel.launches == before
+    kernel(q, k, v, do, lse, delta, 3, 0.1)             # aligned: launches
+    assert kernel.launches == before + 1
 
 
 def test_dropout_attention_rejects_what_it_cannot_take(gen):

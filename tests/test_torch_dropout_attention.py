@@ -5,7 +5,9 @@ The hash and the mask bit for bit against ``_hash_bits`` and
 ``reference_probs_dropout_mask``, a wrapping seed included; the plain
 forward at rate 0 and 0.1 and its autograd gradients against the Pallas
 kernel in interpret mode (B=2, S=200, H=2, D=64, as
-``tests/test_dropout_flash.py``); ``hash_dropout_attention`` against
+``tests/test_dropout_flash.py``), and at the tile edges S = 63, 65 and 129
+(B=1, H=2) where the card tests compare the kernels with the plain
+versions; ``hash_dropout_attention`` against
 ``hash_dropout_attention_fn`` with the seed it draws.  Tolerances: float32
 summed in other orders, 1e-5 for the forward and ``2e-5 * max(|ref|, 1)``
 for the gradients.
@@ -68,9 +70,9 @@ def _jax_loss(q, k, v, seed, rate):
     return (jax_flash(q, k, v, jnp.asarray(seed, jnp.uint32), rate, None, True) ** 2).sum()
 
 
-@pytest.mark.parametrize("seed", [123, WRAP])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_forward_and_gradients_match_pallas_interpret(qkv, rate, seed):
+def _check_against_pallas_interpret(qkv, seed, rate):
+    """The plain forward and its autograd gradients against the Pallas
+    kernel in interpret mode, on the same (B, S, H, D) float32 inputs."""
     jq, jk, jv = (jnp.asarray(x) for x in qkv)
     want = np.asarray(jax_flash(jq, jk, jv, jnp.asarray(seed, jnp.uint32), rate, None, True))
     leaves = [torch.from_numpy(x.copy()).requires_grad_() for x in qkv]
@@ -83,6 +85,24 @@ def test_forward_and_gradients_match_pallas_interpret(qkv, rate, seed):
         np.testing.assert_allclose(leaf.grad.numpy(), g,
                                    atol=2e-5 * max(np.abs(g).max(), 1.0),
                                    err_msg=f"grad {name}")
+
+
+@pytest.mark.parametrize("seed", [123, WRAP])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_forward_and_gradients_match_pallas_interpret(qkv, rate, seed):
+    _check_against_pallas_interpret(qkv, seed, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("s", [63, 65, 129])
+def test_plain_versions_match_pallas_interpret_at_tile_edges(s, rate):
+    """The lengths the card tests hold the kernels to their plain versions
+    at (one short of a 64-row tile, one past, one past two): the plain
+    forward and its gradients against the Pallas kernel in interpret mode,
+    B=1, H=2, D=64, at the tolerances above."""
+    rng = np.random.default_rng(s)
+    _check_against_pallas_interpret(
+        [rng.normal(size=(1, s, 2, D)).astype(np.float32) for _ in range(3)], 123, rate)
 
 
 def test_forward_returns_lse_and_rate_zero_needs_no_seed(qkv):
