@@ -67,8 +67,8 @@ non-zero:
           counters zeroed just before and read just after: the dropout
           flash-attention parity rows (forward at rates 0 and 0.1, dq and
           dk/dv, B=128, S=785, H=4, D=64, bf16 and f32, one seed that wraps
-          past 2**32, SDPA with dropout as the yardstick; the dq and dk/dv
-          rows name their design: bf16 on the tensor cores, f32 as FMAs);
+          past 2**32, SDPA with dropout as the yardstick; every row names
+          its design: bf16 on the tensor cores, f32 as FMAs);
           one TARNet forward, loss and f32 gradients (batch 8, dropout 0) on
           the card against the CPU; exact launches: 4/4/4 per train step, 4
           forwards at rate 0 per cal_loss (8 per validation batch), none per
@@ -336,7 +336,8 @@ def parity_la(dtype) -> list[dict]:
             plain_ms=time_ms(lambda *a: linear_attention_flat_plain(*a, LA_HEADS),
                              sets),
             library_ms=None, bound_ms=1e3 * max(bytes_s, ops_s),
-            bound_by="bytes" if bytes_s >= ops_s else "operations"))
+            bound_by="bytes" if bytes_s >= ops_s else "operations",
+            design=attention_design(dtype)["design"]))
         emit("parity", **rows[-1])
     return rows
 
@@ -1241,9 +1242,10 @@ def attention_bound(kind: str, dtype, rate: float) -> dict:
 
 
 def attention_design(dtype) -> dict:
-    """How the dq and dk/dv kernels compute in ``dtype``: bf16 on the tensor
-    cores (mma.sync, the redesigned kernels), float32 as FMAs on the CUDA
-    cores (the first design, kept for the f32 checks)."""
+    """How the forward, dq and dk/dv kernels (and the linear-attention
+    forward) compute in ``dtype``: bf16 on the tensor cores (mma.sync, the
+    redesigned kernels), float32 as FMAs on the CUDA cores (the first
+    design, kept for the f32 checks)."""
     import torch
     if dtype == torch.bfloat16:
         return dict(design="mma.sync bf16", redesigned=True)
@@ -1340,8 +1342,8 @@ def parity_dropout_attention(dtype) -> list[dict]:
             rows.append(dict(
                 kernel=f"dropout_attention_{kind}", dtype=key, shape=list(TAR_SHAPE),
                 rate=rate, seed=seed, max_abs_err=err, atol=atol, rtol=rtol,
-                **({"lse_max_abs_err": lse_err} if kind == "fwd" else
-                   attention_design(dtype)),
+                **({"lse_max_abs_err": lse_err} if kind == "fwd" else {}),
+                **attention_design(dtype),
                 **times[kind], **attention_bound(kind, dtype, rate)))
             emit("parity", **rows[-1])
     return rows
@@ -1693,6 +1695,12 @@ def main() -> int:
              "igm_tpu/ops/attention.py:99 (XLA custom VJP _flat_bwd)", "backward"))):
         main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
         bytes_bound = all(r["bound_by"] == "bytes" for r in main_rows)
+        # the bf16 forward's redesign: its design and its kernels' ptxas
+        # report (the f32 kernels' are in the build line)
+        redesign = {} if name != "linear_attention" else dict(
+            design=main_rows[0]["design"], ptxas={
+                k: v for k, v in usage["linear_attention"].items()
+                if k.startswith("linear_attention_mma_kernel")})
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path(i).values()), launches_by_path=by_path(i),
@@ -1700,7 +1708,7 @@ def main() -> int:
             ms=totals(main_rows, "kernel_ms"), plain_ms=totals(main_rows, "plain_ms"),
             bound_ms=totals(main_rows, "bound_ms"),
             bound_by="bytes" if bytes_bound else "operations",
-            library_ms=totals(main_rows, "library_ms"),
+            library_ms=totals(main_rows, "library_ms"), **redesign,
             per=f"all calls of one UNet {per}, batch 256, bf16"))
     vq_main = vq_rows[0]
     kernels.append(dict(
@@ -1726,11 +1734,9 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main["kernel_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], bound_term=main["bound_term"],
-            library_ms=main["library_ms"],
-            **({} if kind == "fwd" else dict(
-                design=main["design"], ptxas={
-                    k: v for k, v in usage["dropout_attention"].items()
-                    if k.startswith(f"dropout_attention_{kind}_")})),
+            library_ms=main["library_ms"], design=main["design"], ptxas={
+                k: v for k, v in usage["dropout_attention"].items()
+                if k.startswith(f"dropout_attention_{kind}_mma_kernel")},
             per=f"one call at B, S, H, D = {', '.join(map(str, TAR_SHAPE))}, bf16, rate "
                 f"{TAR_RATE} (a TAR train step makes 4); library_ms is "
                 + ("F.scaled_dot_product_attention with dropout" if kind == "fwd" else

@@ -34,51 +34,57 @@
 // dk/dv's bytes bound it at 0.093 ms.
 //
 // Three designs:
-//   - the bf16 dq and dk/dv kernels (the training path) do every product on
-//     the tensor cores, mma.sync.m16n8k16 bf16 -> f32, FlashAttention-2's
-//     backward split into two deterministic kernels as the Pallas kernels
-//     split it.  One CTA of 4 warps per (64-row tile, b*h); each warp owns
-//     16 rows, whose operands are A fragments: k and v for dk/dv, and do for
-//     dq, held in registers for the whole walk, and q for dq, read from its
-//     staged tile by ldmatrix per chunk (so dq fits 128 registers without
-//     spills, 4 CTAs per SM; dk/dv takes 168, 3 CTAs).  The other side's
-//     64-row tiles stream through a two-stage shared-memory ring filled by
-//     16-byte cp.async (rows at or past S zero-filled, rows padded to 144
-//     bytes so ldmatrix is free of bank conflicts): the next tile loads while
-//     this one computes.  Per 16-column chunk the scores and dp land in
-//     accumulator fragments; the epilogue (causal mask on the diagonal tile,
-//     exp, the hash from a row term qi * C1 ^ seed and a column term kj * C2,
-//     ds) runs on them in registers, and the rounded p * f and ds are
-//     repacked from the accumulator layout into A fragments for the next
-//     product: they never touch shared memory.  Each tile's work is
-//     compiled four times, with and without the hash and the mask, so the
-//     tiles off the diagonal and the ragged edge skip the mask, and rate 0
-//     skips the hash.  dk/dv works in the transposed form (rows keys,
-//     columns queries: s^T = k q^T), so the hash takes its query index from
-//     the column and lse and delta are indexed by column.  dq launches its
-//     heaviest query tiles first within each b*h, whose tiles stay adjacent
-//     so its K and V stay in L2.  mma.sync rather
-//     than wgmma: the products at the full wgmma rate already take about as
-//     long as the hash floor, so the gain is in moving them off the CUDA
-//     cores and keeping p and ds in registers, which leaves the integer
-//     lanes to the hash;
-//   - the float32 dq and dk/dv kernels, and the forward in both types, are
-//     the first, simple version: every product a float32 FMA on the CUDA
-//     cores (67 TFLOP/s) from tiles staged in shared memory as float32, one
-//     block of 256 threads per (64-row tile, b*h), each thread owning 4 rows
-//     x 4 columns (rows ty + 16i, columns tx + 16j) of 65-float padded rows.
-//     float32 serves the f32 checks, whose 1e-5 tolerances rule out TF32 on
-//     the tensor cores.  The forward (Pallas row 6) is still this kernel in
-//     bf16 too; it is the next to take the bf16 backward's design;
+//   - the bf16 forward, dq and dk/dv kernels (TAR's training and evaluation
+//     path) do every product on the tensor cores, mma.sync.m16n8k16 bf16 ->
+//     f32: FlashAttention-2's forward, and its backward split into two
+//     deterministic kernels as the Pallas kernels split it.  One CTA of 4
+//     warps per (64-row tile, b*h); each warp owns 16 rows, whose operands
+//     are A fragments: k and v for dk/dv, and do for dq, held in registers
+//     for the whole walk, and q for the forward and dq, read from its staged
+//     tile by ldmatrix per chunk.  The other side's 64-row tiles stream
+//     through a two-stage shared-memory ring filled by 16-byte cp.async
+//     (rows at or past S zero-filled, rows padded to 144 bytes so ldmatrix
+//     is free of bank conflicts): the next tile loads while this one
+//     computes.  The scores (and dp) land in accumulator fragments and the
+//     epilogue runs on them in registers: the forward's online softmax (the
+//     row max over the quad, alpha, the rescale of l and of the o
+//     accumulator, p = 2^(s log2 e - m) by ex2.approx), the causal mask on
+//     the diagonal tile, the hash from a row term qi * C1 ^ seed and a
+//     column term kj * C2, ds.  The rounded p * f and ds are repacked from
+//     the accumulator layout into A fragments for the next product (one cvt
+//     per register pair): they never touch shared memory.  Each tile's work
+//     is compiled four times, with and without the hash and the mask, so
+//     the tiles off the diagonal and the ragged edge skip the mask, and rate
+//     0 (TAR's evaluation) skips the hash.  dk/dv works in the transposed
+//     form (rows keys, columns queries: s^T = k q^T), so the hash takes its
+//     query index from the column and lse and delta are indexed by column.
+//     The forward and dq launch their heaviest query tiles first within
+//     each b*h, whose tiles stay adjacent so its K and V stay in L2.
+//     Registers (ptxas, sm_90a): the forward and dq 128 without spills, 4
+//     CTAs of 128 threads per SM (45 and 55 KB of shared memory); dk/dv 168,
+//     3 CTAs.  mma.sync rather than wgmma: the products at the full wgmma
+//     rate already take about as long as the hash floor, so the gain is in
+//     moving them off the CUDA cores and keeping p and ds in registers,
+//     which leaves the integer lanes to the hash.  The bf16 kernels need
+//     q, k, v and do on a 16-byte boundary (the wrappers check);
+//   - the float32 forward, dq and dk/dv kernels are the first, simple
+//     version: every product a float32 FMA on the CUDA cores (67 TFLOP/s)
+//     from tiles staged in shared memory as float32, one block of 256
+//     threads per (64-row tile, b*h), each thread owning 4 rows x 4 columns
+//     (rows ty + 16i, columns tx + 16j) of 65-float padded rows.  float32
+//     serves the f32 checks, whose 1e-5 tolerances rule out TF32 on the
+//     tensor cores;
 //   - all of them mask the ragged edge (S = 785 is no multiple of 64) in the
 //     kernel and use no atomics: every sum runs in a fixed order, so
-//     gradients repeat bit for bit across runs.
+//     outputs and gradients repeat bit for bit across runs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -451,47 +457,7 @@ constexpr int kLdh = kD + 8;                // bf16 row padded to 144 bytes: the
 constexpr int kTileH = kTile * kLdh;        // bf16 elements of one staged tile
 constexpr int kChunks = kD / 16;            // 16-wide chunks of a row (k of an mma)
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes from global to shared memory, or as many zero bytes when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major) . b (16x8 bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x in one MUFU.EX2 (2 ulp; results below 2^-126 flush to 0, far under
 // the bf16 rounding of p)
@@ -499,12 +465,6 @@ __device__ __forceinline__ float exp2_fast(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// lo and hi rounded to bf16 (nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Fragment addresses in a staged tile (row-major, kLdh a row) for lane l.
@@ -561,6 +521,165 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float a
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
           __floats2bfloat162_rn(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
+}
+
+// One live 64-key tile of the forward, for the warp's 16 query rows: the
+// scores s = q k^T of all 64 keys by mma, in the log2 domain; the online
+// softmax on the fragments (the row max over the quad, alpha, the rescale of
+// l and of the o accumulator); then per 16 keys p = 2^(s - m), l += p, and
+// acc += round(p f) v with p f repacked from the accumulator layout into A
+// fragments.  l is each thread's partial row sum over its own columns until
+// the quad sums it at the end.  kDrop: rate > 0 (else no hash); kMask: the
+// diagonal tile (causal mask; it also holds the keys at or past s).
+template <bool kDrop, bool kMask>
+__device__ __forceinline__ void fwd_tile(float (&acc)[8][4], float (&m2)[2], float (&l)[2],
+                                         const bf16* qs, const bf16* ks, const bf16* vs,
+                                         int k0, int r0, int lane, float scale_log2,
+                                         const uint32_t (&qterm)[2], const Dropout& drop) {
+  const int g = lane >> 2, t = lane & 3;
+  float sc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < kChunks; ++d) {
+    uint32_t qa[4];
+    ldsm_x4(qa, frag_a(qs, r0, 16 * d, lane));
+#pragma unroll
+    for (int c = 0; c < kTile / 16; ++c) {
+      uint32_t kb[4];
+      ldsm_x4(kb, frag_b(ks, 16 * c, 16 * d, lane));
+      mma_bf16(sc[2 * c], qa, kb[0], kb[1]);
+      mma_bf16(sc[2 * c + 1], qa, kb[2], kb[3]);
+    }
+  }
+  // element e of n8 tile n is row r0 + g + 8 (e / 2), key 8n + 2t + e % 2
+  float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[n][e] * scale_log2;
+      if (kMask && 8 * n + 2 * t + (e & 1) > r0 + g + 8 * (e >> 1)) x = kNegInf;
+      sc[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float alpha = exp2_fast(m2[i] - mx[i]);
+    m2[i] = mx[i];
+    l[i] *= alpha;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[n][2 * i] *= alpha;
+      acc[n][2 * i + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kTile / 16; ++c) {      // 16 keys at a time
+    float pf[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int col = 0; col < 2; ++col) {
+        const uint32_t kterm = kDrop ? Dropout::key_term(k0 + 16 * c + 8 * j + 2 * t + col) : 0u;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 2 * i + col;
+          const float p = exp2_fast(sc[2 * c + j][e] - m2[i]);
+          l[i] += p;
+          pf[j][e] = kDrop ? p * drop.factor_of(qterm[i], kterm) : p;
+        }
+      }
+    // p f rounded to bf16: the c layout of two n8 tiles is the a layout of k16
+    const uint32_t pa[4] = {pack_bf16(pf[0][0], pf[0][1]), pack_bf16(pf[0][2], pf[0][3]),
+                            pack_bf16(pf[1][0], pf[1][1]), pack_bf16(pf[1][2], pf[1][3])};
+#pragma unroll
+    for (int n = 0; n < kD / 16; ++n) {       // acc += p f . v, 16 features at a time
+      uint32_t vb[4];
+      ldsm_x4_trans(vb, frag_b_trans(vs, 16 * c, 16 * n, lane));
+      mma_bf16(acc[2 * n], pa, vb[0], vb[1]);
+      mma_bf16(acc[2 * n + 1], pa, vb[2], vb[3]);
+    }
+  }
+}
+
+// 4 CTAs per SM: at most 128 registers (q's fragments come from shared memory
+// per chunk), 4 x 45 KB of shared memory
+__global__ void __launch_bounds__(kMmaThreads, 4)
+dropout_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const int64_t* __restrict__ seed,
+                                 bf16* __restrict__ o, float* __restrict__ lse, int s, int nh,
+                                 float sm_scale, uint32_t thresh, float keep_scale,
+                                 int dropout) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_bytes);
+  bf16* ring = qs + kTileH;                   // [stage][k tile, v tile]
+  const int tiles = (s + kTile - 1) / kTile;
+  // the heaviest query tiles first; a b*h's tiles stay adjacent (its K, V in L2)
+  const int qt = tiles - 1 - blockIdx.x, bh = blockIdx.y, b = bh / nh, h = bh % nh;
+  const int q0 = qt * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;                   // this warp's rows in the tile
+  const Dropout drop = make_dropout(seed, bh, thresh, keep_scale, dropout);
+  const float scale_log2 = sm_scale * kLog2e;
+
+  load_tile(qs, q, b, h, s, nh, q0);
+  load_tile(ring, k, b, h, s, nh, 0);
+  load_tile(ring + kTileH, v, b, h, s, nh, 0);
+  cp_async_commit();
+
+  uint32_t qterm[2];
+  float m2[2], l[2], acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qterm[i] = drop.query_term(q0 + r0 + g + 8 * i);
+    m2[i] = kNegInf;
+    l[i] = 0.0f;
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int kt = 0; kt <= qt; ++kt) {          // the causally live key tiles
+    cp_async_wait<0>();                      // this tile has landed ...
+    __syncthreads();                          // ... for all, and the other stage is free
+    if (kt < qt) {
+      bf16* next = ring + ((kt + 1) & 1) * 2 * kTileH;
+      load_tile(next, k, b, h, s, nh, (kt + 1) * kTile);
+      load_tile(next + kTileH, v, b, h, s, nh, (kt + 1) * kTile);
+    }
+    cp_async_commit();
+    const bf16* ks = ring + (kt & 1) * 2 * kTileH;
+#define IGM_FWD_TILE(DROP, MASK)                                                        \
+  fwd_tile<DROP, MASK>(acc, m2, l, qs, ks, ks + kTileH, kt * kTile, r0, lane, scale_log2, \
+                       qterm, drop)
+    if (kt == qt) {                           // the diagonal tile: causal mask
+      if (drop.on) IGM_FWD_TILE(true, true); else IGM_FWD_TILE(false, true);
+    } else {
+      if (drop.on) IGM_FWD_TILE(true, false); else IGM_FWD_TILE(false, false);
+    }
+#undef IGM_FWD_TILE
+  }
+  // the quad's partial sums make l; o = acc / l, lse = m + log l
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float inv = 1.0f / l[i];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[n][2 * i] *= inv;
+      acc[n][2 * i + 1] *= inv;
+    }
+    const int qi = q0 + r0 + g + 8 * i;
+    if (t == 0 && qi < s) lse[(size_t)bh * s + qi] = m2[i] * kLn2 + logf(l[i]);
+  }
+  store_rows(o, acc, 1.0f, b, h, s, nh, q0 + r0, g, t);
 }
 
 // One live 64-key tile of the dq kernel, for the warp's 16 query rows:
@@ -664,12 +783,12 @@ dropout_attention_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restri
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
 
   uint32_t doa[kChunks][4];
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
   load_a(doa, dos, r0, lane);
 
   for (int kt = 0; kt <= qt; ++kt) {          // the causally live key tiles
-    cp_async_wait_all();                      // this tile has landed ...
+    cp_async_wait<0>();                      // this tile has landed ...
     __syncthreads();                          // ... for all, and the other stage is free
     if (kt < qt) {
       bf16* next = ring + ((kt + 1) & 1) * 2 * kTileH;
@@ -812,13 +931,13 @@ dropout_attention_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
 
   uint32_t ka[kChunks][4], va[kChunks][4];
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
   load_a(ka, ks, r0, lane);
   load_a(va, vs, r0, lane);
 
   for (int qt = kt; qt < tiles; ++qt) {       // the query tiles that see this key tile
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();
     if (qt + 1 < tiles) load_queries(qt + 1);
     cp_async_commit();
@@ -849,11 +968,18 @@ template <typename T>
 int fwd(const T* q, const T* k, const T* v, const int64_t* seed, T* o, float* lse, int b,
         int s, int nh, float sm_scale, uint32_t thresh, float keep_scale, int dropout,
         cudaStream_t stream) {
-  const size_t smem = 4 * kTileFloats * sizeof(float);
-  if (int err = launch_setup(dropout_attention_fwd_kernel<T>, smem)) return err;
   const dim3 grid((s + kTile - 1) / kTile, b * nh);
-  dropout_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      q, k, v, seed, o, lse, s, nh, sm_scale, thresh, keep_scale, dropout);
+  if constexpr (std::is_same_v<T, bf16>) {
+    const size_t smem = 5 * kTileH * sizeof(bf16);          // q, two stages of k, v
+    if (int err = launch_setup(dropout_attention_fwd_mma_kernel, smem)) return err;
+    dropout_attention_fwd_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
+        q, k, v, seed, o, lse, s, nh, sm_scale, thresh, keep_scale, dropout);
+  } else {
+    const size_t smem = 4 * kTileFloats * sizeof(float);
+    if (int err = launch_setup(dropout_attention_fwd_kernel<T>, smem)) return err;
+    dropout_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+        q, k, v, seed, o, lse, s, nh, sm_scale, thresh, keep_scale, dropout);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

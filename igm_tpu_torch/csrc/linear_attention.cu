@@ -24,29 +24,68 @@
 // recomputes it (attention.py:104).  f32 inside; outputs in the input type.
 //
 // What bounds both on this card: bytes.  The forward moves q, k, v and out
-// once each against 4*D = 128 operations per position of a head, about 16
-// operations per byte in bf16; the backward moves 7 arrays against ~10*D
-// operations per position.  Both are far below the ~295 operations per byte
-// at which the tensor cores would be the limit, so the D x D products run on
-// the CUDA cores in f32.  The designs keep the (N, D) softmax, the context
-// and its gradient out of device memory:
-//   - one CTA per (b, h), like the Pallas grid (B*H,);
-//   - the column statistics of k come first (float32: a running (max, sum of
-//     exp) per column, merged in shared memory; bf16: the column max, then
-//     the sum of the rounded exponentials against it, since a running sum
-//     rescaled as the max grows cannot reproduce values rounded against the
-//     final max);
-//   - tiles of 64 rows are staged in shared memory, turned into softmax
-//     weights on load, and each thread accumulates 4 entries of each D x D
-//     product in registers;
-//   - row-wise outputs are written by warps, one whole 32-wide row each, so
-//     loads and stores of a warp cover one row.
+// once each, 256 bytes per position of a head in bf16, against 4*D = 128
+// operations of the two D x D products, the softmax's ~10 and the weight's
+// division per element: far below the ~295 operations per byte at which
+// the tensor cores would bind, but not below the CUDA cores' ~20 (67
+// TFLOP/s over 3.35 TB/s).  The products alone, done as f32 FMAs, would
+// take about 80% of the bytes' time, so in bf16 they go to the tensor
+// cores.  At the flagship's N = 1024, 256 and 64 (batch 256) the bytes take
+// 0.080, 0.020 and 0.005 ms; the small calls are bound by latency: a head's
+// key softmax needs the exact column max before any weight, so each head
+// runs max, sum, weights, context and read-out in series.
+//
+// Two designs:
+//   - bf16 forward (the UNet's path), on the tensor cores:
+//     mma.sync.m16n8k16 bf16 -> f32 for ctx^T = v^T w and out = q ctx, so
+//     that both products round exactly where _flat_fwd rounds (w and ctx to
+//     bf16 before their products).  A CTA of 4 warps stages a head's rows
+//     of k, v and q in shared memory once, by 16-byte cp.async (each read
+//     from device memory once; rows padded to 80 bytes so ldmatrix is free
+//     of bank conflicts): k and v at the start, so that v
+//     lands while k's statistics are taken, and q over v once the context
+//     is made, which keeps 2 rows of 80 bytes per position and so 4 CTAs
+//     per SM at 256 rows each.  The warps split the work so that no sum
+//     crosses warps: the key softmax by 8-column chunks (ldmatrix.x2.trans
+//     gives a warp 16 rows of its 8 columns: the max; then e =
+//     round(exp(round(k - max))), by ex2, stored over k by stmatrix, with
+//     its f32 column sum; then w = round(e / round(sum)), the quotient
+//     correctly rounded from the rounded reciprocal and one fma correction,
+//     stored over e), the context by 16 x 16 tiles of ctx^T (A fragments of
+//     v^T and B fragments of w, both by ldmatrix.trans), the read-out by
+//     16-row groups with ctx's B fragments held in registers.  N beyond
+//     256 splits a head's rows over a thread-block cluster of up to 8 CTAs
+//     (N = 1024: 4 x 256 rows), which exchange the column max, the column
+//     sums and the ctx^T tiles through distributed shared memory and sum
+//     them in rank order; N <= 16 and <= 32 take 4 and 2 heads per CTA (and
+//     stage q at once), so that every warp has rows.  N is at most 8 x 1408
+//     (the shared memory of 8 CTAs).  ptxas (sm_90a): 66, 78 and 92
+//     registers for 1, 2 and 4 heads per CTA, no spills.  What bounds it
+//     now is latency: each CTA runs its five passes in series, with a
+//     cluster barrier between them, and loads nothing while it computes;
+//   - float32 forward, and the backward in both types: one CTA per (b, h),
+//     like the Pallas grid (B*H,); the column statistics of k first (f32: a
+//     running (max, sum of exp) per column, merged in shared memory; bf16:
+//     the column max, then the sum of the rounded exponentials against it,
+//     since a running sum rescaled as the max grows cannot reproduce values
+//     rounded against the final max); tiles of 64 rows staged in shared
+//     memory as f32, turned into softmax weights on load; each thread
+//     accumulates 4 entries of each D x D product as f32 FMAs (the f32
+//     checks' 1e-5 rules out TF32); row-wise outputs written by warps, one
+//     whole 32-wide row each.
 // Sums over rows run in a fixed order (no atomics): results repeat exactly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
+#include <cooperative_groups.h>
 #include <type_traits>
+
+#include "mma_sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -357,6 +396,430 @@ linear_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (see the note at the head).
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kLdh = kD + 8;           // bf16 row padded to 80 bytes: the 8 rows of
+                                       // an ldmatrix read hit distinct banks
+constexpr int kRowsPerCta = 256;       // rows of a head per CTA before a cluster splits N
+constexpr int kMaxCluster = 8;         // the portable cluster size
+constexpr int kMaxSmem = 232448;       // a CTA's shared memory on sm_90
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float lo_f32(uint32_t r) { return __uint_as_float(r << 16); }
+__device__ __forceinline__ float hi_f32(uint32_t r) { return __uint_as_float(r & 0xffff0000u); }
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// the thread-block cluster: this CTA's rank, the barrier (split into its
+// arrive and its wait; it orders shared-memory writes before it against
+// reads after it, across the cluster), and another CTA's shared memory
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+template <typename T>
+__device__ __forceinline__ const T* remote(const T* p, int rank) {
+  return cg::this_cluster().map_shared_rank(const_cast<T*>(p), rank);
+}
+
+// Fragment addresses in a staged block (row-major, kLdh a row) for lane l.
+// A operand, rows r0 .. r0+15 and columns c0 .. c0+15: a0..a3 of the mma.
+__device__ __forceinline__ const bf16* frag_a(const bf16* tile, int r0, int c0, int lane) {
+  return tile + (r0 + (lane & 15)) * kLdh + c0 + (lane >> 4) * 8;
+}
+// A operand of the transpose, through ldmatrix.trans: rows c0 .. c0+15 of
+// tile^T (columns of the block) and its columns r0 .. r0+15 (rows of the block)
+__device__ __forceinline__ const bf16* frag_at(const bf16* tile, int r0, int c0, int lane) {
+  return tile + (r0 + (lane & 7) + (lane >> 4) * 8) * kLdh + c0 + ((lane >> 3) & 1) * 8;
+}
+// B operand from a block stored [n][k] (b = tile^T): n0 .. n0+15 (two n8
+// tiles), k0 .. k0+15; gives b0, b1 of the first n8 tile, then of the second
+__device__ __forceinline__ const bf16* frag_b(const bf16* tile, int n0, int k0, int lane) {
+  return tile + (n0 + (lane & 7) + (lane >> 4) * 8) * kLdh + k0 + ((lane >> 3) & 1) * 8;
+}
+// B operand from a block stored [k][n] (b = tile), through ldmatrix.trans:
+// k0 .. k0+15, n0 .. n0+15; the same register order as frag_b
+__device__ __forceinline__ const bf16* frag_b_trans(const bf16* tile, int k0, int n0,
+                                                    int lane) {
+  return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdh + n0 + (lane >> 4) * 8;
+}
+// 16 rows r0 .. r0+15 of the 8 columns c0 .. c0+7, through ldmatrix.x2.trans
+// (or stmatrix): register i holds rows 2t + 8i and 2t + 8i + 1 of column c0 + g
+__device__ __forceinline__ bf16* frag_col8(bf16* tile, int r0, int c0, int lane) {
+  return tile + (r0 + (lane & 15)) * kLdh + c0;
+}
+
+// Rewrites 8 columns c0 .. c0+7 of the first `groups` 16-row groups of a
+// staged block in place: each value x of row r (in the block) becomes
+// round(f(x, r)), f called in a fixed order.  kBatch groups' fragments are
+// loaded (ldmatrix.x2.trans), transformed and stored (stmatrix) together, so
+// that their chains overlap.
+constexpr int kBatch = 4;
+
+template <typename F>
+__device__ __forceinline__ void map_col8(bf16* block, int groups, int c0, int lane, F f) {
+  const int t = lane & 3;
+  for (int g0 = 0; g0 < groups; g0 += kBatch) {
+    uint32_t x[kBatch][2] = {};
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (g0 + b < groups) ldsm_x2_trans(x[b], frag_col8(block, 16 * (g0 + b), c0, lane));
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 16 * (g0 + b) + 2 * t + 8 * j;
+        const float lo = f(lo_f32(x[b][j]), r);
+        x[b][j] = pack_bf16(lo, f(hi_f32(x[b][j]), r + 1));
+      }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (g0 + b < groups) stsm_x2_trans(frag_col8(block, 16 * (g0 + b), c0, lane), x[b]);
+  }
+}
+
+// Sum over the quad (the 4 lanes of a row group) in a fixed order: every
+// lane gets the same bits
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// The bf16 forward.  A CTA of 4 warps covers `hpc` heads (1, 2 or 4 flat
+// (b, h) units, 4 / hpc warps each) and rows [rank * rows, (rank + 1) * rows)
+// of them, where rank is its place in a cluster that splits N (hpc = 1
+// only).  Its k and v rows are staged once by cp.async, as two groups, so
+// that v lands while k's statistics are taken, and q after the context (see
+// kQEarly); every later read is from shared memory.  The warps of a head
+// split its work so that no sum crosses warps: the key softmax by columns
+// (8-column chunks), the context by 16 x 16 tiles, the read-out by 16-row
+// groups.  Across a cluster, the
+// column max, the column sums and the context tiles are summed over the
+// CTAs in rank order; no atomics, so the output repeats bit for bit.
+template <int hpc>
+__global__ void __launch_bounds__(kMmaThreads, 4)
+linear_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ out, int n, int c,
+                            int units, int rows) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const int block = hpc * rows * kLdh;                  // bf16 of one staged array
+  bf16* ks = reinterpret_cast<bf16*>(smem_bytes);       // [hpc][rows][kLdh]: k, then
+                                                        // exp, then the weights
+  // q is staged over v once the context is made, which saves a third of the
+  // shared memory (more CTAs per SM) where a head has many rows; with
+  // several heads per CTA (a few rows each) it is staged at once instead
+  constexpr bool kQEarly = hpc > 1;
+  bf16* vs = ks + block;                                // v (and then q)
+  bf16* qs = kQEarly ? vs + block : vs;
+  bf16* ctxb = qs + block;                              // [hpc][kD][kLdh]: ctx^T, bf16
+  float* col_max = reinterpret_cast<float*>(ctxb + hpc * kD * kLdh);   // [hpc][kD]
+  float* col_sum = col_max + hpc * kD;                  // [hpc][kD]
+  float* ctx_cta = col_sum + hpc * kD;                  // [hpc][kD][kD]: ctx^T, f32
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int csize = cluster_size(), rank = cluster_rank();
+  const int unit0 = (blockIdx.x / csize) * hpc;
+  const int row0 = rank * rows;                         // this CTA's first row
+  const int heads = c / kD;
+  auto unit_base = [&](int u) {                         // element offset of unit u's row 0
+    return (size_t)(u / heads) * n * c + (size_t)(u % heads) * kD;
+  };
+
+  // stage this CTA's rows of x (k, v or q) into dst as one cp.async group;
+  // rows at or past n, and units past the last, are zero-filled
+  const int rows_in = min(rows, n - row0);              // rows < n
+  auto stage = [&](bf16* dst, const bf16* __restrict__ x) {
+#pragma unroll
+    for (int hh = 0; hh < hpc; ++hh) {
+      const bool unit_ok = unit0 + hh < units;
+      const bf16* src = x + (unit_ok ? unit_base(unit0 + hh) + (size_t)row0 * c : 0);
+      for (int i = tid; i < rows * 4; i += kMmaThreads) {
+        const int r = i >> 2, ch = 8 * (i & 3);
+        const bool valid = unit_ok && r < rows_in;
+        cp_async16(dst + (hh * rows + r) * kLdh + ch, src + (valid ? (size_t)r * c + ch : 0),
+                   valid);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(ks, k);                                         // k, then v (and q)
+  stage(vs, v);
+  if constexpr (kQEarly) stage(qs, q);
+
+  constexpr int wph = kMmaWarps / hpc;                  // warps per head
+  const int hh = warp / wph, wr = warp % wph;
+  bf16* kh = ks + hh * rows * kLdh;
+  const bf16* vh = vs + hh * rows * kLdh;
+  const bf16* qh = qs + hh * rows * kLdh;
+  bf16* ch = ctxb + hh * kD * kLdh;
+  const int groups = (rows_in + 15) / 16;               // 16-row groups holding rows < n
+  constexpr int chunks = hpc;                           // this warp's 8-column chunks:
+                                                        // wr + wph * i, column 8 (..) + g
+
+  // the key softmax, by columns: pass 1, the column max
+  if constexpr (kQEarly) cp_async_wait<2>(); else cp_async_wait<1>();
+  __syncthreads();                                      // k has landed
+  float cm[chunks], cs[chunks];
+#pragma unroll
+  for (int i = 0; i < chunks; ++i) {
+    const int c0 = 8 * (wr + wph * i);
+    float m = -INFINITY;
+#pragma unroll 4
+    for (int gi = 0; gi < groups; ++gi) {
+      uint32_t x[2];
+      ldsm_x2_trans(x, frag_col8(kh, 16 * gi, c0, lane));
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 16 * gi + 2 * t + 8 * j;
+        if (r < rows_in) m = fmaxf(m, lo_f32(x[j]));
+        if (r + 1 < rows_in) m = fmaxf(m, hi_f32(x[j]));
+      }
+    }
+    cm[i] = quad_max(m);
+  }
+  if (csize > 1) {                                      // the max over the cluster
+#pragma unroll
+    for (int i = 0; i < chunks; ++i)
+      if (t == 0) col_max[hh * kD + 8 * (wr + wph * i) + g] = cm[i];
+    cluster_sync();
+#pragma unroll
+    for (int i = 0; i < chunks; ++i) {
+      const int d = hh * kD + 8 * (wr + wph * i) + g;
+      float m = -INFINITY;
+      for (int r = 0; r < csize; ++r) m = fmaxf(m, *remote(col_max + d, r));
+      cm[i] = m;
+    }
+  }
+
+  // pass 2: e = round(exp(round(k - max))), stored over k, and its column
+  // sum in f32
+#pragma unroll
+  for (int i = 0; i < chunks; ++i) {
+    float s = 0.f;
+    map_col8(kh, groups, 8 * (wr + wph * i), lane, [&](float x, int r) {
+      const float e = bf16_round(exp2f(bf16_round(x - cm[i]) * kLog2e));
+      if (r < rows_in) s += e;
+      return e;
+    });
+    cs[i] = quad_sum(s);
+  }
+  if (csize > 1) {                                      // the sum over the cluster, in order
+#pragma unroll
+    for (int i = 0; i < chunks; ++i)
+      if (t == 0) col_sum[hh * kD + 8 * (wr + wph * i) + g] = cs[i];
+    cluster_sync();
+#pragma unroll
+    for (int i = 0; i < chunks; ++i) {
+      const int d = hh * kD + 8 * (wr + wph * i) + g;
+      float s = 0.f;
+      for (int r = 0; r < csize; ++r) s += *remote(col_sum + d, r);
+      cs[i] = s;
+    }
+  }
+
+  // pass 3: the weights w = round(e / round(sum)), stored over e; zero at
+  // rows at or past n.  e / s correctly rounded in three operations: the
+  // product with the rounded reciprocal, corrected once by its fma residual
+  // (Markstein), as the division would give it
+#pragma unroll
+  for (int i = 0; i < chunks; ++i) {
+    const float s = bf16_round(cs[i]), rs = __frcp_rn(s);
+    map_col8(kh, groups, 8 * (wr + wph * i), lane, [&](float e, int r) {
+      const float q1 = e * rs;
+      return r < rows_in ? fmaf(fmaf(-q1, s, e), rs, q1) : 0.f;
+    });
+  }
+  if constexpr (kQEarly) cp_async_wait<1>(); else cp_async_wait<0>();
+  __syncthreads();                                      // the weights, and v has landed
+
+  // pass 4: ctx^T = v^T w (f32), by 16 x 16 tiles (e: mt, d: dh) of the
+  // head: this warp's tiles are wr + wph * i; element e of n8 tile j is
+  // ctx^T[16 mt + g + 8 (e / 2)][16 dh + 8 j + 2 t + e % 2]
+  constexpr int tiles = hpc;
+  float acc[tiles][2][4];
+#pragma unroll
+  for (int i = 0; i < tiles; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll 4
+  for (int gi = 0; gi < groups; ++gi) {
+#pragma unroll
+    for (int i = 0; i < tiles; ++i) {
+      const int tile = wr + wph * i, mt = tile >> 1, dh = tile & 1;
+      uint32_t va[4], wb[4];
+      ldsm_x4_trans(va, frag_at(vh, 16 * gi, 16 * mt, lane));
+      ldsm_x4_trans(wb, frag_b_trans(kh, 16 * gi, 16 * dh, lane));
+      mma_bf16(acc[i][0], va, wb[0], wb[1]);
+      mma_bf16(acc[i][1], va, wb[2], wb[3]);
+    }
+  }
+  if constexpr (!kQEarly) {
+    __syncthreads();                                    // v is read: q goes over it
+    stage(qs, q);
+  }
+  auto ctx_at = [&](int i, int j, int half) {          // offset of (c0, c1) or (c2, c3)
+    const int tile = wr + wph * i;
+    return (16 * (tile >> 1) + g + 8 * half) * kD + 16 * (tile & 1) + 8 * j + 2 * t;
+  };
+  if (csize > 1) {                                      // the sum over the cluster, in order
+    float* mine = ctx_cta + hh * kD * kD;
+#pragma unroll
+    for (int i = 0; i < tiles; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<float2*>(mine + ctx_at(i, j, half)) =
+              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+    }
+    cluster_sync();
+#pragma unroll
+    for (int i = 0; i < tiles; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float2 s = make_float2(0.f, 0.f);
+          for (int r = 0; r < csize; ++r) {
+            const float2 x = *reinterpret_cast<const float2*>(remote(mine + ctx_at(i, j, half), r));
+            s.x += x.x;
+            s.y += x.y;
+          }
+          acc[i][j][2 * half] = s.x;
+          acc[i][j][2 * half + 1] = s.y;
+        }
+    }
+    cluster_arrive();                                   // this CTA reads no other's memory again
+  }
+  // ctx rounded to bf16, stored as ctx^T [e][d]: the B operand of the read-out
+#pragma unroll
+  for (int i = 0; i < tiles; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int off = ctx_at(i, j, half);
+        *reinterpret_cast<uint32_t*>(ch + (off / kD) * kLdh + off % kD) =
+            pack_bf16(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                                      // the context, and q has landed
+
+  // pass 5: out = q ctx, by 16-row groups; the context's B fragments held
+  uint32_t cb[2][2][4];                                 // [k16 chunk of d][16 columns e]
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+    for (int ne = 0; ne < 2; ++ne) ldsm_x4(cb[kc][ne], frag_b(ch, 16 * ne, 16 * kc, lane));
+  const int u = unit0 + hh;
+  if (u < units) {
+    bf16* dst = out + unit_base(u);
+    for (int gi = wr; gi < groups; gi += wph) {
+      float o[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        uint32_t qa[4];
+        ldsm_x4(qa, frag_a(qh, 16 * gi, 16 * kc, lane));
+#pragma unroll
+        for (int ne = 0; ne < 2; ++ne) {
+          mma_bf16(o[2 * ne], qa, cb[kc][ne][0], cb[kc][ne][1]);
+          mma_bf16(o[2 * ne + 1], qa, cb[kc][ne][2], cb[kc][ne][3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 16 * gi + g + 8 * i;
+        if (row >= n) continue;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * c + 8 * nt + 2 * t) =
+              __floats2bfloat162_rn(o[nt][2 * i], o[nt][2 * i + 1]);
+      }
+    }
+  }
+  if (csize > 1) cluster_wait();                        // no CTA leaves while another reads it
+}
+
+// How the bf16 forward covers (b, n, heads): heads per CTA, rows per CTA,
+// the cluster size, and the shared memory it takes.  Small n takes several
+// heads per CTA so that its 4 warps each have rows; large n splits a head's
+// rows over a cluster of up to 8 CTAs of about kRowsPerCta rows each.
+struct MmaPlan {
+  int hpc, rows, cluster;
+  size_t smem;
+};
+
+MmaPlan mma_plan(int n) {
+  MmaPlan p;
+  const int groups = (n + 15) / 16;
+  p.hpc = groups == 1 ? 4 : groups == 2 ? 2 : 1;
+  const int ctas = (n + kRowsPerCta - 1) / kRowsPerCta;
+  p.cluster = p.hpc > 1 ? 1 : ctas < kMaxCluster ? ctas : kMaxCluster;
+  p.rows = ((n + p.cluster - 1) / p.cluster + 15) / 16 * 16;
+  p.cluster = (n + p.rows - 1) / p.rows;
+  p.smem = (size_t)((p.hpc > 1 ? 3 : 2) * p.rows + kD) * p.hpc * kLdh * sizeof(bf16) +
+           (size_t)(2 * kD + kD * kD) * p.hpc * sizeof(float);
+  return p;
+}
+
+int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int b, int n, int heads,
+               cudaStream_t stream) {
+  const MmaPlan p = mma_plan(n);
+  if (p.smem > kMaxSmem) return cudaErrorInvalidValue;
+  const int units = b * heads;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((units + p.hpc - 1) / p.hpc * p.cluster);
+  config.blockDim = dim3(kMmaThreads);
+  config.dynamicSmemBytes = p.smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = p.cluster > 1 ? 1 : 0;              // one CTA: no cluster
+  auto kernel = p.hpc == 4 ? linear_attention_mma_kernel<4>
+                : p.hpc == 2 ? linear_attention_mma_kernel<2> : linear_attention_mma_kernel<1>;
+  if (cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(p.smem)))
+    return err;
+  return cudaLaunchKernelEx(&config, kernel, q, k, v, out, n, heads * kD, units, p.rows);
+}
+
 bool bad_shape(int b, int n, int heads) {
   return b <= 0 || n <= 0 || heads <= 0 || b > 65535 || heads > 65535;
 }
@@ -393,9 +856,15 @@ extern "C" int igm_linear_attention_f32(const void* q, const void* k, const void
   return launch<float>(q, k, v, out, b, n, heads, stream);
 }
 
+// bf16: q, k, v and out start on a 16-byte boundary; n at most 8 x 1408.
 extern "C" int igm_linear_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                          int b, int n, int heads, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, b, n, heads, stream);
+  if (bad_shape(b, n, heads)) return cudaErrorInvalidValue;
+  if ((int64_t)b * heads > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = static_cast<cudaError_t>(launch_mma(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), b, n, heads, static_cast<cudaStream_t>(stream)));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // q, k, v, g (the output's gradient), dq, dk, dv: (b, n, heads * 32)

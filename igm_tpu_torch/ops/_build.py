@@ -3,12 +3,12 @@ loads them through ctypes.
 
 Each source becomes its own shared library with a plain C interface, built
 at first use into ``igm_tpu_torch/_build/`` (ignored by git) under a name
-keyed by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  All sources are compiled at once,
-one nvcc process each.  nvcc runs with ``-Xptxas -v``: ptxas's report of
-each kernel's registers, shared memory and spills is kept beside the library
-(``<library>.log``) and read by :func:`resource_usage`.  Nothing here runs at
-import time.
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is.  All sources are compiled at once, one nvcc process each.  nvcc runs
+with ``-Xptxas -v``: ptxas's report of each kernel's registers, shared
+memory and spills is kept beside the library (``<library>.log``) and read
+by :func:`resource_usage`.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ def nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(SOURCES.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"
 
 

@@ -32,10 +32,10 @@ if they cannot; CPU tensors take the plain versions.  Each has a
 ``launches`` attribute that counts kernel launches.  A seed is an integer or
 an int64 tensor holding one value in [0, 2**32); on the card the kernels
 read it from device memory, so a seed drawn on the card costs no host sync.
-The bf16 dq and dk/dv kernels run their products on the tensor cores and
-copy rows with 16-byte ``cp.async``: their bf16 q, k, v and do must start
-on a 16-byte boundary (every fresh allocation does); a view at another
-offset raises ``ValueError``.
+The bf16 forward, dq and dk/dv kernels run their products on the tensor
+cores and copy rows with 16-byte ``cp.async``: their bf16 q, k, v and do
+must start on a 16-byte boundary (every fresh allocation does); a view at
+another offset raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -257,11 +257,11 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
                          f"{[tuple(t.shape) for t in tensors]}")
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor, aligned: bool = False) -> None:
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """What the kernels take: head dim 64, one dtype (f32/bf16), contiguous,
-    on the current CUDA device, B*H at most 65535; with ``aligned`` (the
-    bf16 backward kernels, which copy rows with 16-byte ``cp.async``), bf16
-    tensors that start on a 16-byte boundary."""
+    on the current CUDA device, B*H at most 65535; in bf16 (the kernels copy
+    rows with 16-byte ``cp.async``), tensors that start on a 16-byte
+    boundary."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -279,7 +279,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor, aligned: bool = False) -> Non
         raise ValueError(f"{name}: {q.device} is not the current device")
     if b * h > 65535:
         raise ValueError(f"{name}: B*H = {b * h} exceeds 65535")
-    if aligned and q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: bf16 inputs must start on a 16-byte boundary, got "
                          f"addresses {[t.data_ptr() % 16 for t in tensors]} mod 16")
 
@@ -356,7 +356,7 @@ def dropout_attention_dq(q, k, v, do, lse, delta, seed: Seed, rate: float,
     _check("dropout_attention_dq", q, k, v, do)
     if q.device.type == "cpu":
         return dropout_attention_dq_plain(q, k, v, do, lse, delta, seed, rate, sm_scale)
-    _check_cuda("dropout_attention_dq", q, k, v, do, aligned=True)
+    _check_cuda("dropout_attention_dq", q, k, v, do)
     _check_rows("dropout_attention_dq", q, lse, delta)
     rate = _check_rate(rate)
     b, s, h, d = q.shape
@@ -386,7 +386,7 @@ def dropout_attention_dkv(q, k, v, do, lse, delta, seed: Seed, rate: float,
     _check("dropout_attention_dkv", q, k, v, do)
     if q.device.type == "cpu":
         return dropout_attention_dkv_plain(q, k, v, do, lse, delta, seed, rate, sm_scale)
-    _check_cuda("dropout_attention_dkv", q, k, v, do, aligned=True)
+    _check_cuda("dropout_attention_dkv", q, k, v, do)
     _check_rows("dropout_attention_dkv", q, lse, delta)
     rate = _check_rate(rate)
     b, s, h, d = q.shape

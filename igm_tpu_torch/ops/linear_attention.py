@@ -19,7 +19,11 @@ as the forward rounded it.
 :func:`linear_attention_flat` and :func:`linear_attention_flat_bwd` launch
 their kernel for CUDA tensors and raise if they cannot; CPU tensors take the
 plain versions.  Each has a ``launches`` attribute that counts kernel
-launches.  :class:`LinearAttentionFlatFn` is what the UNet calls.
+launches.  :class:`LinearAttentionFlatFn` is what the UNet calls.  The bf16
+forward runs its products on the tensor cores and stages rows with 16-byte
+``cp.async``: its q, k and v must start on a 16-byte boundary (every fresh
+allocation does) and N may be at most ``BF16_MAX_N``; else it raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,9 @@ import torch
 from . import _build
 
 HEAD_DIM = 32
+# the bf16 kernel stages a head's rows in shared memory, split over a cluster
+# of at most 8 CTAs of at most 1408 rows each
+BF16_MAX_N = 8 * 1408
 
 
 def key_softmax(k: torch.Tensor) -> torch.Tensor:
@@ -109,9 +116,12 @@ def _check(name: str, heads: int, *tensors: torch.Tensor) -> None:
         raise ValueError(f"channels {shape[-1]} not divisible by heads {heads}")
 
 
-def _check_cuda(name: str, heads: int, *tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, heads: int, *tensors: torch.Tensor,
+                aligned: bool = False) -> None:
     """What the kernels take: head dim 32, one dtype (f32/bf16), contiguous,
-    on the current CUDA device, batch at most 65535."""
+    on the current CUDA device, batch at most 65535; with ``aligned`` (the
+    bf16 forward, which stages rows with 16-byte ``cp.async``), bf16 tensors
+    that start on a 16-byte boundary and N at most ``BF16_MAX_N``."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -130,6 +140,12 @@ def _check_cuda(name: str, heads: int, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: {q.device} is not the current device")
     if b > 65535:
         raise ValueError(f"{name}: batch {b} exceeds 65535")
+    if aligned and q.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in tensors):
+            raise ValueError(f"{name}: bf16 inputs must start on a 16-byte boundary, got "
+                             f"addresses {[t.data_ptr() % 16 for t in tensors]} mod 16")
+        if n > BF16_MAX_N:
+            raise ValueError(f"{name}: the bf16 kernel takes N up to {BF16_MAX_N}, got {n}")
 
 
 def linear_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -138,7 +154,7 @@ def linear_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("linear_attention_flat", heads, q, k, v)
     if q.device.type == "cpu":
         return linear_attention_flat_plain(q, k, v, heads)
-    _check_cuda("linear_attention_flat", heads, q, k, v)
+    _check_cuda("linear_attention_flat", heads, q, k, v, aligned=True)
     b, n, _ = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:

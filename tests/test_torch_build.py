@@ -18,6 +18,10 @@ NS = "_ZN53_GLOBAL__N__80ca1e8f_20_dropout_attention_cu_efa49c01"
      "dropout_attention_dq_mma_kernel"),
     (NS + "28dropout_attention_fwd_kernelI13__nv_bfloat16EEvPKT_S4_S4_PKlPS2_Pfiifjfi",
      "dropout_attention_fwd_kernel<bf16>"),
+    (NS + "32dropout_attention_fwd_mma_kernelEPK13__nv_bfloat16S2_S2_PKlPS0_Pfiifjfi",
+     "dropout_attention_fwd_mma_kernel"),
+    ("_ZN52_GLOBAL__N__5b1c07e2_19_linear_attention_cu_3f6d2a9127linear_attention_mma_kernelEPK13__nv_bfloat16S2_S2_PS0_iiiii",
+     "linear_attention_mma_kernel"),
     (NS + "27dropout_attention_dq_kernelIfEEvPKT_S3_S3_S3_PKfS5_PKlPS1_iifjfi",
      "dropout_attention_dq_kernel<float>"),
     ("_ZN51_GLOBAL__N__cc202229_18_group_norm_mish_cu_3252673626group_norm_mish_bwd_kernel"
@@ -50,3 +54,18 @@ ptxas info    : Used 64 registers, used 1 barriers, 400 bytes cmem[0]
                                                 spill_loads=0),
         "dropout_attention_fwd_kernel<float>": dict(registers=64, stack_frame=48,
                                                     spill_stores=48, spill_loads=32)}
+
+
+def test_target_is_keyed_by_the_source_and_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a kernel source or to a header the sources share
+    (csrc/*.cuh) gives a new library name, so the next build recompiles."""
+    monkeypatch.setattr(_build, "SOURCES", tmp_path)
+    src, header = tmp_path / "kernel.cu", tmp_path / "shared.cuh"
+    src.write_text('#include "shared.cuh"\n')
+    header.write_text("// v1\n")
+    first = _build._target(src)
+    assert _build._target(src) == first and first.name.startswith("kernel-")
+    header.write_text("// v2\n")
+    second = _build._target(src)
+    src.write_text('#include "shared.cuh"\n// edited\n')
+    assert len({first, second, _build._target(src)}) == 3

@@ -9,8 +9,9 @@ nearest-codebook indices are equal except at near-ties, where the plain
 version's scores at the two indices differ by at most
 1e-5 (||e||^2 + 2 ||z|| ||e||) (``near_tie_gaps`` <= 1).  The dropout
 flash attention's lse is float32 in both dtypes: held to 1e-5; its bf16
-dq and dk/dv run on the tensor cores and sum in another order than the
-plain version, within the same bf16 tolerance.  The fused
+forward, dq and dk/dv, and the bf16 linear-attention forward, run on the
+tensor cores and sum in another order than the plain version, within the
+same bf16 tolerance.  The fused
 conv3x3+GroupNorm+Mish block in float32 is held to atol 3e-5, as
 tests/test_fused_block.py holds the Pallas kernel to XLA.
 """
@@ -28,7 +29,7 @@ from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
     GroupNormMishFn, group_norm_mish, group_norm_mish_bwd, group_norm_mish_bwd_plain,
     group_norm_mish_plain)
 from igm_tpu_torch.ops.linear_attention import (  # noqa: E402
-    LinearAttentionFlatFn, linear_attention_flat, linear_attention_flat_bwd,
+    BF16_MAX_N, LinearAttentionFlatFn, linear_attention_flat, linear_attention_flat_bwd,
     linear_attention_flat_bwd_plain, linear_attention_flat_plain)
 from igm_tpu_torch.ops.vq import (  # noqa: E402
     near_tie_gaps, nearest_codebook, nearest_codebook_plain)
@@ -95,9 +96,14 @@ def test_group_norm_mish_kernel_rejects_what_it_cannot_take(gen):
         group_norm_mish(x, gamma.bfloat16(), beta)
 
 
+# the flagship's and the latent UNet's N, ragged N, and the bf16 kernel's
+# plans: four heads per CTA (N <= 16), two (N <= 32), one (N <= 256), a
+# cluster of 2 CTAs (N = 300), 4 (N = 1024) and 8 (N = 4096 of a 64x64
+# UNet, and the largest N the kernel takes)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1),
-                                 (64, 64), (128, 16)])
+                                 (64, 64), (128, 16), (3, 17), (2, 33), (1, 130),
+                                 (2, 300), (2, 4096), (1, BF16_MAX_N)])
 def test_linear_attention_kernel(gen, dtype, b, n):
     q, k, v = (torch.randn(b, n, 128, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
@@ -112,6 +118,38 @@ def test_linear_attention_kernel_rejects_other_head_dims(gen):
     q = torch.randn(2, 64, 128, generator=gen, device="cuda")
     with pytest.raises(ValueError):
         linear_attention_flat(q, q, q, 8)                        # D = 16
+
+
+def test_linear_attention_kernel_repeats_exactly(gen):
+    """No atomics: the bf16 forward gives the same bits twice, split over a
+    cluster (N = 1024, 4 CTAs) and with four heads per CTA (N = 16)."""
+    for b, n in ((8, 1024), (16, 16)):
+        q, k, v = (torch.randn(b, n, 128, generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        assert torch.equal(linear_attention_flat(q, k, v, 4), linear_attention_flat(q, k, v, 4))
+
+
+def test_linear_attention_kernel_rejects_unaligned_or_long_bf16(gen):
+    """The bf16 forward stages rows with 16-byte cp.async and holds a head's
+    rows in the shared memory of at most 8 CTAs: a bf16 view 2 bytes past
+    an aligned start, or N past BF16_MAX_N, raises, with no fallback."""
+    b, n = 2, 64
+    q, k, v = (torch.randn(b, n, 128, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    buf = torch.randn(b * n * 128 + 1, generator=gen, device="cuda").bfloat16()
+    shifted = buf[1:].view(b, n, 128)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    long = torch.zeros(1, BF16_MAX_N + 1, 128, device="cuda", dtype=torch.bfloat16)
+    before = linear_attention_flat.launches
+    for args in ((shifted, k, v), (q, shifted, v), (q, k, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            linear_attention_flat(*args, 4)
+    with pytest.raises(ValueError, match="N up to"):
+        linear_attention_flat(long, long, long, 4)
+    assert linear_attention_flat.launches == before
+    linear_attention_flat(q, k, v, 4)                   # aligned: launches
+    linear_attention_flat(long.float(), long.float(), long.float(), 4)   # f32: any N
+    assert linear_attention_flat.launches == before + 2
 
 
 GN_SHAPES = [((3, 32, 32, 64), 8), ((2, 8, 8, 256), 8), ((2, 5, 7, 32), 8),
@@ -336,6 +374,33 @@ def test_dropout_attention_backward_rejects_unaligned_bf16(gen, kernel):
     assert kernel.launches == before
     kernel(q, k, v, do, lse, delta, 3, 0.1)             # aligned: launches
     assert kernel.launches == before + 1
+
+
+def test_dropout_attention_forward_repeats_exactly(gen):
+    """No atomics: the bf16 forward gives the same o and lse bits twice, at
+    rate 0 and 0.1."""
+    q, k, v, _ = _attn_inputs(gen, 2, 785, 4, torch.bfloat16)
+    sd = torch.tensor(7, device="cuda")
+    for rate in (0.0, 0.1):
+        (o1, lse1), (o2, lse2) = (da.dropout_attention_fwd(q, k, v, sd, rate) for _ in range(2))
+        assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+def test_dropout_attention_forward_rejects_unaligned_bf16(gen):
+    """The bf16 forward copies rows with 16-byte cp.async: a contiguous bf16
+    view 2 bytes past an aligned start raises, with no fallback."""
+    b, s, h = 1, 65, 2
+    q, k, v, _ = _attn_inputs(gen, b, s, h, torch.bfloat16)
+    buf = torch.randn(b * s * h * 64 + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    shifted = buf[1:].view(b, s, h, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = da.dropout_attention_fwd.launches
+    for args in ((shifted, k, v), (q, shifted, v), (q, k, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            da.dropout_attention_fwd(*args, 3, 0.1)
+    assert da.dropout_attention_fwd.launches == before
+    da.dropout_attention_fwd(q, k, v, 3, 0.1)           # aligned: launches
+    assert da.dropout_attention_fwd.launches == before + 1
 
 
 def test_dropout_attention_rejects_what_it_cannot_take(gen):

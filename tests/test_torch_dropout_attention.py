@@ -26,7 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from igm_tpu.ops.causal_attention import hash_dropout_attention_fn  # noqa: E402
 from igm_tpu.ops.pallas_dropout_attention import (  # noqa: E402
-    _hash_bits, flash_causal_attention_dropout as jax_flash,
+    _hash_bits, _vjp_fwd as jax_vjp_fwd, flash_causal_attention_dropout as jax_flash,
     reference_probs_dropout_mask as jax_mask)
 from igm_tpu_torch.ops import dropout_attention as da  # noqa: E402
 from igm_tpu_torch.ops.causal_attention import (  # noqa: E402
@@ -103,6 +103,21 @@ def test_plain_versions_match_pallas_interpret_at_tile_edges(s, rate):
     rng = np.random.default_rng(s)
     _check_against_pallas_interpret(
         [rng.normal(size=(1, s, 2, D)).astype(np.float32) for _ in range(3)], 123, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_forward_matches_pallas_interpret_at_tar_length(rate):
+    """TAR's S = 785 (13 tiles of 64 rows, the last ragged; two 512-row
+    Pallas blocks, the last padded), B=1, H=1: the plain forward and its lse
+    against the Pallas kernel in interpret mode, at the forward's 1e-5."""
+    rng = np.random.default_rng(785)
+    q, k, v = (rng.normal(size=(1, 785, 1, D)).astype(np.float32) for _ in range(3))
+    want, res = jax_vjp_fwd(*(jnp.asarray(x) for x in (q, k, v)),
+                            jnp.asarray(WRAP, jnp.uint32), rate, None, True)
+    want_lse = np.asarray(res[-1])[:, :785, 0]
+    o, lse = da.dropout_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)), WRAP, rate)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5, rtol=1e-5)
 
 
 def test_forward_returns_lse_and_rate_zero_needs_no_seed(qkv):

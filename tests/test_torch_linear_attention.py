@@ -37,7 +37,12 @@ def _qkv(seed, b, n):
                  for _ in range(3))
 
 
-@pytest.mark.parametrize("n", [64, 256])
+# the flagship's N = 64 and 256, and the ragged N = 100, 16 and 1 at which
+# tests/test_torch_cuda.py holds the card's kernels to the plain version
+NS = [64, 256, 100, 16, 1]
+
+
+@pytest.mark.parametrize("n", NS)
 def test_plain_matches_xla_flat(n):
     q, k, v = _qkv(n, 2, n)
     want = xla_flat(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), HEADS)
@@ -45,7 +50,7 @@ def test_plain_matches_xla_flat(n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("n", NS)
 def test_plain_matches_pallas_interpret(n):
     """The same function with heads split out, (B, N, H, D), against the
     Pallas kernel."""
@@ -104,7 +109,7 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 BF16_MAX_OFF = 16
 
 
-@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("n", NS)
 def test_plain_bf16_matches_xla_flat(n):
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(n, 2, n))
     want = xla_flat(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
