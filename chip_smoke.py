@@ -12,7 +12,9 @@ non-zero:
   parity  each kernel against its plain PyTorch version on the card, at the
           flagship shapes with batch 256, in bf16 and f32, with its time, the
           plain version's, the least time the card could take (bound) and,
-          for GroupNorm+Mish, F.mish(F.group_norm(...)) as a yardstick
+          for GroupNorm+Mish, F.mish(F.group_norm(...)) as a yardstick;
+          GroupNorm+Mish also at the sampling batch 64 in bf16, at the
+          flagship's five shapes and the latent UNet's three
   unet    one full-width Unet forward (hidden 64, dim_mults [1,2,4], batch 8,
           f32, TF32 off) on the card against the same weights on the CPU,
           where the kernel wrappers take their plain versions; and the launch
@@ -94,6 +96,11 @@ indices are equal except at near-ties (counted), with the kernel's time,
 the plain version's, the bound and torch.cdist(z, e).argmin(1) as the
 yardstick.
 
+The kernels line carries, for the redesigned bf16 kernels (GroupNorm+Mish,
+the linear-attention forward and backward, rows 6-8), their design and
+ptxas's registers and spills; GroupNorm+Mish also its totals at batch 64
+(``sampling_batch``: the flagship's 25 calls, the latent UNet's 17).
+
 Every path names the kernels it must launch (PATH_KERNELS); each of those
 must have launched at least once in that path's run.  Then the total time,
 a line with the card's name and power limit, one JSON line {"kernels":
@@ -125,6 +132,14 @@ GN_SHAPES = [((32, 32, 64), 5), ((16, 16, 128), 4), ((8, 8, 256), 8),
              ((8, 8, 128), 4), ((16, 16, 64), 4)]
 # N of each linear-attention call (C = 4 heads x 32), and its calls per forward
 LA_SHAPES = [(1024, 1), (256, 2), (64, 3)]
+# the sampling batch (sample_batch), where most GroupNorm+Mish launches run,
+# and the latent UNet's GroupNorm+Mish calls per forward (8x8x64 latents)
+SAMPLE_BATCH = 64
+LATENT_GN_SHAPES = [((8, 8, 64), 5), ((4, 4, 128), 8), ((4, 4, 64), 4)]
+# the latent UNet's linear-attention calls per forward (8x8 and 4x4 latents),
+# at its train batch: N = 16 packs 4 heads a CTA in both directions
+LATENT_BATCH = 128
+LATENT_LA_SHAPES = [(64, 1), (16, 3)]
 LA_HEADS = 4
 # operations per element of the fused GroupNorm+Mish: statistics 3, normalise
 # and affine 4, Mish 8 (max, abs, exp, log1p, add, tanh, mul, and the negate)
@@ -250,24 +265,25 @@ def phase_build() -> dict:
     return usage
 
 
-def parity_gn(dtype) -> list[dict]:
+def parity_gn(dtype, batch: int = BATCH, shapes=GN_SHAPES, model: str = "flagship") -> list[dict]:
     import torch
     import torch.nn.functional as F
     from igm_tpu_torch.ops.groupnorm import group_norm_mish, group_norm_mish_plain
     atol, rtol = tolerance(dtype)
     elt = torch.finfo(dtype).bits // 8
     rows = []
-    for (h, w, c), calls in GN_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(h * 1000 + c)
+    for (h, w, c), calls in shapes:
+        g = torch.Generator(device="cuda").manual_seed(
+            h * 1000 + c + (0 if batch == BATCH else batch))
 
         def make(i, h=h, w=w, c=c, g=g):
-            x = (torch.randn(BATCH, h, w, c, generator=g, device="cuda") * 2
+            x = (torch.randn(batch, h, w, c, generator=g, device="cuda") * 2
                  + 0.5).to(dtype)
             gamma = torch.randn(c, generator=g, device="cuda") * 0.1 + 1.0
             beta = torch.randn(c, generator=g, device="cuda") * 0.1
             return x, gamma, beta
 
-        elements = BATCH * h * w * c
+        elements = batch * h * w * c
         nbytes = 2 * elements * elt + 2 * c * 4
         sets = rotation(make, nbytes)
         x, gamma, beta = sets[0]
@@ -283,8 +299,8 @@ def parity_gn(dtype) -> list[dict]:
         bytes_s = nbytes / HBM_BYTES_PER_S
         ops_s = GN_OPS_PER_ELEMENT * elements / PEAK_OPS["float32"]
         rows.append(dict(
-            kernel="group_norm_mish", dtype=str(dtype).split(".")[-1],
-            shape=[BATCH, h, w, c], calls_per_forward=calls,
+            kernel="group_norm_mish", dtype=str(dtype).split(".")[-1], model=model,
+            shape=[batch, h, w, c], calls_per_forward=calls,
             max_abs_err=err.max().item(), atol=atol, rtol=rtol,
             kernel_ms=time_ms(lambda *a: group_norm_mish(*a, 8), sets),
             plain_ms=time_ms(lambda *a: group_norm_mish_plain(*a, 8), sets),
@@ -297,7 +313,8 @@ def parity_gn(dtype) -> list[dict]:
     return rows
 
 
-def parity_la(dtype) -> list[dict]:
+def parity_la(dtype, batch: int = BATCH, shapes=LA_SHAPES,
+              model: str = "flagship") -> list[dict]:
     import torch
     from igm_tpu_torch.ops.linear_attention import (linear_attention_flat,
                                                     linear_attention_flat_plain)
@@ -305,14 +322,14 @@ def parity_la(dtype) -> list[dict]:
     elt = torch.finfo(dtype).bits // 8
     c = LA_HEADS * 32
     rows = []
-    for n, calls in LA_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(n)
+    for n, calls in shapes:
+        g = torch.Generator(device="cuda").manual_seed(n + (0 if batch == BATCH else batch))
 
         def make(i, n=n, g=g):
-            return tuple(torch.randn(BATCH, n, c, generator=g, device="cuda")
+            return tuple(torch.randn(batch, n, c, generator=g, device="cuda")
                          .to(dtype) for _ in range(3))
 
-        elements = BATCH * n * c
+        elements = batch * n * c
         nbytes = 4 * elements * elt
         sets = rotation(make, nbytes)
         q, k, v = sets[0]
@@ -324,12 +341,12 @@ def parity_la(dtype) -> list[dict]:
         check(ok, f"linear_attention {dtype} N={n}: max err {err.max().item()} "
                   f"beyond atol {atol} rtol {rtol}")
         # context and read-out: 2 * N * D * D each per (b, h); softmax 3 per k
-        ops = 4 * BATCH * LA_HEADS * n * 32 * 32 + 3 * elements
+        ops = 4 * batch * LA_HEADS * n * 32 * 32 + 3 * elements
         key = "bfloat16" if dtype == torch.bfloat16 else "float32"
         bytes_s = nbytes / HBM_BYTES_PER_S
         ops_s = ops / PEAK_OPS[key]
         rows.append(dict(
-            kernel="linear_attention", dtype=key, shape=[BATCH, n, c],
+            kernel="linear_attention", dtype=key, model=model, shape=[batch, n, c],
             calls_per_forward=calls, max_abs_err=err.max().item(),
             atol=atol, rtol=rtol,
             kernel_ms=time_ms(lambda *a: linear_attention_flat(*a, LA_HEADS), sets),
@@ -414,22 +431,29 @@ def parity_gn_bwd(dtype) -> list[dict]:
     return rows
 
 
-def parity_la_bwd(dtype) -> list[dict]:
+def parity_la_bwd(dtype, batch: int = BATCH, shapes=LA_SHAPES,
+                  model: str = "flagship") -> list[dict]:
     import torch
-    from igm_tpu_torch.ops.linear_attention import (linear_attention_flat_bwd,
+    from igm_tpu_torch.ops.linear_attention import (BF16_BWD_TC_MAX_N, bwd_on_tensor_cores,
+                                                    linear_attention_flat_bwd,
                                                     linear_attention_flat_bwd_plain)
+    # the Python constant is the built kernel's shape rule
+    check(bwd_on_tensor_cores(BF16_BWD_TC_MAX_N)
+          and not bwd_on_tensor_cores(BF16_BWD_TC_MAX_N + 1),
+          f"BF16_BWD_TC_MAX_N = {BF16_BWD_TC_MAX_N} is not the kernel's rule")
     atol, rtol = tolerance(dtype)
     elt = torch.finfo(dtype).bits // 8
     c = LA_HEADS * 32
     rows = []
-    for n, calls in LA_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(n + 7)
+    for n, calls in shapes:
+        g = torch.Generator(device="cuda").manual_seed(
+            n + 7 + (0 if batch == BATCH else batch))
 
         def make(i, n=n, g=g):
-            return tuple(torch.randn(BATCH, n, c, generator=g, device="cuda")
+            return tuple(torch.randn(batch, n, c, generator=g, device="cuda")
                          .to(dtype) for _ in range(4))
 
-        elements = BATCH * n * c
+        elements = batch * n * c
         nbytes = 7 * elements * elt          # q, k, v, g in; dq, dk, dv out
         sets = rotation(make, nbytes)
         got = linear_attention_flat_bwd(*sets[0], LA_HEADS)
@@ -440,18 +464,19 @@ def parity_la_bwd(dtype) -> list[dict]:
                        <= atol + rtol * b.float().abs()).all()) for a, b in zip(got, want))
         check(ok, f"linear_attention_bwd {dtype} N={n}: max err {err} beyond "
                   f"atol {atol} rtol {rtol}")
-        ops = LA_BWD_PRODUCTS * 2 * BATCH * LA_HEADS * n * 32 * 32 + 8 * elements
+        ops = LA_BWD_PRODUCTS * 2 * batch * LA_HEADS * n * 32 * 32 + 8 * elements
         key = "bfloat16" if dtype == torch.bfloat16 else "float32"
         bytes_s = nbytes / HBM_BYTES_PER_S
         ops_s = ops / PEAK_OPS[key]
         rows.append(dict(
-            kernel="linear_attention_bwd", dtype=key, shape=[BATCH, n, c],
+            kernel="linear_attention_bwd", dtype=key, model=model, shape=[batch, n, c],
             calls_per_forward=calls, max_abs_err=err, atol=atol, rtol=rtol,
             kernel_ms=time_ms(lambda *a: linear_attention_flat_bwd(*a, LA_HEADS), sets),
             plain_ms=time_ms(lambda *a: linear_attention_flat_bwd_plain(*a, LA_HEADS),
                              sets),
             library_ms=None, bound_ms=1e3 * max(bytes_s, ops_s),
-            bound_by="bytes" if bytes_s >= ops_s else "operations"))
+            bound_by="bytes" if bytes_s >= ops_s else "operations",
+            design=attention_design(dtype)["design"]))
         emit("parity", **rows[-1])
     return rows
 
@@ -1617,6 +1642,18 @@ def phase_fused_block() -> dict:
     return row
 
 
+# the redesigned kernels of rows 1 and 3 and of _flat_bwd: (design, the
+# prefix of their kernels' names in the ptxas report)
+REDESIGNED = {
+    "group_norm_mish": ("one pass: the slice staged in shared memory by cp.async, clusters "
+                        "of up to 8 CTAs, Mish in closed form",
+                        "group_norm_mish_onepass_kernel"),
+    "linear_attention": ("mma.sync bf16", "linear_attention_mma_kernel"),
+    "linear_attention_bwd": ("mma.sync bf16, f32 operands split into bf16 high and low",
+                             "linear_attention_bwd_mma_kernel"),
+}
+
+
 def totals(rows: list[dict], key: str):
     vals = [r[key] for r in rows]
     if any(v is None for v in vals):
@@ -1638,10 +1675,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     usage = phase_build()
-    gn_rows = parity_gn(torch.bfloat16) + parity_gn(torch.float32)
-    la_rows = parity_la(torch.bfloat16) + parity_la(torch.float32)
+    gn_rows = (parity_gn(torch.bfloat16) + parity_gn(torch.float32)
+               + parity_gn(torch.bfloat16, SAMPLE_BATCH)
+               + parity_gn(torch.bfloat16, SAMPLE_BATCH, LATENT_GN_SHAPES, "latent"))
+    la_rows = [r for dtype in (torch.bfloat16, torch.float32)
+               for r in parity_la(dtype)
+               + parity_la(dtype, LATENT_BATCH, LATENT_LA_SHAPES, "latent")]
     gn_bwd_rows = parity_gn_bwd(torch.bfloat16) + parity_gn_bwd(torch.float32)
-    la_bwd_rows = parity_la_bwd(torch.bfloat16) + parity_la_bwd(torch.float32)
+    la_bwd_rows = [r for dtype in (torch.bfloat16, torch.float32)
+                   for r in parity_la_bwd(dtype)
+                   + parity_la_bwd(dtype, LATENT_BATCH, LATENT_LA_SHAPES, "latent")]
     vq_rows = parity_vq()
     da_rows = parity_dropout_attention(torch.bfloat16) + parity_dropout_attention(torch.float32)
     fb_rows = parity_fused_block()
@@ -1693,14 +1736,28 @@ def main() -> int:
              "igm_tpu/ops/pallas_groupnorm.py:132", "backward"),
             ("linear_attention_bwd", la_bwd_rows, la_src,
              "igm_tpu/ops/attention.py:99 (XLA custom VJP _flat_bwd)", "backward"))):
-        main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
+        main_rows = [r for r in rows if r["dtype"] == "bfloat16"
+                     and r["shape"][0] == BATCH and r.get("model", "flagship") == "flagship"]
         bytes_bound = all(r["bound_by"] == "bytes" for r in main_rows)
-        # the bf16 forward's redesign: its design and its kernels' ptxas
-        # report (the f32 kernels' are in the build line)
-        redesign = {} if name != "linear_attention" else dict(
-            design=main_rows[0]["design"], ptxas={
-                k: v for k, v in usage["linear_attention"].items()
-                if k.startswith("linear_attention_mma_kernel")})
+        # the redesigned kernels: their design and their ptxas report (the
+        # other kernels' are in the build line)
+        redesign = {}
+        if name in REDESIGNED:
+            design, prefix = REDESIGNED[name]
+            redesign = dict(design=design, ptxas={
+                k: v for k, v in usage[source.split("/")[-1][:-3]].items()
+                if k.startswith(prefix)})
+        if name == "group_norm_mish":        # the same at the sampling batch
+            redesign["sampling_batch"] = {
+                model: {key: totals([r for r in rows if r["shape"][0] == SAMPLE_BATCH
+                                     and r["model"] == model], key)
+                        for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+                for model in ("flagship", "latent")}
+        if name.startswith("linear_attention"):   # the latent UNet's calls
+            redesign["latent"] = {
+                key: totals([r for r in rows if r["dtype"] == "bfloat16"
+                             and r["model"] == "latent"], key)
+                for key in ("kernel_ms", "plain_ms", "bound_ms")}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path(i).values()), launches_by_path=by_path(i),

@@ -958,11 +958,6 @@ dropout_attention_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
   store_rows(dv, dv_acc, 1.0f, b, h, s, nh, k0 + r0, g, t);
 }
 
-template <typename Kernel>
-int launch_setup(Kernel kernel, size_t smem) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
 
 template <typename T>
 int fwd(const T* q, const T* k, const T* v, const int64_t* seed, T* o, float* lse, int b,
@@ -971,12 +966,12 @@ int fwd(const T* q, const T* k, const T* v, const int64_t* seed, T* o, float* ls
   const dim3 grid((s + kTile - 1) / kTile, b * nh);
   if constexpr (std::is_same_v<T, bf16>) {
     const size_t smem = 5 * kTileH * sizeof(bf16);          // q, two stages of k, v
-    if (int err = launch_setup(dropout_attention_fwd_mma_kernel, smem)) return err;
+    if (int err = allow_dynamic_smem(dropout_attention_fwd_mma_kernel, smem)) return err;
     dropout_attention_fwd_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
         q, k, v, seed, o, lse, s, nh, sm_scale, thresh, keep_scale, dropout);
   } else {
     const size_t smem = 4 * kTileFloats * sizeof(float);
-    if (int err = launch_setup(dropout_attention_fwd_kernel<T>, smem)) return err;
+    if (int err = allow_dynamic_smem(dropout_attention_fwd_kernel<T>, smem)) return err;
     dropout_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
         q, k, v, seed, o, lse, s, nh, sm_scale, thresh, keep_scale, dropout);
   }
@@ -990,12 +985,12 @@ int dq(const T* q, const T* k, const T* v, const T* dout, const float* lse,
   const dim3 grid((s + kTile - 1) / kTile, b * nh);
   if constexpr (std::is_same_v<T, bf16>) {
     const size_t smem = 6 * kTileH * sizeof(bf16);          // q, do, two stages of k, v
-    if (int err = launch_setup(dropout_attention_dq_mma_kernel, smem)) return err;
+    if (int err = allow_dynamic_smem(dropout_attention_dq_mma_kernel, smem)) return err;
     dropout_attention_dq_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
         q, k, v, dout, lse, delta, seed, dq_out, s, nh, sm_scale, thresh, keep_scale, dropout);
   } else {
     const size_t smem = 5 * kTileFloats * sizeof(float);
-    if (int err = launch_setup(dropout_attention_dq_kernel<T>, smem)) return err;
+    if (int err = allow_dynamic_smem(dropout_attention_dq_kernel<T>, smem)) return err;
     dropout_attention_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
         q, k, v, dout, lse, delta, seed, dq_out, s, nh, sm_scale, thresh, keep_scale, dropout);
   }
@@ -1010,12 +1005,12 @@ int dkv(const T* q, const T* k, const T* v, const T* dout, const float* lse,
   if constexpr (std::is_same_v<T, bf16>) {
     // k, v, two stages of q, do, and of lse, delta
     const size_t smem = 6 * kTileH * sizeof(bf16) + 4 * kTile * sizeof(float);
-    if (int err = launch_setup(dropout_attention_dkv_mma_kernel, smem)) return err;
+    if (int err = allow_dynamic_smem(dropout_attention_dkv_mma_kernel, smem)) return err;
     dropout_attention_dkv_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
         q, k, v, dout, lse, delta, seed, dk, dv, s, nh, sm_scale, thresh, keep_scale, dropout);
   } else {
     const size_t smem = (6 * kTileFloats + 2 * kTile) * sizeof(float);
-    if (int err = launch_setup(dropout_attention_dkv_kernel<T>, smem)) return err;
+    if (int err = allow_dynamic_smem(dropout_attention_dkv_kernel<T>, smem)) return err;
     dropout_attention_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
         q, k, v, dout, lse, delta, seed, dk, dv, s, nh, sm_scale, thresh, keep_scale, dropout);
   }

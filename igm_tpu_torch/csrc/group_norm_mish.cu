@@ -17,21 +17,31 @@
 //
 // What bounds both on this card: bytes.  They do a few dozen operations per
 // element against one read and one write (backward: two reads, one write),
-// far below the ~295 operations per byte at which the H100's compute would
-// take over.  So the design aims at full-width coalesced traffic and keeps
-// every intermediate out of device memory:
-//   - one CTA per sample, like the Pallas grid (N,).  Its threads sweep the
-//     sample's (H*W, C) tile as rows of C contiguous values, 16 bytes per
-//     thread per load where the channel layout allows it, so a warp reads
-//     whole rows;
-//   - pass 1 keeps per-thread sums in registers and reduces them through
-//     shared memory in a fixed order (no atomics: results do not change from
-//     run to run);
-//   - pass 2 reads the tile again (one sample is at most a few hundred KB,
-//     so the re-read mostly hits L2) and writes the output once;
-//   - the backward adds a pass: pass 2 sums the per-channel and per-group
-//     terms of the gradient, pass 3 re-reads x and g and writes dx.
-// No atomics anywhere, so results repeat exactly from run to run.
+// far below the ~295 operations per byte at which the H100's tensor cores
+// would take over; but Mish as exp, log1p and tanh is ~45 instructions an
+// element on the CUDA cores, near half the bytes' time.  Two forward
+// designs, chosen per shape by gn_plan:
+//   - the one-pass kernel (group_norm_mish_onepass_kernel): a sample's
+//     slice staged in shared memory by cp.async and kept there from the
+//     statistics to the output, so x is read once; a sample larger than a
+//     CTA split over a thread-block cluster of up to 8 CTAs, whose group
+//     totals meet through distributed shared memory; few registers, so 4
+//     CTAs share an SM and one's reduction overlaps another's loads; Mish in
+//     closed form with one ex2 and one rcp.  It takes the 16-byte path with
+//     C / VEC dividing 256 and samples up to 8 CTAs of 16 chunks a thread.
+//     On the H100 (700 W) the flagship forward's 25 calls at batch 256 bf16
+//     take 0.38 ms against this file's first kernel's 0.74 (bound 0.21);
+//   - the first kernel (group_norm_mish_kernel), for every other shape:
+//     one CTA per sample, like the Pallas grid (N,), sweeping the sample's
+//     (H*W, C) tile as rows of C contiguous values, 16 bytes per thread per
+//     load where the channel layout allows it (one value where a group has
+//     4 or 5 channels or x is off a 16-byte boundary).  Pass 1 keeps
+//     per-thread sums in registers and reduces them through shared memory;
+//     pass 2 reads the tile again (mostly from L2) and writes the output.
+// The backward is the first kernel's shape with a pass more: pass 2 sums
+// the per-channel and per-group terms of the gradient, pass 3 re-reads x and
+// g and writes dx.  Sums run in a fixed order, no atomics anywhere, so
+// results repeat exactly from run to run.
 // Softplus is max(y, 0) + log1p(exp(-|y|)): the form jax.nn.softplus
 // (logaddexp(y, 0)) evaluates, stable for large |y| of either sign.
 #include <cuda_bf16.h>
@@ -39,6 +49,8 @@
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -191,6 +203,159 @@ group_norm_mish_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The forward in one pass over device memory (see the note at the head).
+// A CTA of 256 threads covers one sample or, in a cluster of `cluster`
+// CTAs, rows [rank * R * step, ...) of it.  Thread t owns the 16-byte chunk
+// t % chunks of the rows r0, r0 + step, ..., r0 + (R - 1) * step (step =
+// 256 / chunks) and copies them by cp.async into its own slots of the
+// CTA's shared memory, where they stay from the statistics to the output:
+// x is read from device memory once, and the registers stay few enough
+// (<= 64; 80 at R = 16) for 4 CTAs of 256 threads on an SM (3 at R = 16),
+// whose load, reduction and output phases overlap.  The per-thread sums go
+// to shared memory; warp w then sums groups w, w + 8, ... over their
+// threads in a fixed order (lane i takes terms i, i + 32, ...; then a
+// butterfly, which gives every lane the same bits), and a cluster sums its
+// CTAs' group totals through distributed shared memory in rank order.  No
+// atomics: the output repeats bit for bit.
+constexpr int kOnePassThreads = 256;
+constexpr int kOnePassWarps = kOnePassThreads / 32;
+constexpr int kMaxCluster = 8;         // the portable cluster size
+
+// Mish with tanh(softplus(y)) in closed form: with t = exp(y), softplus =
+// log(1 + t), so tanh(softplus(y)) = ((1 + t)^2 - 1) / ((1 + t)^2 + 1) = n /
+// (n + 2) with n = t (t + 2).  The same function as mish() with one
+// exponential and one reciprocal (the hardware's ex2 and rcp, about 2 ulp
+// each) in place of exp, log1p and tanh; y is capped at 20 inside the
+// exponential, where n / (n + 2) is 1 in f32 already, so that n stays finite.
+__device__ __forceinline__ float mish_fast(float y) {
+  float t, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fminf(y, 20.f) * 1.4426950408889634f));
+  const float n = t * (t + 2.f);
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(n + 2.f));
+  return y * (n * r);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kOnePassThreads, R >= 16 ? 3 : 4)
+group_norm_mish_onepass_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                               const float* __restrict__ beta, T* __restrict__ out, int n,
+                               int hw, int c, int groups, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using P = Pack<T, VEC>;
+  extern __shared__ __align__(16) unsigned char slice_bytes[];
+  P* slice = reinterpret_cast<P*>(slice_bytes);  // [R][256]: chunk i of thread t at i * 256 + t
+  __shared__ float red[2][kOnePassThreads];     // each thread's (sum x, sum x^2)
+  __shared__ float tot[2][kOnePassThreads];     // per group, this CTA's sums
+  __shared__ float stat[2][kOnePassThreads];    // mean, inv per group
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunks = c / VEC, cpg = chunks / groups;
+  const int csize = cluster_size(), rank = cluster_rank();
+  const int sample = blockIdx.x / csize;
+  const int step = kOnePassThreads / chunks;    // rows per sweep
+  const int ch = tid % chunks, c0 = ch * VEC;
+  const int r0 = rank * R * step + tid / chunks;
+  const bool live = sample < n;
+  const size_t base = live ? (size_t)sample * hw * c : 0;
+
+  // this thread's chunks, by cp.async into its own slots (zero past the
+  // last row or sample): each thread reads back only what it copied
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i * step;
+    const bool valid = live && r < hw;
+    cp_async16(slice + i * kOnePassThreads + tid, x + (valid ? base + (size_t)r * c + c0 : 0),
+               valid);
+  }
+  cp_async_commit();
+  float ga[VEC], be[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    ga[j] = gamma[c0 + j];
+    be[j] = beta[c0 + j];
+  }
+  cp_async_wait<0>();
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const P p = slice[i * kOnePassThreads + tid];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float v = to_f32(p.v[j]);
+      s1 += v;
+      s2 += v * v;
+    }
+  }
+  red[0][tid] = s1;
+  red[1][tid] = s2;
+  __syncthreads();
+  // the group totals of this CTA: thread (row k, chunk g * cpg + j) is
+  // term k * cpg + j of group g
+  const int terms = kOnePassThreads / groups;
+  for (int q = warp; q < groups; q += kOnePassWarps) {
+    float a = 0.f, b = 0.f;
+    for (int i = lane; i < terms; i += 32) {
+      const int t = (i / cpg) * chunks + q * cpg + i % cpg;
+      a += red[0][t];
+      b += red[1][t];
+    }
+    a = warp_sum(a);
+    b = warp_sum(b);
+    if (lane == 0) {
+      tot[0][q] = a;
+      tot[1][q] = b;
+    }
+  }
+  float a = 0.f, b = 0.f;
+  if (csize > 1) {
+    cluster_sync();                             // every CTA's totals are written
+    if (tid < groups) {                         // the ranks in order
+      for (int r = 0; r < csize; ++r) {
+        a += *remote(&tot[0][tid], r);
+        b += *remote(&tot[1][tid], r);
+      }
+    }
+    cluster_arrive();                           // this CTA reads no other's memory again
+  } else {
+    __syncthreads();
+    if (tid < groups) {
+      a = tot[0][tid];
+      b = tot[1][tid];
+    }
+  }
+  if (tid < groups) {
+    const float cnt = (float)hw * (float)(c / groups);
+    const float mean = a / cnt;
+    const float var = fmaxf(b / cnt - mean * mean, 0.f);
+    stat[0][tid] = mean;
+    stat[1][tid] = rsqrtf(var + eps);
+  }
+  __syncthreads();
+
+  const float mean = stat[0][ch / cpg], inv = stat[1][ch / cpg];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i * step;
+    if (!live || r >= hw) continue;
+    const P p = slice[i * kOnePassThreads + tid];
+    P o;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float y = (to_f32(p.v[j]) - mean) * inv * ga[j] + be[j];
+      o.v[j] = from_f32<T>(mish_fast(y));
+    }
+    *reinterpret_cast<P*>(out + base + (size_t)r * c + c0) = o;
+  }
+  if (csize > 1) cluster_wait();                // no CTA leaves while another reads it
+}
+
 // Backward: one CTA per sample, the forward's thread layout.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -317,6 +482,81 @@ cudaError_t launch_vec(const void* x, const void* gamma, const void* beta, void*
   return cudaGetLastError();
 }
 
+// How the one-pass forward covers a sample of hw rows of c channels: R,
+// its 16-byte chunks a thread, and the cluster of CTAs that splits it.  R
+// is the least power of two, up to 8, with which one CTA covers the sample
+// (no idle threads), else 8 over a cluster of up to 8 CTAs, else 16; r = 0:
+// the shape is not taken (C / VEC does not divide 256, or a sample needs
+// more than 8 CTAs of 16 chunks a thread, past 64x64x64 in bf16), and the
+// two-pass kernel runs it.  Measured on the H100 at the flagship's and the
+// latent UNet's shapes, at batch 256 and 64: fewer, larger CTAs won at
+// every shape, even where the grid is smaller than the card (at batch 64
+// 8x8x256 takes 6.8 us a call in 64 CTAs against 11.4 us in 8-CTA
+// clusters of R = 1), and several samples packed into one CTA lost at
+// every latent shape (4x4x64: 4.2 against 3.8 us).
+struct GnPlan {
+  int r, cluster;
+};
+
+int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+GnPlan gn_plan(int hw, int c, int vec) {
+  const int chunks = c / vec;
+  if (chunks > kOnePassThreads || kOnePassThreads % chunks != 0) return {0, 0};
+  const int step = kOnePassThreads / chunks;    // rows per sweep of a CTA
+  GnPlan p{pow2_at_least((hw + step - 1) / step), 1};
+  if (p.r > 8) {
+    p.r = 8;
+    p.cluster = (hw + 8 * step - 1) / (8 * step);
+    if (p.cluster > kMaxCluster) {
+      p.r = 16;
+      p.cluster = (hw + 16 * step - 1) / (16 * step);
+      if (p.cluster > kMaxCluster) return {0, 0};
+    }
+  }
+  return p;
+}
+
+template <typename T, int R>
+cudaError_t launch_onepass_r(const GnPlan& p, const void* x, const void* gamma,
+                             const void* beta, void* out, int n, int hw, int c, int groups,
+                             float eps, cudaStream_t stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n * p.cluster);
+  config.blockDim = dim3(kOnePassThreads);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = p.cluster > 1 ? 1 : 0;
+  config.dynamicSmemBytes = (size_t)R * kOnePassThreads * 16;
+  auto kernel = group_norm_mish_onepass_kernel<T, R>;
+  if (cudaError_t err = allow_dynamic_smem(kernel, config.dynamicSmemBytes)) return err;
+  return cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(x),
+                            static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                            static_cast<T*>(out), n, hw, c, groups, eps);
+}
+
+template <typename T>
+cudaError_t launch_onepass(const GnPlan& p, const void* x, const void* gamma,
+                           const void* beta, void* out, int n, int hw, int c, int groups,
+                           float eps, cudaStream_t stream) {
+  switch (p.r) {
+    case 1: return launch_onepass_r<T, 1>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
+    case 2: return launch_onepass_r<T, 2>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
+    case 4: return launch_onepass_r<T, 4>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
+    case 8: return launch_onepass_r<T, 8>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
+    default: return launch_onepass_r<T, 16>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
+  }
+}
+
 template <typename T, int VEC>
 cudaError_t launch_bwd_vec(const void* x, const void* gamma, const void* beta, const void* g,
                            void* dx, void* dgamma_part, void* dbeta_part, void* dgamma,
@@ -356,8 +596,15 @@ int launch(const void* x, const void* gamma, const void* beta, void* out, int n,
            int c, int groups, float eps, void* stream) {
   if (bad_shape(n, hw, c, groups)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vectorised<T>({x, out}, c, groups))
-    return launch_vec<T, 16 / sizeof(T)>(x, gamma, beta, out, n, hw, c, groups, eps, s);
+  if (vectorised<T>({x, out}, c, groups)) {
+    constexpr int kVec = 16 / sizeof(T);
+    const GnPlan p = gn_plan(hw, c, kVec);
+    if (p.r > 0) {
+      const cudaError_t err = launch_onepass<T>(p, x, gamma, beta, out, n, hw, c, groups, eps, s);
+      return err != cudaSuccess ? err : cudaGetLastError();
+    }
+    return launch_vec<T, kVec>(x, gamma, beta, out, n, hw, c, groups, eps, s);
+  }
   if (c > kMaxThreads) return cudaErrorInvalidValue;
   return launch_vec<T, 1>(x, gamma, beta, out, n, hw, c, groups, eps, s);
 }

@@ -33,9 +33,13 @@
 // cores.  At the flagship's N = 1024, 256 and 64 (batch 256) the bytes take
 // 0.080, 0.020 and 0.005 ms; the small calls are bound by latency: a head's
 // key softmax needs the exact column max before any weight, so each head
-// runs max, sum, weights, context and read-out in series.
+// runs max, sum, weights, context and read-out in series.  The backward
+// moves 448 bytes a position of a head in bf16 (q, k, v, g in; dq, dk, dv
+// out) against five D x D products, 10,240 operations: 23 a byte, past what
+// the CUDA cores do at the bytes' rate, so its products go to the tensor
+// cores as well.
 //
-// Two designs:
+// Three designs:
 //   - bf16 forward (the UNet's path), on the tensor cores:
 //     mma.sync.m16n8k16 bf16 -> f32 for ctx^T = v^T w and out = q ctx, so
 //     that both products round exactly where _flat_fwd rounds (w and ctx to
@@ -63,16 +67,32 @@
 //     registers for 1, 2 and 4 heads per CTA, no spills.  What bounds it
 //     now is latency: each CTA runs its five passes in series, with a
 //     cluster barrier between them, and loads nothing while it computes;
-//   - float32 forward, and the backward in both types: one CTA per (b, h),
-//     like the Pallas grid (B*H,); the column statistics of k first (f32: a
-//     running (max, sum of exp) per column, merged in shared memory; bf16:
-//     the column max, then the sum of the rounded exponentials against it,
-//     since a running sum rescaled as the max grows cannot reproduce values
-//     rounded against the final max); tiles of 64 rows staged in shared
-//     memory as f32, turned into softmax weights on load; each thread
-//     accumulates 4 entries of each D x D product as f32 FMAs (the f32
-//     checks' 1e-5 rules out TF32); row-wise outputs written by warps, one
-//     whole 32-wide row each.
+//   - bf16 backward, on the tensor cores too: q, k, v and g of a head's
+//     rows staged once by cp.async (each read from device memory once),
+//     128 rows a CTA and a cluster of up to 8 CTAs beyond (N <= 8 x 672),
+//     4 or 2 heads a CTA for N <= 16 and <= 32.  ctx = w^T v, dctx = q^T g
+//     and dq = g ctx^T take exact bf16 operands; dv = k_sm dctx and dk_sm =
+//     v dctx^T have an f32 operand (k_sm, dctx), split into bf16 high and
+//     low parts (3 and 2 products, the lo.lo term dropped: about 2^-16 of
+//     the value; TF32's 2^-11 would stray further from the f32 reference
+//     than FMAs do).  inner = sum_n k_sm dk_sm is taken as sum_e dctx
+//     ctx32 with ctx32 = k_sm^T v, so one sweep over the rows writes dq, dv
+//     and dk; the cluster's totals are reduce-scattered by rows.  ptxas
+//     (sm_90a): 124-126 registers for 1, 2 and 4 heads per CTA, no spills.
+//     On an H100 80GB HBM3 (700 W) the six calls of one flagship backward
+//     at batch 256 take 0.79 ms against the FMA kernel's 3.1 (bound 0.24;
+//     chip_smoke.py); what bounds it now is each CTA's phases (statistics,
+//     products, exchange, rows) running in series;
+//   - float32 forward and backward, and the bf16 backward past N = 8 x 672:
+//     one CTA per (b, h), like the Pallas grid (B*H,); the column
+//     statistics of k first (f32: a running (max, sum of exp) per column,
+//     merged in shared memory; bf16: the column max, then the sum of the
+//     rounded exponentials against it, since a running sum rescaled as the
+//     max grows cannot reproduce values rounded against the final max);
+//     tiles of 64 rows staged in shared memory as f32, turned into softmax
+//     weights on load; each thread accumulates 4 entries of each D x D
+//     product as f32 FMAs (the f32 checks' 1e-5 rules out TF32); row-wise
+//     outputs written by warps, one whole 32-wide row each.
 // Sums over rows run in a fixed order (no atomics): results repeat exactly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,12 +100,10 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <cooperative_groups.h>
+#include <initializer_list>
 #include <type_traits>
 
 #include "mma_sm90.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -414,34 +432,6 @@ __device__ __forceinline__ float lo_f32(uint32_t r) { return __uint_as_float(r <
 __device__ __forceinline__ float hi_f32(uint32_t r) { return __uint_as_float(r & 0xffff0000u); }
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// the thread-block cluster: this CTA's rank, the barrier (split into its
-// arrive and its wait; it orders shared-memory writes before it against
-// reads after it, across the cluster), and another CTA's shared memory
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-__device__ __forceinline__ int cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
-}
-template <typename T>
-__device__ __forceinline__ const T* remote(const T* p, int rank) {
-  return cg::this_cluster().map_shared_rank(const_cast<T*>(p), rank);
 }
 
 // Fragment addresses in a staged block (row-major, kLdh a row) for lane l.
@@ -814,10 +804,525 @@ int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int b, in
   config.numAttrs = p.cluster > 1 ? 1 : 0;              // one CTA: no cluster
   auto kernel = p.hpc == 4 ? linear_attention_mma_kernel<4>
                 : p.hpc == 2 ? linear_attention_mma_kernel<2> : linear_attention_mma_kernel<1>;
-  if (cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(p.smem)))
-    return err;
+  if (cudaError_t err = allow_dynamic_smem(kernel, p.smem)) return err;
   return cudaLaunchKernelEx(&config, kernel, q, k, v, out, n, heads * kD, units, p.rows);
+}
+
+// ------------------------------------------------------------------------
+// The bf16 backward on the tensor cores (see the note at the head).
+
+constexpr int kBwdRowsPerCta = 128;    // rows of a head per CTA before a cluster splits N
+constexpr int kBlocksOverQ = 3 * kD;   // rows from which ctx and dctx's bf16 blocks fit over q
+
+// Sums over the cluster's CTAs, in rank order, of the value at p in each;
+// the remote loads are all issued before the first add
+__device__ __forceinline__ float cluster_sum(const float* p, int csize) {
+  float x[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) x[r] = r < csize ? *remote(p, r) : 0.f;
+  float s = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    if (r < csize) s += x[r];
+  return s;
+}
+__device__ __forceinline__ float cluster_max(const float* p, int csize) {
+  float x[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) x[r] = r < csize ? *remote(p, r) : -INFINITY;
+  float m = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) m = fmaxf(m, x[r]);
+  return m;
+}
+
+// 2^x by the hardware's ex2 with denormals flushed to zero: a weight below
+// 2^-126 of its column's largest becomes 0, below what any bf16 output or
+// the f32 sums it enters can show; measured 7% faster than exp2f in the
+// backward, with the same output bits at the flagship's shapes
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The bf16 backward.  A CTA of 4 warps covers `hpc` heads (1, 2 or 4 flat
+// (b, h) units, 4 / hpc warps each) and rows [rank * rows, (rank + 1) *
+// rows) of them, where rank is its place in a cluster that splits N (hpc =
+// 1 only).  k, v, q and g are staged once by cp.async (four groups, k
+// first, so that the column statistics run while the rest lands); every
+// later read is from shared memory.  The phases:
+//   1. the column max, then the forward's rounded sum and the f32 sum, by
+//      8-column chunks as the forward takes them;
+//   2. three D x D products over the rows, by 16-row blocks of d: ctx =
+//      w^T v and dctx = q^T g (job kind 0), and ctx32 = k_sm^T v with the
+//      f32 k_sm split into bf16 high and low parts (kind 1), w and k_sm
+//      made from the ldmatrix.trans fragments of k;
+//   3. their totals, reduce-scattered over the cluster in rank order (rank
+//      r sums rows d = r mod the cluster size), with inner[d] = sum_n k_sm
+//      dk_sm = sum_e dctx[d][e] ctx32[d][e], the same sum in another order,
+//      so that no second sweep over the rows is needed; then every CTA
+//      gathers ctx (stored rounded), dctx (as its bf16 high and low parts)
+//      and inner from the rows' owners;
+//   4. by 16-row groups: dq = g ctx^T, k_sm, dv = k_sm dctx (3 products:
+//      hi.hi, hi.lo, lo.hi), dk_sm = v dctx^T (2: v.hi, v.lo) and dk = k_sm
+//      (dk_sm - inner), each written once.
+// Sums over warps and over the cluster run in a fixed order: the output
+// repeats bit for bit.
+template <int hpc>
+__global__ void __launch_bounds__(kMmaThreads, 4)
+linear_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const bf16* __restrict__ g,
+                                bf16* __restrict__ dq, bf16* __restrict__ dk,
+                                bf16* __restrict__ dv, int n, int c, int units, int rows) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const int block = hpc * rows * kLdh;                  // bf16 of one staged array
+  bf16* ks = reinterpret_cast<bf16*>(smem_bytes);       // [hpc][rows][kLdh] each
+  bf16* vs = ks + block;
+  bf16* qs = vs + block;
+  bf16* gs = qs + block;
+  float* x_max = reinterpret_cast<float*>(gs + block);  // [hpc][kD] each: this CTA's
+  float* x_sum = x_max + hpc * kD;                      // partials, which the cluster
+  float* x_sum32 = x_sum + hpc * kD;                    // reads
+  float* col_max = x_sum32 + hpc * kD;                  // and the totals
+  float* col_sum = col_max + hpc * kD;                  // the forward's, rounded
+  float* col_rs32 = col_sum + hpc * kD;                 // 1 / the f32 sum
+  float* inner = col_rs32 + hpc * kD;
+  float* inner_own = inner + hpc * kD;                  // inner of the rows this CTA sums
+  float* prod = inner_own + hpc * kD;                   // [hpc][3][kD][kD]: this CTA's ctx,
+                                                        // dctx and ctx32 in f32; then the
+                                                        // totals of its own rows
+  // the bf16 blocks [hpc][kD][kLdh] ctx [d][e] and dctx's high and low
+  // parts, written once q is read: over q's rows where they fit
+  bf16* ctxb = rows >= kBlocksOverQ ? qs : reinterpret_cast<bf16*>(prod + 3 * hpc * kD * kD);
+  bf16* dchb = ctxb + hpc * kD * kLdh;
+  bf16* dclb = dchb + hpc * kD * kLdh;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
+  const int csize = cluster_size(), rank = cluster_rank();
+  const int unit0 = (blockIdx.x / csize) * hpc;
+  const int row0 = rank * rows;                         // this CTA's first row
+  const int heads = c / kD;
+  auto unit_base = [&](int u) {                         // element offset of unit u's row 0
+    return (size_t)(u / heads) * n * c + (size_t)(u % heads) * kD;
+  };
+
+  // stage this CTA's rows of x into dst as one cp.async group; rows at or
+  // past n, and units past the last, are zero-filled
+  const int rows_in = min(rows, n - row0);
+  auto stage = [&](bf16* dst, const bf16* __restrict__ x) {
+#pragma unroll
+    for (int hh = 0; hh < hpc; ++hh) {
+      const bool unit_ok = unit0 + hh < units;
+      const bf16* src = x + (unit_ok ? unit_base(unit0 + hh) + (size_t)row0 * c : 0);
+      for (int i = tid; i < rows * 4; i += kMmaThreads) {
+        const int r = i >> 2, ch = 8 * (i & 3);
+        const bool valid = unit_ok && r < rows_in;
+        cp_async16(dst + (hh * rows + r) * kLdh + ch, src + (valid ? (size_t)r * c + ch : 0),
+                   valid);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(ks, k);
+  stage(vs, v);
+  stage(qs, q);
+  stage(gs, g);
+
+  constexpr int wph = kMmaWarps / hpc;                  // warps per head
+  const int hh = warp / wph, wr = warp % wph;
+  bf16* kh = ks + hh * rows * kLdh;
+  const bf16* vh = vs + hh * rows * kLdh;
+  const bf16* qh = qs + hh * rows * kLdh;
+  const bf16* gh = gs + hh * rows * kLdh;
+  const int hd = hh * kD;                               // this head's statistics
+  const int groups = (rows_in + 15) / 16;               // 16-row groups holding rows < n
+  constexpr int chunks = hpc;                           // this warp's 8-column chunks:
+                                                        // wr + wph * i, column 8 (..) + gq
+
+  // 1. the column max
+  cp_async_wait<3>();
+  __syncthreads();                                      // k has landed
+  float cm[chunks];
+#pragma unroll
+  for (int i = 0; i < chunks; ++i) {
+    const int c0 = 8 * (wr + wph * i);
+    float m = -INFINITY;
+#pragma unroll 4
+    for (int gi = 0; gi < groups; ++gi) {
+      uint32_t x[2];
+      ldsm_x2_trans(x, frag_col8(kh, 16 * gi, c0, lane));
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 16 * gi + 2 * t + 8 * j;
+        if (r < rows_in) m = fmaxf(m, lo_f32(x[j]));
+        if (r + 1 < rows_in) m = fmaxf(m, hi_f32(x[j]));
+      }
+    }
+    cm[i] = quad_max(m);
+  }
+  if (csize > 1) {                                      // the max over the cluster
+#pragma unroll
+    for (int i = 0; i < chunks; ++i)
+      if (t == 0) x_max[hd + 8 * (wr + wph * i) + gq] = cm[i];
+    cluster_sync();
+#pragma unroll
+    for (int i = 0; i < chunks; ++i) cm[i] = cluster_max(x_max + hd + 8 * (wr + wph * i) + gq, csize);
+  }
+
+  // the sums: the forward's (of round(exp(round(k - max)))) and the f32 one
+  float cs[chunks], cs32[chunks];
+#pragma unroll
+  for (int i = 0; i < chunks; ++i) {
+    const int c0 = 8 * (wr + wph * i);
+    float s = 0.f, s32 = 0.f;
+#pragma unroll 4
+    for (int gi = 0; gi < groups; ++gi) {
+      uint32_t x[2];
+      ldsm_x2_trans(x, frag_col8(kh, 16 * gi, c0, lane));
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * gi + 2 * t + 8 * j + h;
+          const float xv = h ? hi_f32(x[j]) : lo_f32(x[j]);
+          if (r < rows_in) {
+            s += bf16_round(ex2_ftz(bf16_round(xv - cm[i]) * kLog2e));
+            s32 += ex2_ftz((xv - cm[i]) * kLog2e);
+          }
+        }
+    }
+    cs[i] = quad_sum(s);
+    cs32[i] = quad_sum(s32);
+  }
+  if (csize > 1) {                                      // the sums over the cluster, in order
+#pragma unroll
+    for (int i = 0; i < chunks; ++i)
+      if (t == 0) {
+        x_sum[hd + 8 * (wr + wph * i) + gq] = cs[i];
+        x_sum32[hd + 8 * (wr + wph * i) + gq] = cs32[i];
+      }
+    cluster_sync();
+#pragma unroll
+    for (int i = 0; i < chunks; ++i) {
+      const int d = hd + 8 * (wr + wph * i) + gq;
+      cs[i] = cluster_sum(x_sum + d, csize);
+      cs32[i] = cluster_sum(x_sum32 + d, csize);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < chunks; ++i)
+    if (t == 0) {
+      const int d = hd + 8 * (wr + wph * i) + gq;
+      col_max[d] = cm[i];
+      col_sum[d] = bf16_round(cs[i]);
+      col_rs32[d] = 1.f / cs32[i];
+    }
+  cp_async_wait<0>();
+  __syncthreads();                                      // the statistics; v, q, g have landed
+
+  // 2. the products over the rows.  This warp's jobs are wr + wph * i:
+  // job j covers d rows 16 md .. (md = j & 1) of ctx and dctx (j < 2) or of
+  // ctx32 (j >= 2), each written in f32 to prod.  Element e of n8 tile
+  // jt of half ne of a product is [16 md + gq + 8 (e / 2)][16 ne + 8 jt + 2
+  // t + e % 2]
+  constexpr int jobs = hpc;
+#pragma unroll 1
+  for (int i = 0; i < jobs; ++i) {
+    const int job = wr + wph * i, md = job & 1;
+    const bool kind0 = job < 2;
+    // the statistics at columns d = 16 md + gq (+ 8)
+    float wm[2], ws[2], wrs[2], krs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = hd + 16 * md + gq + 8 * h;
+      wm[h] = col_max[d];
+      ws[h] = col_sum[d];
+      wrs[h] = __frcp_rn(ws[h]);
+      krs[h] = col_rs32[d];
+    }
+    float acc[2][2][2][4] = {};                         // [product][ne][jt][e]
+#pragma unroll 2
+    for (int gi = 0; gi < groups; ++gi) {
+      uint32_t a[4];
+      ldsm_x4_trans(a, frag_at(kh, 16 * gi, 16 * md, lane));
+      // a[r]: column 16 md + gq + 8 (r & 1), rows 16 gi + 2 t + 8 (r >> 1) (+ 1)
+      uint32_t a0[4], a1[4];                            // w and q^T (kind 0); k_sm hi, lo
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r & 1, row = 16 * gi + 2 * t + 8 * (r >> 1);
+        float y0[2], y1[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float x = u ? hi_f32(a[r]) : lo_f32(a[r]);
+          const bool ok = row + u < rows_in;
+          if (kind0) {
+            const float e = bf16_round(ex2_ftz(bf16_round(x - wm[h]) * kLog2e));
+            const float q1 = e * wrs[h];
+            y0[u] = ok ? fmaf(fmaf(-q1, ws[h], e), wrs[h], q1) : 0.f;
+          } else {
+            const float ksm = ok ? ex2_ftz((x - wm[h]) * kLog2e) * krs[h] : 0.f;
+            y0[u] = ksm;
+            y1[u] = ksm - bf16_round(ksm);
+          }
+        }
+        a0[r] = pack_bf16(y0[0], y0[1]);
+        if (!kind0) a1[r] = pack_bf16(y1[0], y1[1]);
+      }
+      if (kind0) ldsm_x4_trans(a1, frag_at(qh, 16 * gi, 16 * md, lane));
+#pragma unroll
+      for (int ne = 0; ne < 2; ++ne) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, frag_b_trans(vh, 16 * gi, 16 * ne, lane));
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          mma_bf16(acc[0][ne][jt], a0, b[2 * jt], b[2 * jt + 1]);
+          if (!kind0) mma_bf16(acc[1][ne][jt], a1, b[2 * jt], b[2 * jt + 1]);
+        }
+        if (kind0) {
+          ldsm_x4_trans(b, frag_b_trans(gh, 16 * gi, 16 * ne, lane));
+#pragma unroll
+          for (int jt = 0; jt < 2; ++jt) mma_bf16(acc[1][ne][jt], a1, b[2 * jt], b[2 * jt + 1]);
+        }
+      }
+    }
+    // ctx and dctx (kind 0), or ctx32 = the hi and lo products summed
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (!kind0 && p == 1) break;
+      float* dst = prod + (hh * 3 + (kind0 ? p : 2)) * kD * kD;
+#pragma unroll
+      for (int ne = 0; ne < 2; ++ne)
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float x0 = acc[p][ne][jt][2 * half], x1 = acc[p][ne][jt][2 * half + 1];
+            if (!kind0) {
+              x0 += acc[1][ne][jt][2 * half];
+              x1 += acc[1][ne][jt][2 * half + 1];
+            }
+            *reinterpret_cast<float2*>(dst + (16 * md + gq + 8 * half) * kD + 16 * ne +
+                                       8 * jt + 2 * t) = make_float2(x0, x1);
+          }
+    }
+  }
+
+  // 3. the totals, reduce-scattered over the cluster: this CTA sums rows R
+  // = hh * kD + d with R % csize == rank of the three products over the
+  // CTAs in rank order (a warp a row, a lane a column), keeps ctx and dctx
+  // in place of its own partials (no other CTA reads those rows of it), and
+  // takes inner[d] = sum_e dctx[d][e] ctx32[d][e] (the sum over the rows of
+  // k_sm dk_sm, in another order) by a butterfly over the lanes; then every
+  // CTA gathers the totals from the rows' owners
+  if (csize > 1) cluster_sync(); else __syncthreads();
+  for (int R = rank + csize * warp; R < hpc * kD; R += csize * kMmaWarps) {
+    float* own = prod + (R / kD * 3) * kD * kD + (R % kD) * kD + lane;
+    float x[3];
+#pragma unroll
+    for (int w = 0; w < 3; ++w) x[w] = csize > 1 ? cluster_sum(own + w * kD * kD, csize) : own[w * kD * kD];
+    own[0] = x[0];
+    own[kD * kD] = x[1];
+    float in = x[1] * x[2];
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) in += __shfl_xor_sync(0xffffffffu, in, m);
+    if (lane == 0) inner_own[R] = in;
+  }
+  if (csize > 1) cluster_sync(); else __syncthreads();
+  // ctx rounded to bf16 [d][e]; dctx as its bf16 high part and the rest's
+  for (int i = tid; i < 2 * hpc * kD * (kD / 2); i += kMmaThreads) {
+    const int which = i / (hpc * kD * (kD / 2)), R = (i / (kD / 2)) % (hpc * kD);
+    const int e = 2 * (i % (kD / 2));
+    const float* src = prod + (R / kD * 3 + which) * kD * kD + (R % kD) * kD + e;
+    const float2 x = *reinterpret_cast<const float2*>(csize > 1 ? remote(src, R % csize) : src);
+    const int at = R * kLdh + e;
+    if (which == 0) {
+      *reinterpret_cast<uint32_t*>(ctxb + at) = pack_bf16(x.x, x.y);
+    } else {
+      *reinterpret_cast<uint32_t*>(dchb + at) = pack_bf16(x.x, x.y);
+      *reinterpret_cast<uint32_t*>(dclb + at) =
+          pack_bf16(x.x - bf16_round(x.x), x.y - bf16_round(x.y));
+    }
+  }
+  if (tid < hpc * kD) inner[tid] = csize > 1 ? *remote(inner_own + tid, tid % csize) : inner_own[tid];
+  if (csize > 1) cluster_arrive();                      // this CTA reads no other's memory again
+  __syncthreads();                                      // ctx, dctx and inner
+
+  // 4. by 16-row groups: dq, dv, dk
+  const bf16* ch = ctxb + hh * kD * kLdh;
+  const bf16* dch = dchb + hh * kD * kLdh;
+  const bf16* dcl = dclb + hh * kD * kLdh;
+  // this thread's columns of k_sm and dk_sm: 16 kc + 8 h + 2 t + u
+  float km[2][2][2], kr[2][2][2], inn[2][2][2];
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int d = hd + 16 * kc + 8 * h + 2 * t + u;
+        km[kc][h][u] = col_max[d];
+        kr[kc][h][u] = col_rs32[d];
+        inn[kc][h][u] = inner[d];
+      }
+  const int unit = unit0 + hh;
+  const bool unit_ok = unit < units;
+  const size_t ubase = unit_ok ? unit_base(unit) : 0;
+  // writes a 16-row group's C fragments (4 n8 tiles) as bf16 rows
+  auto store_rows = [&](bf16* dst, const float (&o)[4][4], int gi) {
+    if (!unit_ok) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = 16 * gi + gq + 8 * i;
+      if (row >= rows_in) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + ubase + (size_t)(row0 + row) * c + 8 * nt +
+                                           2 * t) =
+            __floats2bfloat162_rn(o[nt][2 * i], o[nt][2 * i + 1]);
+    }
+  };
+  uint32_t cb[2][2][4];                                 // ctx's B fragments [kc of e][nd]
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+    for (int nd = 0; nd < 2; ++nd) ldsm_x4(cb[kc][nd], frag_b(ch, 16 * nd, 16 * kc, lane));
+  for (int gi = wr; gi < groups; gi += wph) {
+    {                                                   // dq = g ctx^T
+      float o[4][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        uint32_t a[4];
+        ldsm_x4(a, frag_a(gh, 16 * gi, 16 * kc, lane));
+#pragma unroll
+        for (int nd = 0; nd < 2; ++nd) {
+          mma_bf16(o[2 * nd], a, cb[kc][nd][0], cb[kc][nd][1]);
+          mma_bf16(o[2 * nd + 1], a, cb[kc][nd][2], cb[kc][nd][3]);
+        }
+      }
+      store_rows(dq, o, gi);
+    }
+    // k_sm in the A fragment layout: ksm[kc][r][u] is row 16 gi + gq + 8 (r
+    // & 1), column 16 kc + 8 (r >> 1) + 2 t + u, the same place as element
+    // 2 (r & 1) + u of dk_sm's n8 tile 2 kc + (r >> 1); zero past n
+    float ksm[2][4][2];
+#pragma unroll
+    for (int kc = 0; kc < 2; ++kc) {
+      uint32_t a[4];
+      ldsm_x4(a, frag_a(kh, 16 * gi, 16 * kc, lane));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const bool ok = 16 * gi + gq + 8 * (r & 1) < rows_in;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float x = u ? hi_f32(a[r]) : lo_f32(a[r]);
+          const int h = r >> 1;
+          ksm[kc][r][u] = ok ? ex2_ftz((x - km[kc][h][u]) * kLog2e) * kr[kc][h][u] : 0.f;
+        }
+      }
+    }
+    {                                                   // dv = k_sm dctx
+      float o[4][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x0 = ksm[kc][r][0], x1 = ksm[kc][r][1];
+          ah[r] = pack_bf16(x0, x1);
+          al[r] = pack_bf16(x0 - bf16_round(x0), x1 - bf16_round(x1));
+        }
+#pragma unroll
+        for (int ne = 0; ne < 2; ++ne) {
+          uint32_t bh[4], bl[4];
+          ldsm_x4_trans(bh, frag_b_trans(dch, 16 * kc, 16 * ne, lane));
+          ldsm_x4_trans(bl, frag_b_trans(dcl, 16 * kc, 16 * ne, lane));
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            mma_bf16(o[2 * ne + j], al, bh[2 * j], bh[2 * j + 1]);
+            mma_bf16(o[2 * ne + j], ah, bl[2 * j], bl[2 * j + 1]);
+            mma_bf16(o[2 * ne + j], ah, bh[2 * j], bh[2 * j + 1]);
+          }
+        }
+      }
+      store_rows(dv, o, gi);
+    }
+    {                                                   // dk_sm = v dctx^T, then dk
+      float o[4][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        uint32_t a[4];
+        ldsm_x4(a, frag_a(vh, 16 * gi, 16 * kc, lane));
+#pragma unroll
+        for (int nd = 0; nd < 2; ++nd) {
+          uint32_t bh[4], bl[4];
+          ldsm_x4(bh, frag_b(dch, 16 * nd, 16 * kc, lane));
+          ldsm_x4(bl, frag_b(dcl, 16 * nd, 16 * kc, lane));
+          mma_bf16(o[2 * nd], a, bl[0], bl[1]);
+          mma_bf16(o[2 * nd], a, bh[0], bh[1]);
+          mma_bf16(o[2 * nd + 1], a, bl[2], bl[3]);
+          mma_bf16(o[2 * nd + 1], a, bh[2], bh[3]);
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int j = 2 * kc + (r >> 1), e = 2 * (r & 1) + u;
+            o[j][e] = ksm[kc][r][u] * (o[j][e] - inn[kc][r >> 1][u]);
+          }
+      store_rows(dk, o, gi);
+    }
+  }
+  if (csize > 1) cluster_wait();                        // no CTA leaves while another reads it
+}
+
+// How the bf16 backward covers (b, n, heads), as mma_plan does the forward
+// but with kBwdRowsPerCta rows a CTA (128 beat 256 at N = 1024 and 256, and
+// 64 at N = 256, on the H100): its four staged arrays take twice the
+// forward's shared memory a row.  smem > kMaxSmem (n > 8 x 672 = 5376: 672
+// rows a CTA take 228,352 B, 688 take 233,472): the plan is not taken, and
+// the f32-FMA kernel runs the call.  igm_linear_attention_bwd_bf16_on_tensor_cores
+// gives this rule to the Python side, whose BF16_BWD_TC_MAX_N a card test
+// holds to it.
+MmaPlan bwd_mma_plan(int n) {
+  MmaPlan p;
+  const int groups = (n + 15) / 16;
+  p.hpc = groups == 1 ? 4 : groups == 2 ? 2 : 1;
+  const int ctas = (n + kBwdRowsPerCta - 1) / kBwdRowsPerCta;
+  p.cluster = p.hpc > 1 ? 1 : ctas < kMaxCluster ? ctas : kMaxCluster;
+  p.rows = ((n + p.cluster - 1) / p.cluster + 15) / 16 * 16;
+  p.cluster = (n + p.rows - 1) / p.rows;
+  p.smem = (size_t)(4 * p.rows + (p.rows >= kBlocksOverQ ? 0 : 3 * kD)) * p.hpc * kLdh *
+               sizeof(bf16) +
+           (size_t)(8 * kD + 3 * kD * kD) * p.hpc * sizeof(float);
+  return p;
+}
+
+int launch_bwd_mma(const MmaPlan& p, const bf16* q, const bf16* k, const bf16* v,
+                   const bf16* g, bf16* dq, bf16* dk, bf16* dv, int b, int n, int heads,
+                   cudaStream_t stream) {
+  const int units = b * heads;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((units + p.hpc - 1) / p.hpc * p.cluster);
+  config.blockDim = dim3(kMmaThreads);
+  config.dynamicSmemBytes = p.smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = p.cluster > 1 ? 1 : 0;              // one CTA: no cluster
+  auto kernel = p.hpc == 4   ? linear_attention_bwd_mma_kernel<4>
+                : p.hpc == 2 ? linear_attention_bwd_mma_kernel<2>
+                             : linear_attention_bwd_mma_kernel<1>;
+  if (cudaError_t err = allow_dynamic_smem(kernel, p.smem)) return err;
+  return cudaLaunchKernelEx(&config, kernel, q, k, v, g, dq, dk, dv, n, heads * kD, units,
+                            p.rows);
 }
 
 bool bad_shape(int b, int n, int heads) {
@@ -875,8 +1380,28 @@ extern "C" int igm_linear_attention_bwd_f32(const void* q, const void* k, const 
   return launch_bwd<float>(q, k, v, g, dq, dk, dv, b, n, heads, stream);
 }
 
+// Whether the bf16 backward runs on the tensor cores at this n (1) or on
+// the f32-FMA kernel (0): bwd_mma_plan's rule, n <= 8 x 672.
+extern "C" int igm_linear_attention_bwd_bf16_on_tensor_cores(int n) {
+  return n > 0 && bwd_mma_plan(n).smem <= kMaxSmem;
+}
+
+// bf16: n up to 8 x 672 runs on the tensor cores, and its pointers must
+// start on a 16-byte boundary; a longer n runs the f32-FMA kernel.
 extern "C" int igm_linear_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                              const void* g, void* dq, void* dk, void* dv, int b,
                                              int n, int heads, void* stream) {
-  return launch_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, b, n, heads, stream);
+  if (bad_shape(b, n, heads)) return cudaErrorInvalidValue;
+  const MmaPlan p = bwd_mma_plan(n);
+  if (p.smem > kMaxSmem)
+    return launch_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, b, n, heads, stream);
+  if ((int64_t)b * heads > INT_MAX) return cudaErrorInvalidValue;
+  for (const void* ptr : {q, k, v, g, static_cast<const void*>(dq), static_cast<const void*>(dk),
+                          static_cast<const void*>(dv)})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorMisalignedAddress;
+  const cudaError_t err = static_cast<cudaError_t>(launch_bwd_mma(
+      p, static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), b, n, heads, static_cast<cudaStream_t>(stream)));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }

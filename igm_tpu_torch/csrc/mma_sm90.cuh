@@ -1,12 +1,20 @@
-// The PTX the port's tensor-core kernels share (sm_90a): 16-byte cp.async
-// copies into shared memory, ldmatrix / stmatrix, mma.sync m16n8k16 bf16 ->
-// f32, and the bf16 packing of accumulator pairs.  Included by the kernel
-// sources; each keeps its own fragment address helpers, which depend on its
-// padded row length.
+// The PTX the port's kernels share (sm_90a): 16-byte cp.async copies into
+// shared memory, ldmatrix / stmatrix, mma.sync m16n8k16 bf16 -> f32, the
+// bf16 packing of accumulator pairs, and the thread-block cluster (rank,
+// barrier, another CTA's shared memory); on the host, the raising of a
+// kernel's dynamic shared-memory limit.  Included by the kernel sources;
+// each keeps its own fragment address helpers, which depend on its padded
+// row length.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
+#include <mutex>
+#include <utility>
+#include <vector>
 
 static __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -68,4 +76,59 @@ static __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
 static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the thread-block cluster: this CTA's rank, the barrier (split into its
+// arrive and its wait; it orders shared-memory writes before it against
+// reads after it, across the cluster), and another CTA's shared memory
+static __device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+static __device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+static __device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+static __device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+static __device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+template <typename T>
+static __device__ __forceinline__ const T* remote(const T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(const_cast<T*>(p), rank);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device.
+// Up to the default 48 KB nothing is called; beyond it the attribute is
+// raised once per kernel and device (to the largest size asked for so far),
+// not set again on every launch.
+template <typename Kernel>
+static cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  if (cudaError_t err = cudaGetDevice(&device)) return err;
+  static std::mutex mutex;
+  static std::vector<std::pair<std::pair<const void*, int>, size_t>> granted;
+  const std::pair<const void*, int> key(reinterpret_cast<const void*>(kernel), device);
+  std::lock_guard<std::mutex> lock(mutex);
+  size_t* have = nullptr;
+  for (auto& entry : granted)
+    if (entry.first == key) have = &entry.second;
+  if (have && *have >= bytes) return cudaSuccess;
+  if (cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(bytes)))
+    return err;
+  if (have)
+    *have = bytes;
+  else
+    granted.push_back({key, bytes});
+  return cudaSuccess;
 }

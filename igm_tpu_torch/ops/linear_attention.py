@@ -23,7 +23,9 @@ launches.  :class:`LinearAttentionFlatFn` is what the UNet calls.  The bf16
 forward runs its products on the tensor cores and stages rows with 16-byte
 ``cp.async``: its q, k and v must start on a 16-byte boundary (every fresh
 allocation does) and N may be at most ``BF16_MAX_N``; else it raises
-``ValueError``.
+``ValueError``.  The bf16 backward does the same on the tensor cores up to
+N = ``BF16_BWD_TC_MAX_N`` (and as f32 FMAs beyond, any N), and raises for an
+unaligned input too.
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ HEAD_DIM = 32
 # the bf16 kernel stages a head's rows in shared memory, split over a cluster
 # of at most 8 CTAs of at most 1408 rows each
 BF16_MAX_N = 8 * 1408
+# the bf16 backward stages four arrays a row: on the tensor cores up to 8
+# CTAs of 672 rows, beyond that as f32 FMAs (csrc/linear_attention.cu
+# bwd_mma_plan; bwd_on_tensor_cores asks the built kernel)
+BF16_BWD_TC_MAX_N = 8 * 672
 
 
 def key_softmax(k: torch.Tensor) -> torch.Tensor:
@@ -106,6 +112,16 @@ def _kernels(name: str, pointers: int) -> dict[torch.dtype, ctypes._CFuncPtr]:
     return out
 
 
+def bwd_on_tensor_cores(n: int) -> bool:
+    """Whether the built bf16 backward runs on the tensor cores at this N
+    (the kernel's own shape rule; builds the library, so the card's machine
+    only)."""
+    fn = _build.library("linear_attention").igm_linear_attention_bwd_bf16_on_tensor_cores
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return bool(fn(n))
+
+
 def _check(name: str, heads: int, *tensors: torch.Tensor) -> None:
     """Shape checks on every device."""
     shape = tensors[0].shape
@@ -117,11 +133,11 @@ def _check(name: str, heads: int, *tensors: torch.Tensor) -> None:
 
 
 def _check_cuda(name: str, heads: int, *tensors: torch.Tensor,
-                aligned: bool = False) -> None:
+                max_n: int | None = None) -> None:
     """What the kernels take: head dim 32, one dtype (f32/bf16), contiguous,
-    on the current CUDA device, batch at most 65535; with ``aligned`` (the
-    bf16 forward, which stages rows with 16-byte ``cp.async``), bf16 tensors
-    that start on a 16-byte boundary and N at most ``BF16_MAX_N``."""
+    on the current CUDA device, batch at most 65535; in bf16 (whose kernels
+    stage rows with 16-byte ``cp.async``) tensors that start on a 16-byte
+    boundary, and N at most ``max_n`` where it is given."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -140,12 +156,12 @@ def _check_cuda(name: str, heads: int, *tensors: torch.Tensor,
         raise ValueError(f"{name}: {q.device} is not the current device")
     if b > 65535:
         raise ValueError(f"{name}: batch {b} exceeds 65535")
-    if aligned and q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:
         if any(t.data_ptr() % 16 for t in tensors):
             raise ValueError(f"{name}: bf16 inputs must start on a 16-byte boundary, got "
                              f"addresses {[t.data_ptr() % 16 for t in tensors]} mod 16")
-        if n > BF16_MAX_N:
-            raise ValueError(f"{name}: the bf16 kernel takes N up to {BF16_MAX_N}, got {n}")
+        if max_n is not None and n > max_n:
+            raise ValueError(f"{name}: the bf16 kernel takes N up to {max_n}, got {n}")
 
 
 def linear_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -154,7 +170,7 @@ def linear_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("linear_attention_flat", heads, q, k, v)
     if q.device.type == "cpu":
         return linear_attention_flat_plain(q, k, v, heads)
-    _check_cuda("linear_attention_flat", heads, q, k, v, aligned=True)
+    _check_cuda("linear_attention_flat", heads, q, k, v, max_n=BF16_MAX_N)
     b, n, _ = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
@@ -174,7 +190,11 @@ linear_attention_flat.launches = 0
 def linear_attention_flat_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               g: torch.Tensor, heads: int):
     """Backward of :func:`linear_attention_flat` for the output gradient
-    ``g`` (q's shape and dtype, contiguous) -> (dq, dk, dv)."""
+    ``g`` (q's shape and dtype, contiguous) -> (dq, dk, dv).
+
+    In bf16 it runs on the tensor cores up to N = ``BF16_BWD_TC_MAX_N`` and
+    as f32 FMAs beyond (any N); its inputs must start on a 16-byte
+    boundary."""
     _check("linear_attention_flat_bwd", heads, q, k, v, g)
     if q.device.type == "cpu":
         return linear_attention_flat_bwd_plain(q, k, v, g, heads)

@@ -128,9 +128,19 @@ def _jax_la_vjp(q, k, v, g, dtype):
     return [np.asarray(t.astype(jnp.float32)) for t in vjp(jnp.asarray(g, dtype))]
 
 
-@pytest.mark.parametrize("n", [64, 256])
+# the flagship's N = 64 and 256 at batch 2; at batch 1 its N = 1024 (a
+# cluster of 8 CTAs in the bf16 kernel), a ragged N = 100 and the latent
+# UNet's N = 16
+LA_BWD_N = [64, 256, 1024, 100, 16]
+
+
+def _la_batch(n):
+    return 2 if n in (64, 256) else 1
+
+
+@pytest.mark.parametrize("n", LA_BWD_N)
 def test_la_bwd_plain_matches_jax_vjp_f32(n):
-    q, k, v, g = _qkvg(n, 2, n)
+    q, k, v, g = _qkvg(n, _la_batch(n), n)
     want = _jax_la_vjp(q, k, v, g, jnp.float32)
     got = linear_attention_flat_bwd_plain(*map(torch.from_numpy, (q, k, v, g)), HEADS)
     _assert_close(got, want)
@@ -145,10 +155,10 @@ def test_la_bwd_plain_matches_jax_vjp_f32(n):
 BF16_RTOL, BF16_ATOL, BF16_MAX_SHARE = 2.0 ** -7, 2.0 ** -10, 0.002
 
 
-@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("n", LA_BWD_N)
 def test_la_bwd_plain_matches_jax_vjp_bf16(n):
     q, k, v, g = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
-                  for a in _qkvg(n + 1, 2, n))
+                  for a in _qkvg(n + 1, _la_batch(n), n))
     want = _jax_la_vjp(q, k, v, g, jnp.bfloat16)
     got = linear_attention_flat_bwd_plain(
         *(torch.from_numpy(a).bfloat16() for a in (q, k, v, g)), HEADS)

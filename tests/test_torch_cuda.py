@@ -9,9 +9,9 @@ nearest-codebook indices are equal except at near-ties, where the plain
 version's scores at the two indices differ by at most
 1e-5 (||e||^2 + 2 ||z|| ||e||) (``near_tie_gaps`` <= 1).  The dropout
 flash attention's lse is float32 in both dtypes: held to 1e-5; its bf16
-forward, dq and dk/dv, and the bf16 linear-attention forward, run on the
-tensor cores and sum in another order than the plain version, within the
-same bf16 tolerance.  The fused
+forward, dq and dk/dv, and the bf16 linear-attention forward and backward,
+run on the tensor cores and sum in another order than the plain version,
+within the same bf16 tolerance.  The fused
 conv3x3+GroupNorm+Mish block in float32 is held to atol 3e-5, as
 tests/test_fused_block.py holds the Pallas kernel to XLA.
 """
@@ -29,8 +29,9 @@ from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
     GroupNormMishFn, group_norm_mish, group_norm_mish_bwd, group_norm_mish_bwd_plain,
     group_norm_mish_plain)
 from igm_tpu_torch.ops.linear_attention import (  # noqa: E402
-    BF16_MAX_N, LinearAttentionFlatFn, linear_attention_flat, linear_attention_flat_bwd,
-    linear_attention_flat_bwd_plain, linear_attention_flat_plain)
+    BF16_BWD_TC_MAX_N, BF16_MAX_N, LinearAttentionFlatFn, bwd_on_tensor_cores,
+    linear_attention_flat, linear_attention_flat_bwd, linear_attention_flat_bwd_plain,
+    linear_attention_flat_plain)
 from igm_tpu_torch.ops.vq import (  # noqa: E402
     near_tie_gaps, nearest_codebook, nearest_codebook_plain)
 
@@ -73,6 +74,39 @@ def test_group_norm_mish_kernel(gen, dtype, shape, groups):
     torch.cuda.synchronize()
     assert group_norm_mish.launches == before + 1
     _close(got, group_norm_mish_plain(x, gamma, beta, groups), dtype)
+
+
+# the one-pass forward's plans (csrc/group_norm_mish.cu gn_plan): a sample
+# split over a cluster of 4 CTAs at the sampling batch, batch 1, the latent
+# shapes at large batches, a cluster of 8 CTAs of 8 chunks a thread (R =
+# 8) and of 16 (the largest sample it takes, 64x64x64 in bf16), and past
+# it (64x65x64), and C / VEC dividing 256 (C = 2048 bf16) or not (C = 192):
+# the last of each pair runs the two-pass kernel
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [
+    (64, 32, 32, 64), (1, 32, 32, 64), (1, 8, 8, 64), (1024, 4, 4, 128), (2048, 4, 4, 64),
+    (1, 32, 64, 64), (1, 64, 64, 64), (1, 64, 65, 64), (2, 8, 8, 2048), (2, 8, 8, 192),
+])
+def test_group_norm_mish_kernel_plans(gen, dtype, shape):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    c = shape[-1]
+    gamma = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1.0
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.1
+    before = group_norm_mish.launches
+    got = group_norm_mish(x, gamma, beta, 8)
+    torch.cuda.synchronize()
+    assert group_norm_mish.launches == before + 1
+    _close(got, group_norm_mish_plain(x, gamma, beta, 8), dtype)
+
+
+def test_group_norm_mish_kernel_repeats_exactly(gen):
+    """No atomics: the forward gives the same bits twice, over a cluster
+    (64, 32, 32, 64) and one CTA a sample (1024, 4, 4, 128)."""
+    for shape in ((64, 32, 32, 64), (1024, 4, 4, 128)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+        gamma = torch.randn(shape[-1], generator=gen, device="cuda") * 0.1 + 1.0
+        beta = torch.randn(shape[-1], generator=gen, device="cuda") * 0.1
+        assert torch.equal(group_norm_mish(x, gamma, beta), group_norm_mish(x, gamma, beta))
 
 
 def test_group_norm_mish_kernel_unaligned_input(gen):
@@ -194,9 +228,16 @@ def test_group_norm_mish_bwd_kernel_repeats_exactly(gen):
         assert torch.equal(a, b)
 
 
+# the flagship's and the latent UNet's N, ragged N, and the bf16 kernel's
+# plans: four heads per CTA (N = 16), two (N = 32), a cluster of 3 CTAs
+# over 257 rows, 8 CTAs (N = 1024, 4096), the longest N on the tensor
+# cores (8 x 672) and past it (f32 FMAs), up to BF16_MAX_N; these check the
+# output, test_linear_attention_bwd_tensor_core_rule which kernel runs
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1),
-                                 (64, 64), (128, 16)])
+                                 (64, 64), (128, 16), (3, 16), (2, 32), (2, 257),
+                                 (2, 4096), (1, BF16_BWD_TC_MAX_N),
+                                 (1, BF16_BWD_TC_MAX_N + 1), (1, BF16_MAX_N)])
 def test_linear_attention_bwd_kernel(gen, dtype, b, n):
     q, k, v, g = (torch.randn(b, n, 128, generator=gen, device="cuda").to(dtype)
                   for _ in range(4))
@@ -206,6 +247,47 @@ def test_linear_attention_bwd_kernel(gen, dtype, b, n):
     assert linear_attention_flat_bwd.launches == before + 1
     for a, w in zip(got, linear_attention_flat_bwd_plain(q, k, v, g, 4)):
         _close(a, w, dtype)
+
+
+def test_linear_attention_bwd_tensor_core_rule(gen):
+    """BF16_BWD_TC_MAX_N is the built kernel's own rule: the bf16 backward
+    runs on the tensor cores up to it and on the FMA kernel past it."""
+    for n in (1, 16, 32, 257, 1024, 4096, BF16_BWD_TC_MAX_N):
+        assert bwd_on_tensor_cores(n), n
+    for n in (BF16_BWD_TC_MAX_N + 1, BF16_MAX_N):
+        assert not bwd_on_tensor_cores(n), n
+
+
+def test_linear_attention_bwd_kernel_repeats_exactly(gen):
+    """No atomics: the bf16 backward gives the same bits twice, split over a
+    cluster (N = 1024, 8 CTAs) and with four heads per CTA (N = 16)."""
+    for b, n in ((8, 1024), (16, 16)):
+        q, k, v, g = (torch.randn(b, n, 128, generator=gen, device="cuda").bfloat16()
+                      for _ in range(4))
+        runs = [linear_attention_flat_bwd(q, k, v, g, 4) for _ in range(2)]
+        for a, w in zip(*runs):
+            assert torch.equal(a, w)
+
+
+def test_linear_attention_bwd_kernel_rejects_unaligned_bf16(gen):
+    """The bf16 backward stages rows with 16-byte cp.async: a bf16 view 2
+    bytes past an aligned start raises, with no fallback; f32 takes it."""
+    b, n = 2, 64
+    q, k, v, g = (torch.randn(b, n, 128, generator=gen, device="cuda").bfloat16()
+                  for _ in range(4))
+    buf = torch.randn(b * n * 128 + 1, generator=gen, device="cuda").bfloat16()
+    shifted = buf[1:].view(b, n, 128)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = linear_attention_flat_bwd.launches
+    for i in range(4):
+        args = [q, k, v, g]
+        args[i] = shifted
+        with pytest.raises(ValueError, match="16-byte"):
+            linear_attention_flat_bwd(*args, 4)
+    assert linear_attention_flat_bwd.launches == before
+    f32 = buf.float()[1:].view(b, n, 128)
+    linear_attention_flat_bwd(f32, f32, f32, f32, 4)
+    assert linear_attention_flat_bwd.launches == before + 1
 
 
 def test_autograd_functions_launch_both_kernels(gen):

@@ -37,7 +37,9 @@ def _data(seed, n, h, w, c):
     return x, gamma, beta
 
 
-SHAPES = [(2, 8, 8, 32, 8), (3, 4, 4, 64, 8), (2, 4, 8, 16, 4)]
+# the last two: the latent UNet's GroupNorm+Mish shapes (8x8x64, 4x4x128)
+SHAPES = [(2, 8, 8, 32, 8), (3, 4, 4, 64, 8), (2, 4, 8, 16, 4), (1, 8, 8, 64, 8),
+          (2, 4, 4, 128, 8)]
 
 
 @pytest.mark.parametrize("n,h,w,c,groups", SHAPES)
