@@ -31,7 +31,9 @@ non-zero:
           chain and a DPM-20 chain (karras grid) on the card against the CPU.
   parity  (backward) each backward kernel against its plain backward, at the
           same shapes, dtypes and timings; GroupNorm+Mish's yardstick is the
-          autograd backward of F.mish(F.group_norm(...))
+          autograd backward of F.mish(F.group_norm(...)), and its rows also
+          cover the latent UNet's three shapes at batch 128 in bf16 and give
+          each kernel's share of a call (kernel_split_us, torch.profiler)
   train_unet  one f32 training step's loss and gradients (DDPM l1 loss, the
           full-width UNet, batch 8, TF32 off) on the card against the same
           weights, timesteps and noise on the CPU, and the launch counts of
@@ -96,10 +98,13 @@ indices are equal except at near-ties (counted), with the kernel's time,
 the plain version's, the bound and torch.cdist(z, e).argmin(1) as the
 yardstick.
 
-The kernels line carries, for the redesigned bf16 kernels (GroupNorm+Mish,
-the linear-attention forward and backward, rows 6-8), their design and
-ptxas's registers and spills; GroupNorm+Mish also its totals at batch 64
-(``sampling_batch``: the flagship's 25 calls, the latent UNet's 17).
+The kernels line carries, for the redesigned kernels (GroupNorm+Mish
+forward and backward, the linear-attention forward and backward, rows 6-8,
+nearest_codebook), their design and ptxas's registers and spills;
+GroupNorm+Mish also its totals at batch 64 (``sampling_batch``: the
+flagship's 25 calls, the latent UNet's 17), its backward and the linear
+attention their latent UNet totals at batch 128, nearest_codebook its time
+at each shape.
 
 Every path names the kernels it must launch (PATH_KERNELS); each of those
 must have launched at least once in that path's run.  Then the total time,
@@ -368,7 +373,29 @@ def grad_err(got, want) -> float:
 PARAM_GRAD_RTOL = 1e-4
 
 
-def parity_gn_bwd(dtype) -> list[dict]:
+def kernel_split_us(fn, args, iters: int = 20) -> dict[str, float]:
+    """Device time of one call of ``fn(*args)`` by kernel (torch.profiler),
+    in us: which share of a wrapper's call each of its kernels takes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ").split("::")[-1]
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / iters
+    return split
+
+
+def parity_gn_bwd(dtype, batch: int = BATCH, shapes=GN_SHAPES,
+                  model: str = "flagship") -> list[dict]:
     import torch
     import torch.nn.functional as F
     from igm_tpu_torch.ops.groupnorm import (group_norm_mish_bwd,
@@ -376,18 +403,19 @@ def parity_gn_bwd(dtype) -> list[dict]:
     atol, rtol = tolerance(dtype)
     elt = torch.finfo(dtype).bits // 8
     rows = []
-    for (h, w, c), calls in GN_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(h * 1000 + c + 7)
+    for (h, w, c), calls in shapes:
+        g = torch.Generator(device="cuda").manual_seed(
+            h * 1000 + c + 7 + (0 if batch == BATCH else batch))
 
         def make(i, h=h, w=w, c=c, g=g):
-            x = (torch.randn(BATCH, h, w, c, generator=g, device="cuda") * 2
+            x = (torch.randn(batch, h, w, c, generator=g, device="cuda") * 2
                  + 0.5).to(dtype)
             gamma = torch.randn(c, generator=g, device="cuda") * 0.1 + 1.0
             beta = torch.randn(c, generator=g, device="cuda") * 0.1
-            grad = torch.randn(BATCH, h, w, c, generator=g, device="cuda").to(dtype)
+            grad = torch.randn(batch, h, w, c, generator=g, device="cuda").to(dtype)
             return x, gamma, beta, grad
 
-        elements = BATCH * h * w * c
+        elements = batch * h * w * c
         # reads x and g, writes dx; gamma, beta in and dgamma, dbeta out
         nbytes = 3 * elements * elt + 4 * c * 4
         sets = rotation(make, nbytes)
@@ -417,15 +445,16 @@ def parity_gn_bwd(dtype) -> list[dict]:
         bytes_s = nbytes / HBM_BYTES_PER_S
         ops_s = GN_BWD_OPS_PER_ELEMENT * elements / PEAK_OPS["float32"]
         rows.append(dict(
-            kernel="group_norm_mish_bwd", dtype=str(dtype).split(".")[-1],
-            shape=[BATCH, h, w, c], calls_per_forward=calls,
+            kernel="group_norm_mish_bwd", dtype=str(dtype).split(".")[-1], model=model,
+            shape=[batch, h, w, c], calls_per_forward=calls,
             max_abs_err=err.max().item(), atol=atol, rtol=rtol,
             dparam_rel_err=perr, dparam_rtol=PARAM_GRAD_RTOL,
             kernel_ms=time_ms(lambda *a: group_norm_mish_bwd(*a, 8), sets),
             plain_ms=time_ms(lambda *a: group_norm_mish_bwd_plain(*a, 8), sets),
             library_ms=time_ms(library, lib_sets),
             bound_ms=1e3 * max(bytes_s, ops_s),
-            bound_by="bytes" if bytes_s >= ops_s else "operations"))
+            bound_by="bytes" if bytes_s >= ops_s else "operations",
+            kernel_split_us=kernel_split_us(lambda *a: group_norm_mish_bwd(*a, 8), sets[0])))
         emit("parity", **rows[-1])
         del lib_sets
     return rows
@@ -950,7 +979,8 @@ def parity_vq() -> list[dict]:
             library_ms=time_ms(lambda z, e: torch.cdist(z, e).argmin(1), sets),
             library="torch.cdist(z, e).argmin(1): two calls, the reference's formula",
             bound_ms=1e3 * max(bytes_s, ops_s),
-            bound_by="bytes" if bytes_s >= ops_s else "operations"))
+            bound_by="bytes" if bytes_s >= ops_s else "operations",
+            kernel_split_us=kernel_split_us(nearest_codebook, sets[0])))
         emit("parity", **rows[-1])
     return rows
 
@@ -1642,12 +1672,21 @@ def phase_fused_block() -> dict:
     return row
 
 
-# the redesigned kernels of rows 1 and 3 and of _flat_bwd: (design, the
-# prefix of their kernels' names in the ptxas report)
+# the redesigned kernels of rows 1, 2, 3 and 5 and of _flat_bwd: (design,
+# the prefix of their kernels' names in the ptxas report)
 REDESIGNED = {
     "group_norm_mish": ("one pass: the slice staged in shared memory by cp.async, clusters "
                         "of up to 8 CTAs, Mish in closed form",
                         "group_norm_mish_onepass_kernel"),
+    "group_norm_mish_bwd": ("one pass: x and g staged in shared memory by cp.async, clusters "
+                            "of up to 8 CTAs, mish' in closed form once an element (dy kept "
+                            "for dx: f32, or bf16 high and low parts), per-channel partials "
+                            "in one round; the batch sum over 16 warps",
+                            "group_norm_mish_bwd_onepass_kernel"),
+    "nearest_codebook": ("f32 FMAs, 8 x 8 scores a thread from float4 loads, the z tile "
+                         "resident, code tiles double-buffered by cp.async, the codebook "
+                         "split over a cluster of up to 8 CTAs",
+                         "nearest_codebook_kernel"),
     "linear_attention": ("mma.sync bf16", "linear_attention_mma_kernel"),
     "linear_attention_bwd": ("mma.sync bf16, f32 operands split into bf16 high and low",
                              "linear_attention_bwd_mma_kernel"),
@@ -1681,7 +1720,8 @@ def main() -> int:
     la_rows = [r for dtype in (torch.bfloat16, torch.float32)
                for r in parity_la(dtype)
                + parity_la(dtype, LATENT_BATCH, LATENT_LA_SHAPES, "latent")]
-    gn_bwd_rows = parity_gn_bwd(torch.bfloat16) + parity_gn_bwd(torch.float32)
+    gn_bwd_rows = (parity_gn_bwd(torch.bfloat16) + parity_gn_bwd(torch.float32)
+                   + parity_gn_bwd(torch.bfloat16, LATENT_BATCH, LATENT_GN_SHAPES, "latent"))
     la_bwd_rows = [r for dtype in (torch.bfloat16, torch.float32)
                    for r in parity_la_bwd(dtype)
                    + parity_la_bwd(dtype, LATENT_BATCH, LATENT_LA_SHAPES, "latent")]
@@ -1753,11 +1793,12 @@ def main() -> int:
                                      and r["model"] == model], key)
                         for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
                 for model in ("flagship", "latent")}
-        if name.startswith("linear_attention"):   # the latent UNet's calls
+        if name.startswith("linear_attention") or name == "group_norm_mish_bwd":
+            # the latent UNet's calls
             redesign["latent"] = {
                 key: totals([r for r in rows if r["dtype"] == "bfloat16"
                              and r["model"] == "latent"], key)
-                for key in ("kernel_ms", "plain_ms", "bound_ms")}
+                for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path(i).values()), launches_by_path=by_path(i),
@@ -1775,7 +1816,11 @@ def main() -> int:
         launches_by_path=by_path(4), max_abs_err=max(r["max_abs_err"] for r in vq_rows),
         ms=vq_main["kernel_ms"], plain_ms=vq_main["plain_ms"],
         bound_ms=vq_main["bound_ms"], bound_by=vq_main["bound_by"],
-        library_ms=vq_main["library_ms"],
+        library_ms=vq_main["library_ms"], design=REDESIGNED["nearest_codebook"][0],
+        ptxas={k: v for k, v in usage["nearest_codebook"].items()
+               if k.startswith(REDESIGNED["nearest_codebook"][1])},
+        shapes=[{key: r[key] for key in ("shape", "kernel_ms", "plain_ms", "library_ms",
+                                         "bound_ms", "rows_differ")} for r in vq_rows],
         per="one call at M=8192, K=512, D=64 (a VQ-VAE train step at batch 128), f32; "
             "max_abs_err is the score gap at rows that differ; library_ms is "
             "torch.cdist(z, e).argmin(1), two calls"))

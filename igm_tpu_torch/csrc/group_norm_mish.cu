@@ -19,29 +19,43 @@
 // element against one read and one write (backward: two reads, one write),
 // far below the ~295 operations per byte at which the H100's tensor cores
 // would take over; but Mish as exp, log1p and tanh is ~45 instructions an
-// element on the CUDA cores, near half the bytes' time.  Two forward
-// designs, chosen per shape by gn_plan:
-//   - the one-pass kernel (group_norm_mish_onepass_kernel): a sample's
-//     slice staged in shared memory by cp.async and kept there from the
-//     statistics to the output, so x is read once; a sample larger than a
-//     CTA split over a thread-block cluster of up to 8 CTAs, whose group
-//     totals meet through distributed shared memory; few registers, so 4
-//     CTAs share an SM and one's reduction overlaps another's loads; Mish in
-//     closed form with one ex2 and one rcp.  It takes the 16-byte path with
-//     C / VEC dividing 256 and samples up to 8 CTAs of 16 chunks a thread.
-//     On the H100 (700 W) the flagship forward's 25 calls at batch 256 bf16
-//     take 0.38 ms against this file's first kernel's 0.74 (bound 0.21);
-//   - the first kernel (group_norm_mish_kernel), for every other shape:
-//     one CTA per sample, like the Pallas grid (N,), sweeping the sample's
-//     (H*W, C) tile as rows of C contiguous values, 16 bytes per thread per
-//     load where the channel layout allows it (one value where a group has
-//     4 or 5 channels or x is off a 16-byte boundary).  Pass 1 keeps
-//     per-thread sums in registers and reduces them through shared memory;
-//     pass 2 reads the tile again (mostly from L2) and writes the output.
-// The backward is the first kernel's shape with a pass more: pass 2 sums
-// the per-channel and per-group terms of the gradient, pass 3 re-reads x and
-// g and writes dx.  Sums run in a fixed order, no atomics anywhere, so
-// results repeat exactly from run to run.
+// element on the CUDA cores, near half the bytes' time, and mish' as many
+// again.  Two designs of each, chosen per shape by gn_plan:
+//   - the one-pass kernels (group_norm_mish_onepass_kernel,
+//     group_norm_mish_bwd_onepass_kernel): a sample's slice (backward: of x
+//     and of g) staged in shared memory by cp.async and kept there from the
+//     statistics to the output, so each input is read from device memory
+//     once; a sample larger than a CTA split over a thread-block cluster of
+//     up to 8 CTAs, whose group totals meet through distributed shared
+//     memory in rank order (cta_group_sums; the backward does it twice, for
+//     the statistics and for the two group means of dx, then sums the
+//     per-channel partials over the ranks the same way); few registers, so
+//     2-4 CTAs share an SM and one's reduction overlaps another's loads;
+//     Mish and mish' in closed form with one ex2 and one rcp each, mish'
+//     once an element (dy kept in shared memory for dx).  They take the
+//     16-byte path with C / VEC dividing 256 and samples up to 8 CTAs of 16
+//     chunks a thread (past 64x64x64 in bf16).  On the H100 (700 W), at
+//     batch 256 bf16, the flagship forward's 25 calls take 0.38 ms against
+//     this file's first kernel's 0.74 (bound 0.21), and its backward's 25
+//     calls 0.79 ms against 2.29 (bound 0.32).  What is left, by phase
+//     stamps (tools/kernel_stamps.py): a sample's x arrives before its
+//     statistics can start, the group exchanges wait for a cluster's
+//     slowest CTA, and the CTAs of an SM compute and load in step, so that
+//     device memory idles while they compute;
+//   - the first kernels (group_norm_mish_kernel, group_norm_mish_bwd_kernel),
+//     for every other shape (groups of 4 or 5 channels, x off a 16-byte
+//     boundary, C / VEC not dividing 256, larger samples): one CTA of up to
+//     1024 threads per sample, like the Pallas grid (N,), sweeping the
+//     sample's (H*W, C) tile as rows of C contiguous values, 16 bytes per
+//     thread per load where the channel layout allows it (one value where a
+//     group has 4 or 5 channels or x is off a 16-byte boundary).  Pass 1
+//     keeps per-thread sums in registers and reduces them through shared
+//     memory; pass 2 reads the tile again (mostly from L2) and writes the
+//     output.  The first backward kernel has a pass more: pass 2 sums the
+//     per-channel and per-group terms of the gradient, pass 3 re-reads x
+//     and g and writes dx.
+// Sums run in a fixed order, no atomics anywhere, so results repeat exactly
+// from run to run.
 // Softplus is max(y, 0) + log1p(exp(-|y|)): the form jax.nn.softplus
 // (logaddexp(y, 0)) evaluates, stable for large |y| of either sign.
 #include <cuda_bf16.h>
@@ -49,6 +63,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 
@@ -242,6 +257,64 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The (a, b) of every thread of the CTA summed per group, then over the
+// cluster's CTAs in rank order; thread q < groups gets group q's totals in
+// (ga, gb).  red holds the threads' terms; tot the CTA's group totals, which
+// the cluster's other CTAs read, so each exchange of a kernel has its own
+// tot.  Thread (row k, chunk g * cpg + j) is term k * cpg + j of group g;
+// warp w sums groups w, w + 8, ... (lane i takes terms i, i + 32, ..., then
+// a butterfly: every lane gets the same bits).  Every thread calls it.  With
+// a cluster it returns after this CTA's reads of the other CTAs' tot: the
+// caller keeps it alive (a later cluster barrier) until they have read its.
+__device__ __forceinline__ void cta_group_sums(float a, float b, int chunks, int cpg,
+                                               int groups, int csize,
+                                               float (*red)[kOnePassThreads],
+                                               float (*tot)[kOnePassThreads], float& ga,
+                                               float& gb) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  red[0][tid] = a;
+  red[1][tid] = b;
+  __syncthreads();
+  const int terms = kOnePassThreads / groups;
+  for (int q = warp; q < groups; q += kOnePassWarps) {
+    float sa = 0.f, sb = 0.f;
+    for (int i = lane; i < terms; i += 32) {
+      const int t = (i / cpg) * chunks + q * cpg + i % cpg;
+      sa += red[0][t];
+      sb += red[1][t];
+    }
+    sa = warp_sum(sa);
+    sb = warp_sum(sb);
+    if (lane == 0) {
+      tot[0][q] = sa;
+      tot[1][q] = sb;
+    }
+  }
+  ga = gb = 0.f;
+  if (csize > 1) {
+    cluster_sync();                             // every CTA's totals are written
+    if (tid < groups) {                         // the ranks in order
+      float ra[kMaxCluster], rb[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {   // all loads in flight at once
+        ra[r] = r < csize ? *remote(&tot[0][tid], r) : 0.f;
+        rb[r] = r < csize ? *remote(&tot[1][tid], r) : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        ga += ra[r];
+        gb += rb[r];
+      }
+    }
+  } else {
+    __syncthreads();
+    if (tid < groups) {
+      ga = tot[0][tid];
+      gb = tot[1][tid];
+    }
+  }
+}
+
 template <typename T, int R>
 __global__ void __launch_bounds__(kOnePassThreads, R >= 16 ? 3 : 4)
 group_norm_mish_onepass_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -255,7 +328,7 @@ group_norm_mish_onepass_kernel(const T* __restrict__ x, const float* __restrict_
   __shared__ float tot[2][kOnePassThreads];     // per group, this CTA's sums
   __shared__ float stat[2][kOnePassThreads];    // mean, inv per group
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int chunks = c / VEC, cpg = chunks / groups;
   const int csize = cluster_size(), rank = cluster_rank();
   const int sample = blockIdx.x / csize;
@@ -293,43 +366,9 @@ group_norm_mish_onepass_kernel(const T* __restrict__ x, const float* __restrict_
       s2 += v * v;
     }
   }
-  red[0][tid] = s1;
-  red[1][tid] = s2;
-  __syncthreads();
-  // the group totals of this CTA: thread (row k, chunk g * cpg + j) is
-  // term k * cpg + j of group g
-  const int terms = kOnePassThreads / groups;
-  for (int q = warp; q < groups; q += kOnePassWarps) {
-    float a = 0.f, b = 0.f;
-    for (int i = lane; i < terms; i += 32) {
-      const int t = (i / cpg) * chunks + q * cpg + i % cpg;
-      a += red[0][t];
-      b += red[1][t];
-    }
-    a = warp_sum(a);
-    b = warp_sum(b);
-    if (lane == 0) {
-      tot[0][q] = a;
-      tot[1][q] = b;
-    }
-  }
-  float a = 0.f, b = 0.f;
-  if (csize > 1) {
-    cluster_sync();                             // every CTA's totals are written
-    if (tid < groups) {                         // the ranks in order
-      for (int r = 0; r < csize; ++r) {
-        a += *remote(&tot[0][tid], r);
-        b += *remote(&tot[1][tid], r);
-      }
-    }
-    cluster_arrive();                           // this CTA reads no other's memory again
-  } else {
-    __syncthreads();
-    if (tid < groups) {
-      a = tot[0][tid];
-      b = tot[1][tid];
-    }
-  }
+  float a, b;
+  cta_group_sums(s1, s2, chunks, cpg, groups, csize, red, tot, a, b);
+  if (csize > 1) cluster_arrive();              // this CTA reads no other's memory again
   if (tid < groups) {
     const float cnt = (float)hw * (float)(c / groups);
     const float mean = a / cnt;
@@ -354,6 +393,254 @@ group_norm_mish_onepass_kernel(const T* __restrict__ x, const float* __restrict_
     *reinterpret_cast<P*>(out + base + (size_t)r * c + c0) = o;
   }
   if (csize > 1) cluster_wait();                // no CTA leaves while another reads it
+}
+
+// mish'(y) in the closed form of mish_fast: with t = exp(y), n = t (t + 2)
+// and r = 1 / (n + 2), tanh(softplus(y)) = n r and sigmoid(y) (1 - tanh^2) =
+// t / (1 + t) * 4 (n + 1) r^2 = 4 t (t + 1) r^2, since n + 1 = (t + 1)^2; so
+// mish'(y) = n r + 4 y t (t + 1) r^2 = r (n + 4 y (n - t) r): one ex2 and one
+// rcp.  It takes y2 = y log2(e) (the caller folds log2(e) into gamma and
+// beta), so the ex2 needs no multiply, and y = y2 ln(2).  y is capped at 20
+// in both terms.  That is exact in f32: there n r rounds to 1 (1 - n r is
+// about 2 e^-40), the second term is about 80 e^-40, and the reference's
+// 1 - tanh^2 is 0 exactly from y of about 9 on, so both give 1 (the rcp's
+// ulp aside); and n stays finite.  For large negative y, t underflows (to 0
+// below y = -87, the ex2 flushing to zero): n r -> t and the second term ->
+// y t, both to 0 as the reference's tanh(softplus) ~ e^y and y sigmoid(y) do.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float mish_grad_fast(float y2) {
+  const float yc2 = fminf(y2, 20.f * kLog2e);
+  float t, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(yc2));
+  const float n = t * (t + 2.f);
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(n + 2.f));
+  return r * fmaf(4.f * 0.6931471805599453f * yc2 * (n - t), r, n);
+}
+
+// ---------------------------------------------------------------------------
+// The backward in one pass over device memory (see the note at the head):
+// the forward's one-pass layout (gn_plan, 256 threads, thread t's 16-byte
+// chunks of x at i * 256 + t) with g's chunks beside them, staged by
+// cp.async in two commit groups, so that g is still arriving while the
+// statistics of x are taken.  Then, from shared memory only:
+//   sweep 1: dy = g mish'(y) per element, and this thread's per-channel sums
+//            of dy xhat and dy (the dgamma and dbeta partials); the group
+//            sums of dxhat = dy gamma and of dxhat xhat follow from them
+//            (gamma is constant along a channel) and go through
+//            cta_group_sums.  dy is kept for sweep 2: in f32 in g's slot; in
+//            bf16 as its rounding to bf16 in g's slot and the rest, rounded
+//            to bf16, in a third slice (dy to about 16 bits, where dx keeps
+//            8), so that sweep 2 needs no second mish';
+//   sweep 2: dx written once.
+// The slices are free after sweep 2: the threads' channel sums go there, one
+// row of c per (sweep row, array), are summed per channel over the rows in
+// order (thread q takes channel q), and over the cluster's CTAs in rank
+// order by rank 0 (each thread's loads from the ranks all in flight at
+// once), which writes the sample's (dgamma, dbeta) partials.  Cluster
+// barriers: the two group exchanges, the channel exchange, and a last one
+// so that no CTA leaves while rank 0 reads it.
+
+// The backward's slices: x, g (then dy) and, in bf16, dy's low part; the
+// CTAs an SM that they leave room for (at most 3): bf16 3 x 32 KB at R = 8,
+// 2 CTAs; f32 2 x 32 KB, 3 CTAs
+template <typename T>
+constexpr int bwd_slices() {
+  return sizeof(T) == sizeof(float) ? 2 : 3;
+}
+template <typename T, int R>
+constexpr int bwd_ctas_per_sm() {
+  const int per_cta = bwd_slices<T>() * R * kOnePassThreads * 16 + 11 * 1024;
+  const int fit = 227 * 1024 / per_cta;
+  return fit < 1 ? 1 : fit > 3 ? 3 : fit;
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kOnePassThreads, bwd_ctas_per_sm<T, R>())
+group_norm_mish_bwd_onepass_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                                   const float* __restrict__ beta, const T* __restrict__ g,
+                                   T* __restrict__ dx, float* __restrict__ dgamma_part,
+                                   float* __restrict__ dbeta_part, int hw, int c, int groups,
+                                   float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr bool kBf16 = sizeof(T) == 2;
+  using P = Pack<T, VEC>;
+  extern __shared__ __align__(16) unsigned char slice_bytes[];
+  P* xs = reinterpret_cast<P*>(slice_bytes);   // [R][256]: chunk i of thread t at i * 256 + t
+  P* gs = xs + R * kOnePassThreads;            // the same for g, then dy (bf16: its high part)
+  P* ls = gs + R * kOnePassThreads;            // bf16: dy's low part
+  float* part = reinterpret_cast<float*>(slice_bytes);  // after sweep 2: [2][step][c]
+  __shared__ float red[2][kOnePassThreads];    // each thread's pair of terms
+  __shared__ float tot[2][2][kOnePassThreads]; // per exchange and group, this CTA's sums
+  __shared__ float stat[4][kOnePassThreads];   // per group: mean, inv, m1, m2
+
+  const int tid = threadIdx.x;
+  const int chunks = c / VEC, cpg = chunks / groups;
+  const int csize = cluster_size(), rank = cluster_rank();
+  const int sample = blockIdx.x / csize;
+  const int step = kOnePassThreads / chunks;   // rows per sweep
+  const int ch = tid % chunks, c0 = ch * VEC, grp = ch / cpg;
+  const int r0 = rank * R * step + tid / chunks;
+  const size_t base = (size_t)sample * hw * c;
+  IGM_STAMP(0);
+
+  // this thread's chunks of x, then of g (zero past the last row): rows past
+  // hw add 0 to every sum, since x = g = 0 there
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i * step;
+    cp_async16(xs + i * kOnePassThreads + tid, x + (r < hw ? base + (size_t)r * c + c0 : 0),
+               r < hw);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i * step;
+    cp_async16(gs + i * kOnePassThreads + tid, g + (r < hw ? base + (size_t)r * c + c0 : 0),
+               r < hw);
+  }
+  cp_async_commit();
+  float ga[VEC], ga2[VEC], be2[VEC];           // gamma; gamma, beta times log2(e)
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    ga[j] = gamma[c0 + j];
+    ga2[j] = ga[j] * kLog2e;
+    be2[j] = beta[c0 + j] * kLog2e;
+  }
+  const float cnt = (float)hw * (float)(c / groups);
+
+  cp_async_wait<1>();                          // x has arrived
+  IGM_STAMP(1);
+  float a = 0.f, b = 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const P p = xs[i * kOnePassThreads + tid];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float v = to_f32(p.v[j]);
+      a += v;
+      b += v * v;
+    }
+  }
+  cta_group_sums(a, b, chunks, cpg, groups, csize, red, tot[0], a, b);
+  if (tid < groups) {
+    const float mean = a / cnt;
+    const float var = fmaxf(b / cnt - mean * mean, 0.f);
+    stat[0][tid] = mean;
+    stat[1][tid] = rsqrtf(var + eps);
+  }
+  __syncthreads();
+  const float mean = stat[0][grp], inv = stat[1][grp];
+  IGM_STAMP(2);
+
+  // sweep 1: xhat = (x - mean) inv, y2 = y log2(e), dy = g mish'(y)
+  cp_async_wait<0>();                          // g has arrived
+  IGM_STAMP(3);
+  float dga[VEC], dbe[VEC];                    // sum dy xhat, sum dy per channel
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) dga[j] = dbe[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const P px = xs[i * kOnePassThreads + tid];
+    const P pg = gs[i * kOnePassThreads + tid];
+    P hi, lo;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float xhat = (to_f32(px.v[j]) - mean) * inv;
+      const float dy = to_f32(pg.v[j]) * mish_grad_fast(fmaf(xhat, ga2[j], be2[j]));
+      dga[j] = fmaf(dy, xhat, dga[j]);
+      dbe[j] += dy;
+      hi.v[j] = from_f32<T>(dy);
+      if constexpr (kBf16) lo.v[j] = from_f32<T>(dy - to_f32(hi.v[j]));
+    }
+    gs[i * kOnePassThreads + tid] = hi;
+    if constexpr (kBf16) ls[i * kOnePassThreads + tid] = lo;
+  }
+  a = b = 0.f;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    a = fmaf(ga[j], dbe[j], a);
+    b = fmaf(ga[j], dga[j], b);
+  }
+  cta_group_sums(a, b, chunks, cpg, groups, csize, red, tot[1], a, b);
+  if (tid < groups) {
+    stat[2][tid] = a / cnt;
+    stat[3][tid] = b / cnt;
+  }
+  __syncthreads();
+  const float m1 = stat[2][grp], m2 = stat[3][grp];
+  IGM_STAMP(4);
+
+  // sweep 2: dx = inv (dy gamma - m1 - xhat m2)
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = r0 + i * step;
+    const P px = xs[i * kOnePassThreads + tid];
+    const P hi = gs[i * kOnePassThreads + tid];
+    P lo;
+    if constexpr (kBf16) lo = ls[i * kOnePassThreads + tid];
+    P o;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float xhat = (to_f32(px.v[j]) - mean) * inv;
+      const float dy = kBf16 ? to_f32(hi.v[j]) + to_f32(lo.v[j]) : to_f32(hi.v[j]);
+      o.v[j] = from_f32<T>(inv * fmaf(dy, ga[j], fmaf(-xhat, m2, -m1)));
+    }
+    if (r < hw) *reinterpret_cast<P*>(dx + base + (size_t)r * c + c0) = o;
+  }
+
+  IGM_STAMP(5);
+  __syncthreads();                             // every thread is done with the slices
+  float* pa = part + (tid / chunks) * c + c0;  // row tid / chunks of the sums of dy xhat
+  float* pb = pa + step * c;                   // ... and of dy
+#pragma unroll
+  for (int j = 0; j < VEC; j += 4) {
+    *reinterpret_cast<float4*>(pa + j) = make_float4(dga[j], dga[j + 1], dga[j + 2], dga[j + 3]);
+    *reinterpret_cast<float4*>(pb + j) = make_float4(dbe[j], dbe[j + 1], dbe[j + 2], dbe[j + 3]);
+  }
+  __syncthreads();
+  // channel q's sums over the rows, in order; only thread q reads or writes
+  // column q, so its total can go to row 0
+  for (int q = tid; q < c; q += kOnePassThreads) {
+    float sa = 0.f, sb = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < step; ++k) {
+      sa += part[k * c + q];
+      sb += part[(step + k) * c + q];
+    }
+    part[q] = sa;
+    part[step * c + q] = sb;
+  }
+  IGM_STAMP(6);
+  float* dgs = dgamma_part + (size_t)sample * c;
+  float* dbs = dbeta_part + (size_t)sample * c;
+  if (csize > 1) {
+    cluster_sync();                            // every CTA's channel totals are written
+    if (rank == 0) {                           // the ranks in order
+      for (int q = tid; q < c; q += kOnePassThreads) {
+        float ra[kMaxCluster], rb[kMaxCluster];
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) {  // all loads in flight at once
+          ra[r] = r < csize ? *remote(&part[q], r) : 0.f;
+          rb[r] = r < csize ? *remote(&part[step * c + q], r) : 0.f;
+        }
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) {
+          sa += ra[r];
+          sb += rb[r];
+        }
+        dgs[q] = sa;
+        dbs[q] = sb;
+      }
+    }
+    cluster_sync();                            // no CTA leaves while rank 0 reads it
+  } else {
+    for (int q = tid; q < c; q += kOnePassThreads) {
+      dgs[q] = part[q];
+      dbs[q] = part[step * c + q];
+    }
+  }
+  IGM_STAMP(7);
 }
 
 // Backward: one CTA per sample, the forward's thread layout.
@@ -457,17 +744,32 @@ group_norm_mish_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ga
 }
 
 // dgamma[ch] = sum_i dgamma_part[i][ch] (blockIdx.y 0), the same for dbeta
-// (blockIdx.y 1): one thread per channel, the samples in order.
-__global__ void sum_partials_kernel(const float* __restrict__ dgamma_part,
-                                    const float* __restrict__ dbeta_part,
-                                    float* __restrict__ dgamma, float* __restrict__ dbeta,
-                                    int n, int c) {
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= c) return;
+// (blockIdx.y 1).  A CTA takes 32 channels: warp w sums the samples w,
+// w + 16, w + 32, ... in order (a warp reads 128 contiguous bytes a sample;
+// 16 loads in flight), then warp 0 sums the 16 warps' totals in order.  Fixed order, no
+// atomics: the result repeats bit for bit.
+constexpr int kSumWarps = 16;
+
+__global__ void __launch_bounds__(kSumWarps * 32)
+sum_partials_kernel(const float* __restrict__ dgamma_part, const float* __restrict__ dbeta_part,
+                    float* __restrict__ dgamma, float* __restrict__ dbeta, int n, int c) {
+  __shared__ float acc[kSumWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ch = blockIdx.x * 32 + lane;
   const float* part = blockIdx.y == 0 ? dgamma_part : dbeta_part;
   float s = 0.f;
-  for (int i = 0; i < n; ++i) s += part[(size_t)i * c + ch];
-  (blockIdx.y == 0 ? dgamma : dbeta)[ch] = s;
+  if (ch < c) {
+#pragma unroll 16
+    for (int i = warp; i < n; i += kSumWarps) s += part[(size_t)i * c + ch];
+  }
+  acc[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && ch < c) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSumWarps; ++w) t += acc[w][lane];
+    (blockIdx.y == 0 ? dgamma : dbeta)[ch] = t;
+  }
 }
 
 template <typename T, int VEC>
@@ -521,59 +823,91 @@ GnPlan gn_plan(int hw, int c, int vec) {
   return p;
 }
 
-template <typename T, int R>
-cudaError_t launch_onepass_r(const GnPlan& p, const void* x, const void* gamma,
-                             const void* beta, void* out, int n, int hw, int c, int groups,
-                             float eps, cudaStream_t stream) {
+// Launches kernel over ctas CTAs of 256 threads in clusters of `cluster`,
+// with `smem` bytes of dynamic shared memory.
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), int ctas, int cluster, size_t smem,
+                             cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(n * p.cluster);
+  config.gridDim = dim3(ctas);
   config.blockDim = dim3(kOnePassThreads);
+  config.dynamicSmemBytes = smem;
   config.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
-  config.numAttrs = p.cluster > 1 ? 1 : 0;
-  config.dynamicSmemBytes = (size_t)R * kOnePassThreads * 16;
-  auto kernel = group_norm_mish_onepass_kernel<T, R>;
-  if (cudaError_t err = allow_dynamic_smem(kernel, config.dynamicSmemBytes)) return err;
-  return cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(x),
-                            static_cast<const float*>(gamma), static_cast<const float*>(beta),
-                            static_cast<T*>(out), n, hw, c, groups, eps);
+  config.numAttrs = cluster > 1 ? 1 : 0;
+  if (cudaError_t err = allow_dynamic_smem(kernel, smem)) return err;
+  return cudaLaunchKernelEx(&config, kernel, static_cast<Params>(args)...);
+}
+
+// f(std::integral_constant<int, R>()) for a plan's R (up to kMaxR)
+template <int kMaxR, typename F>
+cudaError_t with_r(int r, F&& f) {
+  switch (r) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 8: return f(std::integral_constant<int, 8>());
+    default:
+      if constexpr (kMaxR >= 16) return f(std::integral_constant<int, 16>());
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 cudaError_t launch_onepass(const GnPlan& p, const void* x, const void* gamma,
                            const void* beta, void* out, int n, int hw, int c, int groups,
                            float eps, cudaStream_t stream) {
-  switch (p.r) {
-    case 1: return launch_onepass_r<T, 1>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
-    case 2: return launch_onepass_r<T, 2>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
-    case 4: return launch_onepass_r<T, 4>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
-    case 8: return launch_onepass_r<T, 8>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
-    default: return launch_onepass_r<T, 16>(p, x, gamma, beta, out, n, hw, c, groups, eps, stream);
-  }
+  return with_r<16>(p.r, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return launch_clustered(group_norm_mish_onepass_kernel<T, R>, n * p.cluster, p.cluster,
+                            (size_t)R * kOnePassThreads * 16, stream, x, gamma, beta, out, n,
+                            hw, c, groups, eps);
+  });
+}
+
+// The backward takes the forward's plan: its slices take two (f32) or three
+// (bf16) times the forward's shared memory, 64 or 96 KB at R = 8 (3 or 2
+// CTAs an SM), 128 or 192 KB at R = 16 (one), and after sweep 2 the channel
+// sums take 256 * VEC * 8 bytes of it (16 KB in bf16: more than the slices
+// at R = 1).
+template <typename T>
+cudaError_t launch_bwd_onepass(const GnPlan& p, const void* x, const void* gamma,
+                               const void* beta, const void* g, void* dx, void* dgamma_part,
+                               void* dbeta_part, int n, int hw, int c, int groups, float eps,
+                               cudaStream_t stream) {
+  return with_r<16>(p.r, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    const size_t slices = (size_t)bwd_slices<T>() * R * kOnePassThreads * 16;
+    const size_t sums = (size_t)kOnePassThreads * (16 / sizeof(T)) * 8;
+    return launch_clustered(group_norm_mish_bwd_onepass_kernel<T, R>, n * p.cluster,
+                            p.cluster, slices > sums ? slices : sums, stream, x, gamma, beta,
+                            g, dx, dgamma_part, dbeta_part, hw, c, groups, eps);
+  });
+}
+
+cudaError_t launch_sum_partials(const void* dgamma_part, const void* dbeta_part, void* dgamma,
+                                void* dbeta, int n, int c, cudaStream_t stream) {
+  sum_partials_kernel<<<dim3((c + 31) / 32, 2), kSumWarps * 32, 0, stream>>>(
+      static_cast<const float*>(dgamma_part), static_cast<const float*>(dbeta_part),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), n, c);
+  return cudaGetLastError();
 }
 
 template <typename T, int VEC>
 cudaError_t launch_bwd_vec(const void* x, const void* gamma, const void* beta, const void* g,
-                           void* dx, void* dgamma_part, void* dbeta_part, void* dgamma,
-                           void* dbeta, int n, int hw, int c, int groups, float eps,
-                           cudaStream_t stream) {
+                           void* dx, void* dgamma_part, void* dbeta_part, int n, int hw, int c,
+                           int groups, float eps, cudaStream_t stream) {
   const int chunks = c / VEC;
   const int threads = (kMaxThreads / chunks) * chunks;
   group_norm_mish_bwd_kernel<T, VEC><<<n, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const T*>(g), static_cast<T*>(dx),
       static_cast<float*>(dgamma_part), static_cast<float*>(dbeta_part), hw, c, groups, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((c + 127) / 128, 2);
-  sum_partials_kernel<<<grid, 128, 0, stream>>>(
-      static_cast<const float*>(dgamma_part), static_cast<const float*>(dbeta_part),
-      static_cast<float*>(dgamma), static_cast<float*>(dbeta), n, c);
   return cudaGetLastError();
 }
 
@@ -615,12 +949,22 @@ int launch_bwd(const void* x, const void* gamma, const void* beta, const void* g
                int c, int groups, float eps, void* stream) {
   if (bad_shape(n, hw, c, groups)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vectorised<T>({x, g, dx}, c, groups))
-    return launch_bwd_vec<T, 16 / sizeof(T)>(x, gamma, beta, g, dx, dgamma_part, dbeta_part,
-                                             dgamma, dbeta, n, hw, c, groups, eps, s);
-  if (c > kMaxThreads) return cudaErrorInvalidValue;
-  return launch_bwd_vec<T, 1>(x, gamma, beta, g, dx, dgamma_part, dbeta_part, dgamma, dbeta,
-                              n, hw, c, groups, eps, s);
+  cudaError_t err;
+  if (vectorised<T>({x, g, dx}, c, groups)) {
+    constexpr int kVec = 16 / sizeof(T);
+    const GnPlan p = gn_plan(hw, c, kVec);
+    err = p.r > 0 ? launch_bwd_onepass<T>(p, x, gamma, beta, g, dx, dgamma_part, dbeta_part,
+                                          n, hw, c, groups, eps, s)
+                  : launch_bwd_vec<T, kVec>(x, gamma, beta, g, dx, dgamma_part, dbeta_part,
+                                            n, hw, c, groups, eps, s);
+  } else {
+    if (c > kMaxThreads) return cudaErrorInvalidValue;
+    err = launch_bwd_vec<T, 1>(x, gamma, beta, g, dx, dgamma_part, dbeta_part, n, hw, c,
+                               groups, eps, s);
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_partials(dgamma_part, dbeta_part, dgamma, dbeta, n, c, s);
 }
 
 }  // namespace

@@ -107,12 +107,13 @@ static __device__ __forceinline__ const T* remote(const T* p, int rank) {
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory on the current device.
-// Up to the default 48 KB nothing is called; beyond it the attribute is
-// raised once per kernel and device (to the largest size asked for so far),
-// not set again on every launch.
+// The attribute is raised once per kernel and device (to the largest size
+// asked for so far), not set again on every launch; it is raised for any
+// size, since the default limit of 48 KB counts the kernel's static shared
+// memory too.
 template <typename Kernel>
 static cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes == 0) return cudaSuccess;
   int device = 0;
   if (cudaError_t err = cudaGetDevice(&device)) return err;
   static std::mutex mutex;
@@ -132,3 +133,30 @@ static cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
     granted.push_back({key, bytes});
   return cudaSuccess;
 }
+
+// Phase stamps, for measurement builds only (nvcc -DIGM_STAMPS, as
+// tools/kernel_stamps.py builds them): IGM_STAMP(k) has thread 0 of the CTA
+// write %globaltimer (ns) to igm_stamps[blockIdx.x][k], and the library
+// exports igm_stamps_read to copy the first `ctas` rows to the host.  In
+// every other build IGM_STAMP(k) is nothing.
+#ifdef IGM_STAMPS
+constexpr int kStampSlots = 8;
+constexpr int kStampCtas = 4096;
+__device__ unsigned long long igm_stamps[kStampCtas][kStampSlots];
+#define IGM_STAMP(k)                                                            \
+  do {                                                                          \
+    if (threadIdx.x == 0 && blockIdx.x < kStampCtas) {                          \
+      unsigned long long t_;                                                    \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                   \
+      igm_stamps[blockIdx.x][k] = t_;                                           \
+    }                                                                           \
+  } while (0)
+extern "C" int igm_stamps_read(void* host, int ctas) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, igm_stamps, sizeof(unsigned long long) * kStampSlots * ctas));
+}
+#else
+#define IGM_STAMP(k) \
+  do {               \
+  } while (0)
+#endif

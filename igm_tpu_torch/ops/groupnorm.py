@@ -163,10 +163,12 @@ def group_norm_mish_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
     _check_cuda("group_norm_mish_bwd", x, g, params=(gamma, beta))
     n, h, w, c = x.shape
     dx = torch.empty_like(x)
-    dgamma = torch.zeros(c, dtype=torch.float32, device=x.device)
-    dbeta = torch.zeros(c, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return dx, dgamma, dbeta
+        return (dx, torch.zeros(c, dtype=torch.float32, device=x.device),
+                torch.zeros(c, dtype=torch.float32, device=x.device))
+    # the kernels write every entry: no fill launches
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
     parts = torch.empty(2, n, c, dtype=torch.float32, device=x.device)
     err = _kernels("igm_group_norm_mish_bwd", 9)[x.dtype](
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), g.data_ptr(),

@@ -24,7 +24,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from igm_tpu.ops.attention import linear_attention_flat as xla_flat  # noqa: E402
 from igm_tpu.ops.pallas_groupnorm import (  # noqa: E402
-    group_norm_mish as pallas_group_norm_mish, reference_group_norm_mish)
+    _mish_grad, group_norm_mish as pallas_group_norm_mish, reference_group_norm_mish)
 from igm_tpu_torch.networks.unet import Unet  # noqa: E402
 from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
     GroupNormMishFn, group_norm_mish_bwd, group_norm_mish_bwd_plain,
@@ -94,6 +94,37 @@ def test_gn_function_matches_autograd_of_plain_forward():
     ref = [t.clone().requires_grad_() for t in (x, gamma, beta)]
     group_norm_mish_plain(*ref, 8).backward(g)
     _assert_close([t.grad for t in leaves], [t.grad for t in ref])
+
+
+def test_closed_form_mish_grad_matches_reference():
+    """The backward kernel's mish'(y) = n r + 4 y t (t + 1) r^2, with t =
+    e^min(y, 20), n = t (t + 2) and r = 1 / (n + 2), as the kernel
+    evaluates it (csrc/group_norm_mish.cu mish_grad_fast: from y2 = y log2(e),
+    t = 2^min(y2, 20 log2(e)), mish' = r (n + 4 ln(2) y2 (n - t) r)), in f32
+    torch against igm_tpu's _mish_grad in f32, on a
+    grid over [-40, 40] with 0, -20, 20, the cap's neighbours and mish''s
+    zero near -1.19.  Tolerance 4e-6 + 1e-6 |want|: XLA's f32 tanh is 1
+    from softplus(y) of about 7.9 on, so the reference is 1 where mish'
+    still exceeds 1 by up to 3.4e-6 (at y = 8); the closed form stays within
+    2e-7 of a float64 evaluation.  On the card the kernel's ex2 and rcp
+    (hardware approximations, about 2 and 1 ulp) add a few 1e-7 relative,
+    well inside dx's f32 parity tolerance of 1e-5 + 1e-5 |dx|."""
+    y = np.concatenate([np.linspace(-40.0, 40.0, 8001),
+                        [0.0, -20.0, 20.0, np.nextafter(20.0, 0.0),
+                         np.nextafter(20.0, 40.0), -1.19]]).astype(np.float32)
+    log2e = np.float32(1.4426950408889634)
+    yc2 = torch.clamp(torch.from_numpy(y) * log2e, max=float(np.float32(20.0) * log2e))
+    t = torch.exp2(yc2)
+    n = t * (t + 2.0)
+    r = 1.0 / (n + 2.0)
+    got = (r * (4.0 * np.float32(0.6931471805599453) * yc2 * (n - t) * r + n)).numpy()
+    want = np.asarray(_mish_grad(jnp.asarray(y)))
+    assert got.dtype == want.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=4e-6, rtol=1e-6)
+    y64 = y.astype(np.float64)
+    sp = np.logaddexp(y64, 0.0)
+    exact = np.tanh(sp) + y64 / (1.0 + np.exp(-y64)) * (1.0 - np.tanh(sp) ** 2)
+    np.testing.assert_allclose(got, exact, atol=2e-7, rtol=0)
 
 
 def test_gn_bwd_wrapper_on_cpu_takes_plain_path_and_counts_nothing():

@@ -33,7 +33,7 @@ from igm_tpu_torch.ops.linear_attention import (  # noqa: E402
     linear_attention_flat, linear_attention_flat_bwd, linear_attention_flat_bwd_plain,
     linear_attention_flat_plain)
 from igm_tpu_torch.ops.vq import (  # noqa: E402
-    near_tie_gaps, nearest_codebook, nearest_codebook_plain)
+    MAX_D, near_tie_gaps, nearest_codebook, nearest_codebook_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -221,11 +221,59 @@ def test_group_norm_mish_bwd_kernel(gen, dtype, shape, groups):
 
 
 def test_group_norm_mish_bwd_kernel_repeats_exactly(gen):
-    """No atomics: the same inputs give the same bits."""
-    x, gamma, beta, g = _gn_inputs(gen, (4, 16, 16, 128), torch.bfloat16)
-    runs = [group_norm_mish_bwd(x, gamma, beta, g, 8) for _ in range(2)]
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    """No atomics: the same inputs give the same bits, in one CTA a sample
+    (4, 16, 16, 128) and over clusters of 4 (bf16) and 8 (f32) CTAs."""
+    for shape, dtype in (((4, 16, 16, 128), torch.bfloat16),
+                         ((8, 32, 32, 64), torch.bfloat16), ((8, 32, 32, 64), torch.float32)):
+        x, gamma, beta, g = _gn_inputs(gen, shape, dtype)
+        runs = [group_norm_mish_bwd(x, gamma, beta, g, 8) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+# the one-pass backward's plans (csrc/group_norm_mish.cu gn_plan, as the
+# forward's), by H*W rows of C = 64 (32 rows a sweep in bf16, 16 in f32):
+# one CTA (8x8), a cluster of 2 (16x32 bf16), 4 (32x32 bf16; 8x8x256 f32 is
+# 2) and 8 (32x64 bf16, 32x32 f32) CTAs, batch 1, the largest sample the
+# plan takes (64x64x64 in bf16, 32x64x64 in f32: R = 16 over 8 CTAs) and the
+# first past it (64x65x64, 33x64x64: the first kernel), the flagship's other
+# shapes, many clusters (64 x 32x32x64) and CTAs (300 x 8x8x128), and C /
+# VEC dividing 256 (C = 2048 bf16) or not (C = 192; C = 2048 f32): the first
+# kernel
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [
+    (4, 8, 8, 64), (3, 16, 32, 64), (2, 32, 32, 64), (2, 32, 64, 64), (1, 32, 32, 64),
+    (1, 64, 64, 64), (1, 64, 65, 64), (1, 33, 64, 64), (2, 8, 8, 256), (3, 16, 16, 128),
+    (2, 8, 8, 128), (64, 32, 32, 64), (300, 8, 8, 128), (2, 8, 8, 2048), (2, 8, 8, 192),
+])
+def test_group_norm_mish_bwd_kernel_plans(gen, dtype, shape):
+    x, gamma, beta, g = _gn_inputs(gen, shape, dtype)
+    before = group_norm_mish_bwd.launches
+    dx, dgamma, dbeta = group_norm_mish_bwd(x, gamma, beta, g, 8)
+    torch.cuda.synchronize()
+    assert group_norm_mish_bwd.launches == before + 1
+    want = group_norm_mish_bwd_plain(x, gamma, beta, g, 8)
+    _close(dx, want[0], dtype)
+    _close_param_grad(dgamma, want[1])
+    _close_param_grad(dbeta, want[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (2, 32, 32, 64), (2, 5, 7, 32)])
+def test_group_norm_mish_bwd_kernel_constant_group(gen, dtype, shape):
+    """A group of constant x (its variance clamps to 0, inv = 1/sqrt(eps)):
+    dx as the plain version gives it, in one CTA, over a cluster, and on the
+    first kernel (groups of 4 channels in bf16)."""
+    x, gamma, beta, g = _gn_inputs(gen, shape, dtype)
+    cg = shape[-1] // 8
+    x[0, ..., :cg] = 0.75
+    x[1, ..., 3 * cg:4 * cg] = -1.5
+    dx, dgamma, dbeta = group_norm_mish_bwd(x, gamma, beta, g, 8)
+    torch.cuda.synchronize()
+    want = group_norm_mish_bwd_plain(x, gamma, beta, g, 8)
+    _close(dx, want[0], dtype)
+    _close_param_grad(dgamma, want[1])
+    _close_param_grad(dbeta, want[2])
 
 
 # the flagship's and the latent UNet's N, ragged N, and the bf16 kernel's
@@ -313,11 +361,17 @@ def test_autograd_functions_launch_both_kernels(gen):
                                    rtol=1e-4)
 
 
+# the kernel's tiles are 128 rows of z and 64 codes, a cluster of up to 8
+# CTAs splits the code tiles: ragged M, K and D (one past a tile, D not a
+# multiple of 4), a K whose 9 tiles split unevenly over 4 (M = 8192) and 8
+# (M = 4096) CTAs, with ranks that get none, and the largest D it takes
 @pytest.mark.parametrize("m,k,d", [(8192, 512, 64), (4096, 512, 64), (1000, 500, 64),
-                                   (33, 65, 70), (1, 1, 1)])
+                                   (33, 65, 70), (1, 1, 1), (129, 65, 64), (129, 65, 70),
+                                   (128, 64, 3), (8192, 513, 64), (4096, 520, 64),
+                                   (300, 70, 216)])
 def test_nearest_codebook_kernel(gen, m, k, d):
-    """The VQ-VAE train step's and the decode's shapes, ragged M and K, and a
-    D that is not a multiple of the staged chunk."""
+    """The VQ-VAE train step's and the decode's shapes, and the ragged
+    cases above."""
     z = torch.randn(m, d, generator=gen, device="cuda")
     book = torch.randn(k, d, generator=gen, device="cuda")
     before = nearest_codebook.launches
@@ -354,6 +408,25 @@ def test_nearest_codebook_kernel_rejects_what_it_cannot_take(gen):
         nearest_codebook(z.t(), book)                            # (64, 64) strided
     with pytest.raises(ValueError):
         nearest_codebook(z, book.cpu())
+    wide = torch.randn(4, MAX_D + 1, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="D up to"):
+        nearest_codebook(wide, wide)
+
+
+def test_nearest_codebook_kernel_nan_row(gen):
+    """A NaN in a row of z makes every score of that row NaN: the first
+    code, as argmin gives it; the other rows are unaffected."""
+    z = torch.randn(300, 64, generator=gen, device="cuda")
+    book = torch.randn(512, 64, generator=gen, device="cuda")
+    z[7, 3] = float("nan")
+    z[200, 63] = float("nan")
+    got = nearest_codebook(z, book)
+    want = nearest_codebook_plain(z, book)
+    assert int(got[7]) == int(got[200]) == int(want[7]) == int(want[200]) == 0
+    keep = torch.ones(300, dtype=torch.bool, device="cuda")
+    keep[[7, 200]] = False
+    _, gap, _ = near_tie_gaps(z[keep], book, got[keep], want[keep])
+    assert gap <= 1.0
 
 
 # (B, S, H) with D = 64: ragged S (TAR's 785, 200, 130), one tile, one token;
