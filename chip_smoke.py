@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (igm_tpu_torch) on one CUDA card and checks it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE ...]
 
 Phases, one JSON line each; a phase that fails raises and the script exits
-non-zero:
+non-zero (``--only`` runs the named phases alone after device and build,
+and prints no result line):
 
   device  the card's name and power limit (nvidia-smi), torch and CUDA versions
   build   builds every kernel from igm_tpu_torch/csrc (one nvcc per source)
@@ -88,6 +89,28 @@ non-zero:
           each flagship level, and exactly 3 x (20 x (1 + 3) + 1) launches of
           the fused-block kernel (and of the Block's GroupNorm+Mish); no
           other path launches it.
+  chain   graphed against eager (igm_tpu_torch/core/graphs.py): the train
+          steps of the flagship (batch 256, bf16), the VQ-VAE (128, f32),
+          the latent DDPM (128) and TAR (128, flash_attention=dropout), K
+          graphed steps (the first call eager and captured, the second a
+          replay) against K eager steps from the same state at K = 1 and 4:
+          parameters, buffers, Adam moments and step counts, generator and
+          step bit for bit, metrics equal to the eager steps' nan-mean, and
+          exactly K steps' launches a replay; what steps_per_execution=auto
+          resolves to at the config's batch and epoch (its probe restores
+          the state bit for bit); eager against graphed steps at that K,
+          a-b-b-a (ms/step, images/s), the eager step without cuDNN's
+          deterministic algorithms, and the peak memory of each; DDIM-50
+          and DPM-20 at batch 64 (flagship and latent) graphed against eager
+          from the same x_T, bit for bit, a-b-b-a; the train CLI at
+          trainer.steps_per_execution=3 and at 1 (3 epochs of 3 steps):
+          the same checkpoint, bit for bit; and the host's cost of one
+          graphed execution (dispatch, trainer.DISPATCH_S).
+The sampling and training paths run their denoiser and train steps as CUDA
+graphs (the counters add a graph's launches at every replay), and the CLI
+runs resolve steps_per_execution=auto, whose probe trains 1 + AUTO_TIMED
+steps on the state it then restores: the train, latent and tar phases
+count those launches too.
 The fused-block parity rows run with the other parity rows: the kernel
 against block_fwd_plain at the three flagship levels (batch 256 bf16 and
 batch 32 f32, with the kernel's, the plain version's and the UNet Block's
@@ -116,6 +139,7 @@ no result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
@@ -160,8 +184,16 @@ LA_BWD_PRODUCTS = 5
 TRAIN_BATCH, TRAIN_STEPS = 256, 20
 VQ_TRAIN_BATCH = 128                 # the CIFAR-10 datamodule's batch
 # (M, K, D) of the nearest-codebook search: the VQ-VAE train step (batch 128
-# of 8x8 latents), a decode at batch 64, and a ragged case
-VQ_SHAPES = [(8192, 512, 64), (4096, 512, 64), (1000, 500, 64)]
+# of 8x8 latents), a decode at batch 64, and a ragged case; then D past the
+# resident kernel's 216 (the chunked kernel): model.latent_dim=256 at the
+# train step, and 512 at a decode
+VQ_SHAPES = [(8192, 512, 64), (4096, 512, 64), (1000, 500, 64), (8192, 512, 256),
+             (4096, 512, 512)]
+# N of bf16 linear attention past the tensor cores' 11,264 (the FMA kernel):
+# the first, and a 128x128 UNet's first level (experiment=ddpm/celeba
+# datamodule.width=128 datamodule.height=128), batch 2
+LONG_LA_SHAPES = [(11265, 1), (16384, 1)]
+LONG_LA_BATCH = 2
 SLEEP_CYCLES = 50_000_000            # ~25 ms: the host queues timed launches meanwhile
 L2_BYTES = 50 * 2 ** 20
 # TAR (experiment=tar/mnist): a batch of 128 images of 28x28x1 binary pixels
@@ -321,7 +353,8 @@ def parity_gn(dtype, batch: int = BATCH, shapes=GN_SHAPES, model: str = "flagshi
 def parity_la(dtype, batch: int = BATCH, shapes=LA_SHAPES,
               model: str = "flagship") -> list[dict]:
     import torch
-    from igm_tpu_torch.ops.linear_attention import (linear_attention_flat,
+    from igm_tpu_torch.ops.linear_attention import (fwd_on_tensor_cores,
+                                                    linear_attention_flat,
                                                     linear_attention_flat_plain)
     atol, rtol = tolerance(dtype)
     elt = torch.finfo(dtype).bits // 8
@@ -359,7 +392,8 @@ def parity_la(dtype, batch: int = BATCH, shapes=LA_SHAPES,
                              sets),
             library_ms=None, bound_ms=1e3 * max(bytes_s, ops_s),
             bound_by="bytes" if bytes_s >= ops_s else "operations",
-            design=attention_design(dtype)["design"]))
+            design=attention_design(dtype)["design"] if dtype != torch.bfloat16
+            or fwd_on_tensor_cores(n) else "f32 FMA (bf16 past the tensor cores' N)"))
         emit("parity", **rows[-1])
     return rows
 
@@ -869,6 +903,8 @@ def phase_train() -> dict:
     """The training path; the caller zeroes the counters before it."""
     import torch
     from igm_tpu_torch.config import compose, instantiate
+    from igm_tpu_torch.core.trainer import AUTO_TIMED
+    probe = 1 + AUTO_TIMED              # steps_per_execution=auto's timed steps
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -885,8 +921,9 @@ def phase_train() -> dict:
             ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
             grids = sorted(p.name for p in (run / "results").iterdir())
             check(loss is not None and math.isfinite(loss), f"train {name}: loss {loss}")
-            check((gn_bwd, la_bwd) == (25 * steps, 6 * steps),
-                  f"train {name}: {gn_bwd}/{la_bwd} backward launches for {steps} steps")
+            check((gn_bwd, la_bwd) == (25 * (steps + probe), 6 * (steps + probe)),
+                  f"train {name}: {gn_bwd}/{la_bwd} backward launches for {steps} steps "
+                  f"and auto's {probe}")
             check(gn >= 25 * steps and la >= 6 * steps and vq == 0,
                   f"train {name}: {gn}/{la}/{vq} forward launches for {steps} steps")
             out[name] = dict(steps=steps, seconds=sec, loss=loss, checkpoints=ckpts,
@@ -1064,7 +1101,9 @@ def phase_latent() -> dict:
     from PIL import Image
     from igm_tpu_torch.cli import sample_main
     from igm_tpu_torch.config import compose, instantiate
+    from igm_tpu_torch.core.trainer import AUTO_TIMED
     from igm_tpu_torch.ops.vq import near_tie_gaps, nearest_codebook
+    probe = 1 + AUTO_TIMED              # steps_per_execution=auto's timed steps
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1081,8 +1120,9 @@ def phase_latent() -> dict:
         check(loss is not None and math.isfinite(loss), f"vqvae fit: loss {loss}")
         check(ckpts == ["step_3.pt", "step_6.pt"] and grids == ["recon_0.jpg", "recon_1.jpg"],
               f"vqvae fit: checkpoints {ckpts}, grids {grids}")
-        # one search per train step (6) and per validation forward (2)
-        check(launches == expected(nearest_codebook=8), f"vqvae fit: launches {launches}")
+        # one search per train step (6, and auto's), per validation forward (2)
+        check(launches == expected(nearest_codebook=6 + probe + 2),
+              f"vqvae fit: launches {launches}")
         out["vqvae_fit"] = dict(steps=6, seconds=sec, recon_loss=loss, checkpoints=ckpts,
                                 grids=grids, launches=dict(zip(KERNELS, launches)))
         emit("latent", run="vqvae_fit", **out["vqvae_fit"])
@@ -1107,11 +1147,13 @@ def phase_latent() -> dict:
             check(loss is not None and math.isfinite(loss), f"latent {name}: loss {loss}")
             check(math.isfinite(scale) and scale > 0 and scale != 1.0,
                   f"latent {name}: latent scale {scale} not calibrated")
-            check((gn_bwd, la_bwd) == (17 * steps, 4 * steps),
-                  f"latent {name}: {gn_bwd}/{la_bwd} backward launches for {steps} steps")
+            trained = steps + probe
+            check((gn_bwd, la_bwd) == (17 * trained, 4 * trained),
+                  f"latent {name}: {gn_bwd}/{la_bwd} backward launches for {steps} steps "
+                  f"and auto's {probe}")
             # validation per epoch: recon, diffused and DDIM-50 samples, each decoded
             epochs = steps // 3
-            check(gn == 17 * (steps + 50 * epochs) and la == 4 * (steps + 50 * epochs)
+            check(gn == 17 * (trained + 50 * epochs) and la == 4 * (trained + 50 * epochs)
                   and vq == 3 * epochs,
                   f"latent {name}: {gn}/{la}/{vq} forward launches for {steps} steps")
             out[name] = dict(steps=steps, seconds=sec, loss=loss, latent_scale=scale,
@@ -1491,6 +1533,8 @@ def phase_tar() -> dict:
     import torch
     from PIL import Image
     from igm_tpu_torch.cli import sample_main
+    from igm_tpu_torch.core.trainer import AUTO_TIMED
+    probe = 1 + AUTO_TIMED              # steps_per_execution=auto's timed steps
     out = {}
     n = TAR_SHAPE[0]
     batch = _tar_batch(n, torch.Generator("cuda").manual_seed(7))
@@ -1553,7 +1597,7 @@ def phase_tar() -> dict:
             grids = sorted(p.name for p in (run / "results").glob("*"))
             check(bpd is not None and math.isfinite(bpd), f"tar {name}: {metric} {bpd}")
             # one validation batch per validated epoch: its two cal_loss forwards
-            want = _tar_launches(4 * steps + 8 * epochs, 4 * steps)
+            want = _tar_launches(4 * (steps + probe) + 8 * epochs, 4 * (steps + probe))
             check(launched == want, f"tar {name}: launches {launched}, expected {want}")
             out[name] = dict(experiment=exp, steps=steps, seconds=sec, metric=metric, bpd=bpd,
                              checkpoints=ckpts, grids=grids,
@@ -1672,6 +1716,289 @@ def phase_fused_block() -> dict:
     return row
 
 
+# ---------------------------------------------------------------- chain
+# the four train steps the chain phase holds graphed against eager:
+# (name, overrides, batch, launches per step)
+CHAIN_MODELS = (
+    ("flagship", ["experiment=ddpm/cifar10"], TRAIN_BATCH,
+     dict(group_norm_mish=25, linear_attention=6, group_norm_mish_bwd=25,
+          linear_attention_bwd=6)),
+    ("vqvae", ["experiment=vqvae/cifar10"], VQ_TRAIN_BATCH, dict(nearest_codebook=1)),
+    ("latent", ["experiment=latent_ddpm/cifar10"], LATENT_BATCH,
+     dict(group_norm_mish=17, linear_attention=4, group_norm_mish_bwd=17,
+          linear_attention_bwd=4)),
+    ("tar", ["experiment=tar/mnist", "model.flash_attention=dropout"], TAR_SHAPE[0],
+     dict(dropout_attention_fwd=4, dropout_attention_dq=4, dropout_attention_dkv=4)),
+)
+CHAIN_K = (1, 4)
+CHAIN_TIMED_STEPS = 16               # per turn of the a-b-b-a timing
+CHAIN_SAMPLE_BATCH = 64
+
+
+def same_bits(a, b, path: str = "") -> list[str]:
+    """The places where two nested state dicts differ (tensors bit for
+    bit, on the CPU); empty when they are equal."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        ok = a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.view(torch.uint8) if a.dtype.is_floating_point and a.element_size() == 1 else a,
+            b.view(torch.uint8) if b.dtype.is_floating_point and b.element_size() == 1 else b)
+        if ok and a.dtype.is_floating_point:         # NaN bits too
+            ok = bool((a.isnan() == b.isnan()).all())
+        return [] if ok else [path]
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys"]
+        return [d for k in a for d in same_bits(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: length"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in same_bits(x, y, f"{path}/{i}")]
+    return [] if a == b else [f"{path}: {a!r} != {b!r}"]
+
+
+def _chain_batches(model, n: int, k: int, seed: int):
+    """k uint8 batches of n images (and labels) on the card, stacked."""
+    import torch
+    gen = torch.Generator("cuda").manual_seed(seed)
+    imgs = torch.randint(0, 256, (k, n, model.height, model.width, model.channels),
+                         generator=gen, device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 10, (k, n), generator=gen, device="cuda", dtype=torch.int32)
+    return imgs, labels
+
+
+def measure_dispatch() -> dict:
+    """The host's cost of one graphed execution beyond its device work: a
+    model whose train step is one small reduction, run through
+    ``train_step_n`` (the chunk's copy into the graph's inputs, the launch,
+    the metrics' copy out) back to back; the card idles, so the wall time
+    per execution is the host's."""
+    import torch
+    from torch import nn
+    from igm_tpu_torch.core.state import TrainState
+    from igm_tpu_torch.models.base import BaseModel
+
+    class Tiny(BaseModel):
+        def train_step(self, state, batch):
+            state.step += 1
+            return state, {"loss": batch[0].float().mean()}
+
+    model = Tiny({"width": 32, "height": 32, "channels": 3}, device="cuda")
+    state = TrainState(nn.ModuleDict(), {}, torch.Generator("cuda").manual_seed(0))
+    chunk = _chain_batches(model, TRAIN_BATCH, 1, 0)
+    for _ in range(3):
+        model.train_step_n(state, chunk)
+    out = {}
+    for name, graph in (("graphed", True), ("eager", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            model.train_step_n(state, chunk, graph=graph)
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = (time.perf_counter() - t0) / 200
+    return out
+
+
+def _chain_model(name: str, overrides: list[str]):
+    from igm_tpu_torch.config import compose, instantiate
+    cfg = compose(REPO / "configs", [*overrides, "print_config=False"])
+    model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
+    steps_per_epoch = 50_000 // int(cfg.datamodule.batch_size) if name != "tar" \
+        else 60_000 // int(cfg.datamodule.batch_size)
+    model.steps_per_epoch = steps_per_epoch
+    return model, steps_per_epoch
+
+
+def chain_train(name: str, overrides: list[str], batch: int, per_step: dict) -> dict:
+    """K graphed steps against K eager steps from the same state, at K = 1
+    and 4: the state bit for bit (parameters, buffers, Adam moments and
+    step counts, generator, step) and the metrics equal to the eager steps'
+    nan-mean; the launches of a replay exactly K steps'.  Then eager
+    against graphed steps at the K ``auto`` resolves to, a-b-b-a, and the
+    peak memory of each."""
+    import numpy as np
+    import torch
+    from igm_tpu_torch.core.trainer import AUTO_TIMED, Trainer
+    from igm_tpu_torch.models.base import merge_metrics
+    model, steps_per_epoch = _chain_model(name, overrides)
+    state = model.init_state(0)
+    imgs, labels = _chain_batches(model, batch, max(CHAIN_K), 11)
+    state, _ = model.train_step(state, (imgs[0], labels[0]))   # the Adam state exists
+    start = state.snapshot()
+    out = {"batch": batch, "steps_per_epoch": steps_per_epoch}
+    for k in CHAIN_K:
+        chunk = (imgs[:k], labels[:k])
+        state.load_state_dict(start)
+        eager = merge_metrics([model.train_step(state, (imgs[i], labels[i]))[1]
+                               for i in range(k)])
+        want = state.snapshot()
+        runs = {}
+        n_graphs = len(state.graphs)
+        for run in ("warm_up", "replay"):     # the first call runs eagerly, then captures
+            state.load_state_dict(start)
+            check(len(state.graphs) == n_graphs + (run == "replay"),
+                  f"chain {name} K={k}: {len(state.graphs)} graphs before the {run}")
+            before = counts()
+            _, metrics = model.train_step_n(state, chunk)
+            torch.cuda.synchronize()
+            launched = since(before)
+            diff = same_bits(state.snapshot(), want) + same_bits(metrics, eager)
+            check(not diff, f"chain {name} K={k} {run}: differs from eager at {diff[:8]}")
+            check(launched == expected(**{kk: k * v for kk, v in per_step.items()}),
+                  f"chain {name} K={k} {run}: launches {launched}")
+            runs[run] = dict(launches=dict(zip(KERNELS, launched)))
+        out[f"k{k}"] = dict(bit_equal=True, metrics={kk: float(v) for kk, v in eager.items()},
+                            **runs)
+        emit("chain", model=name, k=k, **out[f"k{k}"])
+
+    # what auto resolves to at the config's batch and epoch
+    state.load_state_dict(start)
+    state.graphs.clear()
+    trainer = Trainer(steps_per_execution="auto")
+    train_arrays = (np.random.default_rng(0).integers(
+        0, 256, (batch, model.height, model.width, model.channels), dtype=np.uint8),
+        np.zeros(batch, dtype=np.int32))
+    before = counts()
+    k_auto = trainer._auto_steps_per_execution(model, state, train_arrays, batch,
+                                               steps_per_epoch)
+    probe = since(before)
+    check(not same_bits(state.snapshot(), start), f"chain {name}: auto moved the state")
+    check(probe == expected(**{kk: (1 + AUTO_TIMED) * v for kk, v in per_step.items()}),
+          f"chain {name}: auto's probe launched {probe}")
+    out["auto_k"] = k_auto
+
+    # eager against graphed at auto's K, a-b-b-a, from the same state
+    k = k_auto
+    n_exec = max(1, CHAIN_TIMED_STEPS // k)
+    chunk = (imgs[:1].expand(k, *imgs.shape[1:]).contiguous(),
+             labels[:1].expand(k, *labels.shape[1:]).contiguous())
+    model.train_step_n(state, chunk)                            # warm-up and capture
+    times = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_exec):
+            state, metrics = model.train_step_n(state, chunk, graph=(mode == "graphed"))
+        torch.cuda.synchronize()
+        times[mode].append(1e3 * (time.perf_counter() - t0) / (n_exec * k))
+    # device memory: the eager step's peak allocation above what lies
+    # between steps, and what a captured graph keeps reserved (its private
+    # pool: a step's activations, beside the eager cache)
+    state.graphs.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.train_step_n(state, chunk, graph=False)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    model.train_step_n(state, chunk)                 # eager first run, then the capture
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    peak = dict(eager_step_peak_gib=eager_peak / 2 ** 30,
+                graph_pool_gib=(torch.cuda.memory_reserved() - reserved) / 2 ** 30)
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"chain {name}: metrics {metrics}")
+    # what cuDNN's deterministic algorithms cost: graphed steps (bound by the
+    # card, not the host) captured without them
+    torch.backends.cudnn.deterministic = False
+    state.graphs.clear()
+    model.train_step_n(state, chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_exec):
+        model.train_step_n(state, chunk)
+    torch.cuda.synchronize()
+    times["graphed_nondeterministic"] = [1e3 * (time.perf_counter() - t0) / (n_exec * k)]
+    torch.backends.cudnn.deterministic = True
+    out["speed"] = dict(k=k, steps=n_exec * k, ms_per_step=times,
+                        images_per_s={m: [batch * 1e3 / t for t in ts] for m, ts in times.items()},
+                        peak_memory_gib=peak)
+    emit("chain", model=name, run="speed", auto_k=k_auto, **out["speed"])
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def chain_samplers(name: str, model) -> dict:
+    """DDIM-50 and DPM-20 at batch 64, graphed against eager from the same
+    x_T: the samples bit for bit; images/s a-b-b-a."""
+    import torch
+    n = CHAIN_SAMPLE_BATCH
+    x_T = torch.randn(model._sample_shape(n), generator=torch.Generator("cuda").manual_seed(4),
+                      device="cuda")
+    out = {}
+    for sampler, run in (("ddim", lambda: model.ddim_sample(n, steps=50, x_T=x_T)),
+                         ("dpm", lambda: model.dpm_sample(n, steps=20, x_T=x_T))):
+        model.use_graphs = True
+        run()                                               # warm-up and capture
+        samples, sec = {}, {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            model.use_graphs = mode == "graphed"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples[mode] = run()
+            torch.cuda.synchronize()
+            sec[mode].append(time.perf_counter() - t0)
+        model.use_graphs = True
+        diff = same_bits(samples["graphed"], samples["eager"])
+        check(not diff and bool(torch.isfinite(samples["graphed"]).all()),
+              f"chain {name} {sampler}: graphed samples differ from eager")
+        out[sampler] = dict(batch=n, bit_equal=True, seconds=sec,
+                            images_per_s={m: [n / s for s in v] for m, v in sec.items()})
+        emit("chain", model=name, sampler=sampler, **out[sampler])
+    return out
+
+
+def chain_cli() -> dict:
+    """The train CLI at trainer.steps_per_execution=3 and at 1, 3 epochs of
+    3 steps: the same checkpoints, bit for bit."""
+    import torch
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for k in (1, 3):
+            run = tmp / f"k{k}"
+            run.mkdir()
+            t0 = time.perf_counter()
+            _train_cli(run, f"trainer.steps_per_execution={k}", "trainer.max_epochs=3",
+                       "trainer.limit_val_batches=0")
+            ckpt = run / "logs" / "runs" / "ddpm" / "cifar10" / "checkpoints"
+            out[k] = dict(seconds=time.perf_counter() - t0,
+                          checkpoints=sorted(p.name for p in ckpt.iterdir()),
+                          saved=torch.load(ckpt / "step_9.pt", weights_only=True))
+        diff = same_bits(out[3]["saved"], out[1]["saved"])
+        check(out[1]["checkpoints"] == out[3]["checkpoints"] == ["step_6.pt", "step_9.pt"],
+              f"chain cli: checkpoints {out[1]['checkpoints']}, {out[3]['checkpoints']}")
+        check(not diff, f"chain cli: K=3 checkpoint differs from K=1 at {diff[:8]}")
+    row = dict(steps=9, checkpoint_bit_equal=True,
+               seconds={k: out[k]["seconds"] for k in (1, 3)})
+    emit("chain", run="cli", **row)
+    return row
+
+
+def phase_chain() -> dict:
+    """Graphed against eager: the four train steps, the samplers, the train
+    CLI at K = 3; the host's cost of one execution; auto's K."""
+    import torch
+    out = {"dispatch": measure_dispatch()}
+    emit("chain", run="dispatch", **out["dispatch"])
+    for name, overrides, batch, per_step in CHAIN_MODELS:
+        out[name] = chain_train(name, overrides, batch, per_step)
+    for name, overrides in (("flagship", ["experiment=ddpm/cifar10"]),
+                            ("latent", ["experiment=latent_ddpm/cifar10"])):
+        model, _ = _chain_model(name, overrides)
+        out[f"{name}_samplers"] = chain_samplers(name, model)
+        del model
+        torch.cuda.empty_cache()
+    out["cli"] = chain_cli()
+    return out
+
+
 # the redesigned kernels of rows 1, 2, 3 and 5 and of _flat_bwd: (design,
 # the prefix of their kernels' names in the ptxas report)
 REDESIGNED = {
@@ -1703,23 +2030,46 @@ def totals(rows: list[dict], key: str):
 T_START = time.perf_counter()
 
 
-def main() -> int:
+# phases that run alone with --only (a rehearsal of a changed phase)
+ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
+         "train_unet": lambda: phase_train_unet(), "train": lambda: phase_train(),
+         "first_stage": lambda: phase_first_stage(), "latent": lambda: phase_latent(),
+         "tar_reference": lambda: phase_tar_reference(), "tar": lambda: phase_tar(),
+         "fused_block": lambda: phase_fused_block(), "chain": lambda: phase_chain(),
+         "parity_vq": lambda: parity_vq()}
+
+
+def main(argv=None) -> int:
+    import argparse
     import torch
+    parser = argparse.ArgumentParser(description="drive the port on one CUDA card")
+    parser.add_argument("--only", nargs="+", choices=sorted(ALONE), default=None,
+                        help="run these phases alone (after device and build) and stop; "
+                             "prints no result line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import igm_tpu_torch  # noqa: F401  (fails here, before any output, without the repo)
     smi = phase_device()
-    # float32 products and convs in full float32; the bf16 path ignores these
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # float32 products and convs in full float32 (the bf16 path ignores
+    # these) and cuDNN's deterministic algorithms, as the CLIs run
+    from igm_tpu_torch.utils.platform import set_numerics
+    set_numerics()
     usage = phase_build()
+    if args.only:
+        for name in args.only:
+            reset_counts()
+            ALONE[name]()
+        emit("only", phases=args.only, seconds=time.perf_counter() - T_START)
+        return 0
     gn_rows = (parity_gn(torch.bfloat16) + parity_gn(torch.float32)
                + parity_gn(torch.bfloat16, SAMPLE_BATCH)
                + parity_gn(torch.bfloat16, SAMPLE_BATCH, LATENT_GN_SHAPES, "latent"))
     la_rows = [r for dtype in (torch.bfloat16, torch.float32)
                for r in parity_la(dtype)
                + parity_la(dtype, LATENT_BATCH, LATENT_LA_SHAPES, "latent")]
+    la_rows += parity_la(torch.bfloat16, LONG_LA_BATCH, LONG_LA_SHAPES, "long")
     gn_bwd_rows = (parity_gn_bwd(torch.bfloat16) + parity_gn_bwd(torch.float32)
                    + parity_gn_bwd(torch.bfloat16, LATENT_BATCH, LATENT_GN_SHAPES, "latent"))
     la_bwd_rows = [r for dtype in (torch.bfloat16, torch.float32)
@@ -1760,6 +2110,7 @@ def main() -> int:
     fb_index = KERNELS.index("fused_block_fwd")
     elsewhere = {p: n[fb_index] for p, n in path_launches.items() if p != "fused_block"}
     check(not any(elsewhere.values()), f"fused_block_fwd launched on {elsewhere}")
+    chain = phase_chain()               # graphed against eager
 
     def by_path(i: int) -> dict:
         return {path: n[i] for path, n in path_launches.items()}
@@ -1799,6 +2150,11 @@ def main() -> int:
                 key: totals([r for r in rows if r["dtype"] == "bfloat16"
                              and r["model"] == "latent"], key)
                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        if name == "linear_attention":      # bf16 past the tensor cores: the FMA kernel
+            redesign["long_n"] = [
+                {key: r[key] for key in ("shape", "kernel_ms", "plain_ms", "bound_ms",
+                                         "max_abs_err")}
+                for r in rows if r["model"] == "long"]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path(i).values()), launches_by_path=by_path(i),
@@ -1873,6 +2229,12 @@ def main() -> int:
          tar_train_dropout_over_off=tar["train_dropout"]["images_per_s"]
          / tar["train_off"]["images_per_s"],
          tar_sample_images_per_s=tar["sample"]["images_per_s"],
+         dispatch_s=chain["dispatch"]["graphed_s"],
+         auto_k={m: chain[m]["auto_k"] for m, *_ in CHAIN_MODELS},
+         graphed_train_ms_per_step={m: chain[m]["speed"]["ms_per_step"] for m, *_ in CHAIN_MODELS},
+         graphed_sampling_images_per_s={
+             f"{m}_{s}": chain[f"{m}_samplers"][s]["images_per_s"]
+             for m in ("flagship", "latent") for s in ("ddim", "dpm")},
          seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

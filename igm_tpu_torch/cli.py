@@ -82,13 +82,12 @@ def train_main(argv=None):
 
     from .config import compose, select, to_plain
     from .train import train
-    from .utils.platform import resolve_device
+    from .utils.platform import resolve_device, set_numerics
 
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s][%(name)s][%(levelname)s] %(message)s")
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
     cfg = compose(config_dir(), args.overrides)
     if cfg.get("print_config"):
         import yaml
@@ -147,13 +146,10 @@ def sample_main(argv=None) -> torch.Tensor:
 
     from .callbacks.visualization import get_grid_images, save_image_grid
     from .config import compose, instantiate
-    from .utils.platform import resolve_device
+    from .utils.platform import resolve_device, set_numerics
 
     device = resolve_device(args.device)
-    # float32 matmuls and convs in full float32, never TF32; the bfloat16
-    # compute path does not read these flags
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
     cfg = compose(config_dir(), [*args.overrides, "print_config=False"])
     model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device)
     if args.ckpt:

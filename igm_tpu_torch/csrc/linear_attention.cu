@@ -62,8 +62,9 @@
 //     (N = 1024: 4 x 256 rows), which exchange the column max, the column
 //     sums and the ctx^T tiles through distributed shared memory and sum
 //     them in rank order; N <= 16 and <= 32 take 4 and 2 heads per CTA (and
-//     stage q at once), so that every warp has rows.  N is at most 8 x 1408
-//     (the shared memory of 8 CTAs).  ptxas (sm_90a): 66, 78 and 92
+//     stage q at once), so that every warp has rows.  Up to N = 8 x 1408
+//     (the shared memory of 8 CTAs); a longer N runs the FMA kernel
+//     linear_attention_kernel<bf16>, as the backward does past its limit.  ptxas (sm_90a): 66, 78 and 92
 //     registers for 1, 2 and 4 heads per CTA, no spills.  What bounds it
 //     now is latency: each CTA runs its five passes in series, with a
 //     cluster barrier between them, and loads nothing while it computes;
@@ -1361,10 +1362,22 @@ extern "C" int igm_linear_attention_f32(const void* q, const void* k, const void
   return launch<float>(q, k, v, out, b, n, heads, stream);
 }
 
-// bf16: q, k, v and out start on a 16-byte boundary; n at most 8 x 1408.
+// Whether the bf16 forward runs on the tensor cores at this n (1) or on the
+// FMA kernel (0): mma_plan's rule, n <= 8 x 1408 (a head's rows over a
+// cluster of at most 8 CTAs).
+extern "C" int igm_linear_attention_bf16_on_tensor_cores(int n) {
+  return n > 0 && mma_plan(n).smem <= kMaxSmem;
+}
+
+// bf16: n up to 8 x 1408 runs on the tensor cores, and its pointers must
+// start on a 16-byte boundary; a longer n runs the FMA kernel
+// linear_attention_kernel<bf16>, which rounds the key softmax and the
+// context where the tensor-core kernel does.
 extern "C" int igm_linear_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                          int b, int n, int heads, void* stream) {
   if (bad_shape(b, n, heads)) return cudaErrorInvalidValue;
+  if (mma_plan(n).smem > kMaxSmem)
+    return launch<__nv_bfloat16>(q, k, v, out, b, n, heads, stream);
   if ((int64_t)b * heads > INT_MAX) return cudaErrorInvalidValue;
   const cudaError_t err = static_cast<cudaError_t>(launch_mma(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

@@ -43,7 +43,11 @@
 // Ragged M and K are masked; a D that is not a multiple of 4 (or inputs off
 // a 16-byte boundary) is copied 4 bytes at a time.  The z tile and two code
 // tiles take 1024 * dp bytes of shared memory: 68 KB at D = 64 (3 CTAs an
-// SM); D up to 216 fits a CTA, and a larger D is refused (kMaxD).
+// SM); D up to 216 fits a CTA (kMaxD).  A larger D runs this file's first
+// kernel (nearest_codebook_wide_kernel): z and code tiles staged in chunks
+// of 32 features, 4 x 4 scores a thread, any D, each score the same fmaf
+// chain over d in order, so the indices are the same as the resident
+// kernel would give.
 // On the H100 (700 W) the kernel takes 25.5 us at M = 8192 (the first
 // kernel's call took 70 with e_sq), 18.7 at M = 4096.  Phase stamps
 // (tools/kernel_stamps.py) put 20 of a CTA's 25 us in the code tiles, at
@@ -257,15 +261,121 @@ nearest_codebook_kernel(const float* __restrict__ z, const float* __restrict__ e
 
 static_assert(kThreads == kTileM, "the merge gives each thread one row");
 
+// The first kernel of this file, for D > kMaxD: a CTA of 128 threads takes
+// 32 rows of z and walks the codebook in tiles of 64 codes, staging both in
+// shared memory in chunks of 32 features (rows padded by one float against
+// bank conflicts); each thread owns 4 rows x 4 codes of a score tile and
+// the 16 threads of a row merge their (score, index) pairs by shuffles.
+constexpr int kWideTileM = 32;                 // rows of z per CTA
+constexpr int kWideTileK = 64;                 // codes per shared-memory tile
+constexpr int kWideTileD = 32;                 // features per staged chunk
+constexpr int kWideThreadsK = 16;              // threads along the codes
+constexpr int kWideThreadsM = 8;               // threads along the rows
+constexpr int kWideThreads = kWideThreadsK * kWideThreadsM;
+constexpr int kWideRows = kWideTileM / kWideThreadsM;
+constexpr int kWideCodes = kWideTileK / kWideThreadsK;
+
+__global__ void __launch_bounds__(kWideThreads)
+nearest_codebook_wide_kernel(const float* __restrict__ z, const float* __restrict__ e,
+                             const float* __restrict__ e_sq, int32_t* __restrict__ idx, int m,
+                             int k, int d) {
+  __shared__ float zs[kWideTileM][kWideTileD + 1];
+  __shared__ float es[kWideTileK][kWideTileD + 1];
+  const int tid = threadIdx.x;
+  const int tx = tid % kWideThreadsK, ty = tid / kWideThreadsK;
+  const int row0 = blockIdx.x * kWideTileM;
+
+  float best[kWideRows];
+  int best_idx[kWideRows];
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    best[r] = INFINITY;
+    best_idx[r] = INT_MAX;
+  }
+
+  for (int k0 = 0; k0 < k; k0 += kWideTileK) {
+    float acc[kWideRows][kWideCodes];
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kWideCodes; ++j) acc[r][j] = 0.0f;
+
+    for (int d0 = 0; d0 < d; d0 += kWideTileD) {
+      __syncthreads();                         // the last chunk has been read
+      for (int i = tid; i < kWideTileM * kWideTileD; i += kWideThreads) {
+        const int r = i / kWideTileD, c = i % kWideTileD;
+        const int gr = row0 + r, gc = d0 + c;
+        zs[r][c] = (gr < m && gc < d) ? z[(size_t)gr * d + gc] : 0.0f;
+      }
+      for (int i = tid; i < kWideTileK * kWideTileD; i += kWideThreads) {
+        const int r = i / kWideTileD, c = i % kWideTileD;
+        const int gk = k0 + r, gc = d0 + c;
+        es[r][c] = (gk < k && gc < d) ? e[(size_t)gk * d + gc] : 0.0f;
+      }
+      __syncthreads();
+      // features past D are 0 on both sides: fmaf(0, 0, acc) == acc
+#pragma unroll 8
+      for (int c = 0; c < kWideTileD; ++c) {
+        float zr[kWideRows], ek[kWideCodes];
+#pragma unroll
+        for (int r = 0; r < kWideRows; ++r) zr[r] = zs[ty + r * kWideThreadsM][c];
+#pragma unroll
+        for (int j = 0; j < kWideCodes; ++j) ek[j] = es[tx + j * kWideThreadsK][c];
+#pragma unroll
+        for (int r = 0; r < kWideRows; ++r)
+#pragma unroll
+          for (int j = 0; j < kWideCodes; ++j) acc[r][j] = fmaf(zr[r], ek[j], acc[r][j]);
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < kWideCodes; ++j) {
+      const int code = k0 + tx + j * kWideThreadsK;
+      if (code >= k) continue;
+      const float esq = e_sq[code];
+#pragma unroll
+      for (int r = 0; r < kWideRows; ++r) {
+        const float s = esq - 2.0f * acc[r][j];
+        if (precedes(s, code, best[r], best_idx[r])) {
+          best[r] = s;
+          best_idx[r] = code;
+        }
+      }
+    }
+  }
+
+  // the 16 threads of a row group are one half-warp: xor offsets below 16
+  // stay inside it
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+#pragma unroll
+    for (int off = kWideThreadsK / 2; off > 0; off >>= 1) {
+      const float s = __shfl_xor_sync(0xffffffffu, best[r], off);
+      const int i = __shfl_xor_sync(0xffffffffu, best_idx[r], off);
+      if (precedes(s, i, best[r], best_idx[r])) {
+        best[r] = s;
+        best_idx[r] = i;
+      }
+    }
+    const int row = row0 + ty + r * kWideThreadsM;
+    if (tx == 0 && row < m) idx[row] = best_idx[r];
+  }
+}
+
 }  // namespace
 
 // z (m, d), e (k, d), e_sq (k,) float32 and idx (m,) int32, contiguous on the
-// current device; m, k >= 1, 1 <= d <= 216.  Returns the CUDA error code of
-// the launch (0 on success).
+// current device; m, k, d >= 1 (d > 216 runs nearest_codebook_wide_kernel).
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int igm_nearest_codebook_f32(const float* z, const float* e,
                                         const float* e_sq, int32_t* idx, int m,
                                         int k, int d, cudaStream_t stream) {
-  if (m < 1 || k < 1 || d < 1 || d > kMaxD) return cudaErrorInvalidValue;
+  if (m < 1 || k < 1 || d < 1) return cudaErrorInvalidValue;
+  if (d > kMaxD) {
+    const dim3 grid((m + kWideTileM - 1) / kWideTileM);
+    nearest_codebook_wide_kernel<<<grid, kWideThreads, 0, stream>>>(z, e, e_sq, idx, m, k, d);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int row_tiles = (m + kTileM - 1) / kTileM;
   const int tiles = (k + kTileK - 1) / kTileK;
   // the least cluster with which the grid fills the card once (a CTA an

@@ -3,8 +3,10 @@
 Counterpart of ``igm_tpu/data/loader.py``.  An epoch is one permutation
 drawn from the caller's ``np.random.Generator`` (the trainer's, seeded as
 ``igm_tpu``'s, so the batch order is the same), batches are gathered with
-numpy indexing into contiguous uint8 arrays, and :class:`DevicePrefetcher`
-stages the next batches on the device while the current step runs.
+numpy indexing into contiguous uint8 arrays, :func:`chunk_batches` stacks
+K of them for a chained execution (``steps_per_execution``), and
+:class:`DevicePrefetcher` stages the next batches (or chunks, each array
+one copy) on the device while the current step runs.
 ``igm_tpu``'s C++ gather (``data/native.py``) is not ported.
 
 A prefetch worker's exception is re-raised in the training loop: a dying
@@ -42,6 +44,21 @@ def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int,
     for i in range(n_batches):
         idx = order[i * bs:(i + 1) * bs]
         yield tuple(np.ascontiguousarray(a[idx]) for a in arrays)
+
+
+def chunk_batches(batches: Iterable, k: int) -> Iterator[Tuple[np.ndarray, ...]]:
+    """Stack K consecutive batches into one ``[k, B, ...]`` chunk for
+    chained execution (the trainer's ``steps_per_execution``), as
+    ``igm_tpu/data/loader.py:58-71`` does.  A shorter tail chunk is yielded
+    as it is."""
+    buf = []
+    for b in batches:
+        buf.append(b)
+        if len(buf) == k:
+            yield tuple(np.stack([bb[j] for bb in buf]) for j in range(len(buf[0])))
+            buf = []
+    if buf:
+        yield tuple(np.stack([bb[j] for bb in buf]) for j in range(len(buf[0])))
 
 
 class DevicePrefetcher:

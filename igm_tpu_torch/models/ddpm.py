@@ -5,10 +5,19 @@ call, classifier-free guidance, and the samplers: ancestral, DDIM,
 DPM-Solver++(2M), interpolation and RePaint inpainting.
 
 ``igm_tpu`` runs each chain as one ``lax.scan``; here it is a Python loop
-over the timesteps, one UNet forward per step.  Random draws take an
-explicit ``torch.Generator`` (training: the TrainState's); for tests, the
-train step also takes its timesteps, noise and label drop as tensors, and
-the samplers their initial ``x`` and per-step draws.
+over the timesteps, one UNet forward per step.  On a CUDA card (with
+``use_graphs``) that forward is a CUDA graph: ``_denoise`` replays a graph
+captured per input signature (batch, dtype, with or without labels, the
+EMA weights or the network's), its inputs copied into the graph's static
+buffers; the per-step update arithmetic stays eager.  The graph reads the
+weights where they lie, so it follows the network's parameters and the
+EMA shadow, both updated in place.  Random draws take an explicit
+``torch.Generator`` (training: the TrainState's); for tests, the train
+step also takes its timesteps, noise and label drop as tensors, and the
+samplers their initial ``x`` and per-step draws.  The train step draws
+only from the state's generator, updates the EMA shadow in place and
+changes only ``state.step`` on the host, so ``train_step_n`` can capture
+it.
 
 ``denoise_channels``, ``_sample_shape`` and ``_to_diffusion_space`` are the
 hooks through which ``LatentDDPM`` diffuses in a VQ-VAE's latent space.
@@ -23,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.graphs import StepGraph
 from ..core.optim import OptimizerSet, adam
 from ..core.state import TrainState
 from ..networks.unet import Unet
@@ -223,17 +233,31 @@ class DDPM(BaseModel):
     def _denoise(self, x: torch.Tensor, t: torch.Tensor,
                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The denoiser; with an EMA shadow in the train state, run with the
-        shadow's weights, as ``igm_tpu`` samples from them."""
+        shadow's weights, as ``igm_tpu`` samples from them.  On the card,
+        outside autograd, a CUDA graph per input signature."""
         if self.num_classes and y is None:
             # unconditional generation from a conditional model = the
             # trained null token
             y = torch.full((x.shape[0],), self.num_classes, dtype=torch.long,
                            device=x.device)
-        net = self.modules["denoise"]
+        ema = None
         if (self.hparams.ema_decay > 0 and self.state is not None
                 and "ema" in self.state.opt_states):
-            return torch.func.functional_call(net, self.state.opt_states["ema"],
-                                              (x, t, y))
+            ema = self.state.opt_states["ema"]
+        if not (self.use_graphs and x.is_cuda and not torch.is_grad_enabled()):
+            return self._denoise_eager(x, t, y, ema)
+        inputs = (x, t) if y is None else (x, t, y)
+        key = ("denoise", id(ema), tuple((tuple(a.shape), a.dtype) for a in inputs))
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(
+                lambda x, t, y=None: self._denoise_eager(x, t, y, ema))
+        return graph(*inputs)
+
+    def _denoise_eager(self, x, t, y, ema) -> torch.Tensor:
+        net = self.modules["denoise"]
+        if ema is not None:
+            return torch.func.functional_call(net, ema, (x, t, y))
         return net(x, t, y)
 
     @torch.no_grad()

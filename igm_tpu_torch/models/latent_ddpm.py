@@ -19,7 +19,10 @@ checkpoints into the sampling CLI: ``latent_scale=auto`` is resolved once in
 ``on_fit_start`` and every later user reads the calibrated value.
 
 The samplers decode their latents; ``inpaint`` takes pixel-space images and
-masks; ``interpolate`` is DDPM's, on latents.
+masks; ``interpolate`` is DDPM's, on latents.  On the card the samplers'
+denoiser is DDPM's CUDA graph, and the train step, the first-stage encode
+included, is captured by ``train_step_n`` (``models/base.py``); the decode
+(quantise and decoder, once a sample) stays eager.
 """
 from __future__ import annotations
 

@@ -19,6 +19,12 @@ dropout masks (``torch.rand(..., generator=g) < keep``, since
 the Gumbel draws: ``jax.random.categorical(key, logits)`` is
 ``argmax(logits + gumbel(key, logits.shape))``.
 
+Every training draw (dropout masks, attention seeds) is made on the card
+from the state's generator, so ``train_step_n`` captures the train step
+(``models/base.py``); its ``step_lr`` learning rate is written into the
+graph before each launch.  The KV-cached decode stays eager: its cache
+position is a host integer.
+
 ``flash_attention`` keeps ``igm_tpu``'s modes (``networks/attention.py``),
 with one difference: ``dropout`` launches the hand-written CUDA kernels on
 the card and never falls back to ``off`` (``igm_tpu`` does off a TPU,

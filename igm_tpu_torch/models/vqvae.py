@@ -6,6 +6,10 @@ estimator ``z + (quant - z).detach()``.  The nearest-code search is
 ``ops.vq.quantize``: on the card it launches the nearest-codebook kernel,
 once per forward.
 
+The train step updates everything in place (parameters, Adam state, the
+EMA codebook's buffers) and draws nothing, so ``train_step_n`` captures it
+on the card (``models/base.py``), the nearest-codebook kernel inside.
+
 Quirk kept: the reference config passes ``K: 512``, which lands in
 ``**kwargs`` while ``num_embeddings`` keeps its default; both spellings are
 accepted.

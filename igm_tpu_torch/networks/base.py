@@ -125,7 +125,29 @@ class Embed(nn.Module):
             self.embedding.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx.long(), self.embedding)
+        return _Rows.apply(idx.long(), self.embedding)
+
+
+class _Rows(torch.autograd.Function):
+    """``table[idx]`` whose table gradient sums each row's share in a fixed
+    order, a masked sum a row (TAR's tables have 2 and at most 10 rows):
+    ``F.embedding``'s CUDA backward adds in an order that changes from run
+    to run, so no two TAR train steps would agree bit for bit."""
+
+    @staticmethod
+    def forward(ctx, idx, table):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return F.embedding(idx, table)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        hit = idx.reshape(-1, 1)
+        return None, torch.stack([torch.where(hit == k, g, 0.0).sum(dim=0)
+                                  for k in range(ctx.rows)])
 
 
 class LayerNorm(nn.Module):

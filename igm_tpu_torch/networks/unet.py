@@ -261,7 +261,9 @@ class Unet(nn.Module):
 
         def rb(block, x):
             if self.remat and torch.is_grad_enabled():
-                return checkpoint(block, x, t, use_reentrant=False)
+                # no random draws inside a block: nothing to replay
+                return checkpoint(block, x, t, use_reentrant=False,
+                                  preserve_rng_state=False)
             return block(x, t)
 
         skips = []

@@ -308,6 +308,9 @@ def _seed_arg(seed: Seed, rate: float, device: torch.device):
         if t.dtype != torch.int64:
             t = t.to(torch.int64)
     else:
+        if torch.cuda.is_current_stream_capturing():
+            # a host seed would be baked into the graph, the same at every replay
+            raise ValueError("a seed inside a CUDA graph capture must be a device tensor")
         t = torch.tensor([int(seed) & _M32], dtype=torch.int64, device=device)
     t = t.contiguous()
     return t, t.data_ptr()

@@ -21,11 +21,11 @@ their kernel for CUDA tensors and raise if they cannot; CPU tensors take the
 plain versions.  Each has a ``launches`` attribute that counts kernel
 launches.  :class:`LinearAttentionFlatFn` is what the UNet calls.  The bf16
 forward runs its products on the tensor cores and stages rows with 16-byte
-``cp.async``: its q, k and v must start on a 16-byte boundary (every fresh
-allocation does) and N may be at most ``BF16_MAX_N``; else it raises
-``ValueError``.  The bf16 backward does the same on the tensor cores up to
-N = ``BF16_BWD_TC_MAX_N`` (and as f32 FMAs beyond, any N), and raises for an
-unaligned input too.
+``cp.async``, up to N = ``BF16_TC_MAX_N``, and as f32 FMAs beyond (any N,
+the same roundings); its q, k and v must start on a 16-byte boundary (every
+fresh allocation does), else it raises ``ValueError``.  The bf16 backward
+does the same on the tensor cores up to N = ``BF16_BWD_TC_MAX_N`` (and as
+f32 FMAs beyond, any N), and raises for an unaligned input too.
 """
 from __future__ import annotations
 
@@ -37,9 +37,11 @@ import torch
 from . import _build
 
 HEAD_DIM = 32
-# the bf16 kernel stages a head's rows in shared memory, split over a cluster
-# of at most 8 CTAs of at most 1408 rows each
-BF16_MAX_N = 8 * 1408
+# the bf16 tensor-core kernel stages a head's rows in shared memory, split
+# over a cluster of at most 8 CTAs of at most 1408 rows each; beyond that
+# the forward runs as f32 FMAs (csrc/linear_attention.cu mma_plan;
+# fwd_on_tensor_cores asks the built kernel)
+BF16_TC_MAX_N = 8 * 1408
 # the bf16 backward stages four arrays a row: on the tensor cores up to 8
 # CTAs of 672 rows, beyond that as f32 FMAs (csrc/linear_attention.cu
 # bwd_mma_plan; bwd_on_tensor_cores asks the built kernel)
@@ -112,14 +114,23 @@ def _kernels(name: str, pointers: int) -> dict[torch.dtype, ctypes._CFuncPtr]:
     return out
 
 
-def bwd_on_tensor_cores(n: int) -> bool:
-    """Whether the built bf16 backward runs on the tensor cores at this N
-    (the kernel's own shape rule; builds the library, so the card's machine
-    only)."""
-    fn = _build.library("linear_attention").igm_linear_attention_bwd_bf16_on_tensor_cores
+def _on_tensor_cores(symbol: str, n: int) -> bool:
+    fn = getattr(_build.library("linear_attention"), symbol)
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     return bool(fn(n))
+
+
+def fwd_on_tensor_cores(n: int) -> bool:
+    """Whether the built bf16 forward runs on the tensor cores at this N
+    (the kernel's own shape rule; builds the library, so the card's machine
+    only)."""
+    return _on_tensor_cores("igm_linear_attention_bf16_on_tensor_cores", n)
+
+
+def bwd_on_tensor_cores(n: int) -> bool:
+    """The same for the bf16 backward."""
+    return _on_tensor_cores("igm_linear_attention_bwd_bf16_on_tensor_cores", n)
 
 
 def _check(name: str, heads: int, *tensors: torch.Tensor) -> None:
@@ -132,12 +143,11 @@ def _check(name: str, heads: int, *tensors: torch.Tensor) -> None:
         raise ValueError(f"channels {shape[-1]} not divisible by heads {heads}")
 
 
-def _check_cuda(name: str, heads: int, *tensors: torch.Tensor,
-                max_n: int | None = None) -> None:
+def _check_cuda(name: str, heads: int, *tensors: torch.Tensor) -> None:
     """What the kernels take: head dim 32, one dtype (f32/bf16), contiguous,
     on the current CUDA device, batch at most 65535; in bf16 (whose kernels
     stage rows with 16-byte ``cp.async``) tensors that start on a 16-byte
-    boundary, and N at most ``max_n`` where it is given."""
+    boundary."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -160,8 +170,6 @@ def _check_cuda(name: str, heads: int, *tensors: torch.Tensor,
         if any(t.data_ptr() % 16 for t in tensors):
             raise ValueError(f"{name}: bf16 inputs must start on a 16-byte boundary, got "
                              f"addresses {[t.data_ptr() % 16 for t in tensors]} mod 16")
-        if max_n is not None and n > max_n:
-            raise ValueError(f"{name}: the bf16 kernel takes N up to {max_n}, got {n}")
 
 
 def linear_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,7 +178,7 @@ def linear_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("linear_attention_flat", heads, q, k, v)
     if q.device.type == "cpu":
         return linear_attention_flat_plain(q, k, v, heads)
-    _check_cuda("linear_attention_flat", heads, q, k, v, max_n=BF16_MAX_N)
+    _check_cuda("linear_attention_flat", heads, q, k, v)
     b, n, _ = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:

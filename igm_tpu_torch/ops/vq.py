@@ -22,9 +22,10 @@ import torch
 
 from . import _build
 
-# the largest D the kernel takes: a CTA holds 128 rows of z and two tiles of
-# 64 codes, (D rounded up to 8, + 4) floats a row, in shared memory
-MAX_D = 216
+# the largest D of the resident kernel: a CTA holds 128 rows of z and two
+# tiles of 64 codes, (D rounded up to 8, + 4) floats a row, in shared
+# memory; a larger D runs the kernel that stages 32 features at a time
+RESIDENT_MAX_D = 216
 
 
 def _e_sq(codebook: torch.Tensor) -> torch.Tensor:
@@ -52,7 +53,8 @@ def _kernel() -> ctypes._CFuncPtr:
 def nearest_codebook(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """z: (M, D), codebook: (K, D) -> (M,) int32 index of each row's nearest
     code.  On the card both must be float32, contiguous, on the current
-    device, with D <= ``MAX_D``."""
+    device; any D (up to ``RESIDENT_MAX_D`` the resident kernel, beyond it
+    the chunked one)."""
     if z.ndim != 2 or codebook.ndim != 2 or z.shape[1] != codebook.shape[1]:
         raise ValueError(f"nearest_codebook expects z (M, D) and codebook (K, D), "
                          f"got {tuple(z.shape)} and {tuple(codebook.shape)}")
@@ -73,8 +75,6 @@ def nearest_codebook(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if z.device.index != torch.cuda.current_device():
         raise ValueError(f"nearest_codebook: {z.device} is not the current device")
     m, d = z.shape
-    if d > MAX_D:
-        raise ValueError(f"nearest_codebook: the kernel takes D up to {MAX_D}, got {d}")
     idx = torch.empty(m, dtype=torch.int32, device=z.device)
     if m == 0 or d == 0:
         return idx.zero_()

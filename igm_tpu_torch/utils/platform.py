@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points."""
+"""Device selection and numerics for the port's entry points."""
 from __future__ import annotations
 
 import torch
@@ -20,3 +20,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def set_numerics() -> None:
+    """What the entry points run with on the card: float32 products and
+    convolutions in full float32 (no TF32), and cuDNN's deterministic
+    algorithms.  Some of cuDNN's weight-gradient algorithms add in an order
+    that changes from run to run (the flagship UNet's last 1x1 conv at
+    batch 256, the VQ-VAE decoder's convs); with them no two runs of a
+    train step, eager or graphed, agree bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True

@@ -29,11 +29,11 @@ from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
     GroupNormMishFn, group_norm_mish, group_norm_mish_bwd, group_norm_mish_bwd_plain,
     group_norm_mish_plain)
 from igm_tpu_torch.ops.linear_attention import (  # noqa: E402
-    BF16_BWD_TC_MAX_N, BF16_MAX_N, LinearAttentionFlatFn, bwd_on_tensor_cores,
-    linear_attention_flat, linear_attention_flat_bwd, linear_attention_flat_bwd_plain,
-    linear_attention_flat_plain)
+    BF16_BWD_TC_MAX_N, BF16_TC_MAX_N, LinearAttentionFlatFn, bwd_on_tensor_cores,
+    fwd_on_tensor_cores, linear_attention_flat, linear_attention_flat_bwd,
+    linear_attention_flat_bwd_plain, linear_attention_flat_plain)
 from igm_tpu_torch.ops.vq import (  # noqa: E402
-    MAX_D, near_tie_gaps, nearest_codebook, nearest_codebook_plain)
+    RESIDENT_MAX_D, near_tie_gaps, nearest_codebook, nearest_codebook_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -133,11 +133,13 @@ def test_group_norm_mish_kernel_rejects_what_it_cannot_take(gen):
 # the flagship's and the latent UNet's N, ragged N, and the bf16 kernel's
 # plans: four heads per CTA (N <= 16), two (N <= 32), one (N <= 256), a
 # cluster of 2 CTAs (N = 300), 4 (N = 1024) and 8 (N = 4096 of a 64x64
-# UNet, and the largest N the kernel takes)
+# UNet, and the largest N the tensor cores take); past it the FMA kernel
+# (N = 11,265, and 16,384 of a 128x128 UNet's first level)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1),
                                  (64, 64), (128, 16), (3, 17), (2, 33), (1, 130),
-                                 (2, 300), (2, 4096), (1, BF16_MAX_N)])
+                                 (2, 300), (2, 4096), (1, BF16_TC_MAX_N),
+                                 (1, BF16_TC_MAX_N + 1), (2, 16384)])
 def test_linear_attention_kernel(gen, dtype, b, n):
     q, k, v = (torch.randn(b, n, 128, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
@@ -164,26 +166,27 @@ def test_linear_attention_kernel_repeats_exactly(gen):
 
 
 def test_linear_attention_kernel_rejects_unaligned_or_long_bf16(gen):
-    """The bf16 forward stages rows with 16-byte cp.async and holds a head's
-    rows in the shared memory of at most 8 CTAs: a bf16 view 2 bytes past
-    an aligned start, or N past BF16_MAX_N, raises, with no fallback."""
+    """The bf16 forward stages rows with 16-byte cp.async: a bf16 view 2
+    bytes past an aligned start raises, with no fallback.  N past the
+    tensor cores' BF16_TC_MAX_N is no longer refused: it launches the FMA
+    kernel."""
     b, n = 2, 64
     q, k, v = (torch.randn(b, n, 128, generator=gen, device="cuda").bfloat16()
                for _ in range(3))
     buf = torch.randn(b * n * 128 + 1, generator=gen, device="cuda").bfloat16()
     shifted = buf[1:].view(b, n, 128)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
-    long = torch.zeros(1, BF16_MAX_N + 1, 128, device="cuda", dtype=torch.bfloat16)
+    long = torch.zeros(1, BF16_TC_MAX_N + 1, 128, device="cuda", dtype=torch.bfloat16)
     before = linear_attention_flat.launches
     for args in ((shifted, k, v), (q, shifted, v), (q, k, shifted)):
         with pytest.raises(ValueError, match="16-byte"):
             linear_attention_flat(*args, 4)
-    with pytest.raises(ValueError, match="N up to"):
-        linear_attention_flat(long, long, long, 4)
     assert linear_attention_flat.launches == before
+    assert fwd_on_tensor_cores(BF16_TC_MAX_N) and not fwd_on_tensor_cores(BF16_TC_MAX_N + 1)
     linear_attention_flat(q, k, v, 4)                   # aligned: launches
+    linear_attention_flat(long, long, long, 4)          # bf16 past the tensor cores
     linear_attention_flat(long.float(), long.float(), long.float(), 4)   # f32: any N
-    assert linear_attention_flat.launches == before + 2
+    assert linear_attention_flat.launches == before + 3
 
 
 GN_SHAPES = [((3, 32, 32, 64), 8), ((2, 8, 8, 256), 8), ((2, 5, 7, 32), 8),
@@ -279,13 +282,13 @@ def test_group_norm_mish_bwd_kernel_constant_group(gen, dtype, shape):
 # the flagship's and the latent UNet's N, ragged N, and the bf16 kernel's
 # plans: four heads per CTA (N = 16), two (N = 32), a cluster of 3 CTAs
 # over 257 rows, 8 CTAs (N = 1024, 4096), the longest N on the tensor
-# cores (8 x 672) and past it (f32 FMAs), up to BF16_MAX_N; these check the
+# cores (8 x 672) and past it (f32 FMAs), up to BF16_TC_MAX_N; these check the
 # output, test_linear_attention_bwd_tensor_core_rule which kernel runs
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("b,n", [(2, 1024), (3, 256), (2, 64), (2, 100), (1, 1),
                                  (64, 64), (128, 16), (3, 16), (2, 32), (2, 257),
                                  (2, 4096), (1, BF16_BWD_TC_MAX_N),
-                                 (1, BF16_BWD_TC_MAX_N + 1), (1, BF16_MAX_N)])
+                                 (1, BF16_BWD_TC_MAX_N + 1), (1, BF16_TC_MAX_N)])
 def test_linear_attention_bwd_kernel(gen, dtype, b, n):
     q, k, v, g = (torch.randn(b, n, 128, generator=gen, device="cuda").to(dtype)
                   for _ in range(4))
@@ -302,7 +305,7 @@ def test_linear_attention_bwd_tensor_core_rule(gen):
     runs on the tensor cores up to it and on the FMA kernel past it."""
     for n in (1, 16, 32, 257, 1024, 4096, BF16_BWD_TC_MAX_N):
         assert bwd_on_tensor_cores(n), n
-    for n in (BF16_BWD_TC_MAX_N + 1, BF16_MAX_N):
+    for n in (BF16_BWD_TC_MAX_N + 1, BF16_TC_MAX_N):
         assert not bwd_on_tensor_cores(n), n
 
 
@@ -365,10 +368,13 @@ def test_autograd_functions_launch_both_kernels(gen):
 # CTAs splits the code tiles: ragged M, K and D (one past a tile, D not a
 # multiple of 4), a K whose 9 tiles split unevenly over 4 (M = 8192) and 8
 # (M = 4096) CTAs, with ranks that get none, and the largest D it takes
+# resident; past it the kernel that stages 32 features at a time (D = 217,
+# and 256 and 512 of experiment=vqvae/cifar10 model.latent_dim=256 / 512)
 @pytest.mark.parametrize("m,k,d", [(8192, 512, 64), (4096, 512, 64), (1000, 500, 64),
                                    (33, 65, 70), (1, 1, 1), (129, 65, 64), (129, 65, 70),
                                    (128, 64, 3), (8192, 513, 64), (4096, 520, 64),
-                                   (300, 70, 216)])
+                                   (300, 70, RESIDENT_MAX_D), (300, 70, RESIDENT_MAX_D + 1),
+                                   (8192, 512, 256), (1000, 500, 512)])
 def test_nearest_codebook_kernel(gen, m, k, d):
     """The VQ-VAE train step's and the decode's shapes, and the ragged
     cases above."""
@@ -408,9 +414,11 @@ def test_nearest_codebook_kernel_rejects_what_it_cannot_take(gen):
         nearest_codebook(z.t(), book)                            # (64, 64) strided
     with pytest.raises(ValueError):
         nearest_codebook(z, book.cpu())
-    wide = torch.randn(4, MAX_D + 1, generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="D up to"):
-        nearest_codebook(wide, wide)
+    # D past RESIDENT_MAX_D is no longer refused: the chunked kernel takes it
+    wide = torch.randn(4, RESIDENT_MAX_D + 1, generator=gen, device="cuda")
+    before = nearest_codebook.launches
+    assert torch.equal(nearest_codebook(wide, wide).long(), torch.arange(4, device="cuda"))
+    assert nearest_codebook.launches == before + 1
 
 
 def test_nearest_codebook_kernel_nan_row(gen):
@@ -629,3 +637,178 @@ def test_fused_block_kernel_rejects_what_it_cannot_take(gen):
     with pytest.raises(ValueError):
         fused_block_fwd(x, w, b.cpu(), sc, bi)
     assert fused_block_fwd.launches == before
+
+
+# ------------------------------------------------- CUDA graphs (core/graphs.py)
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture
+def numerics(monkeypatch):
+    """As the entry points run (utils.platform.set_numerics): no TF32, and
+    cuDNN's deterministic algorithms, without which no two train steps
+    agree bit for bit."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+
+def _model(*overrides):
+    from igm_tpu_torch.config import compose, instantiate
+    cfg = compose(REPO / "configs", [*overrides, "print_config=False"])
+    return instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
+
+
+def _differ(a, b, path=""):
+    """Where two nested states differ, bit for bit (NaNs included)."""
+    if isinstance(a, torch.Tensor):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        if a.dtype.is_floating_point:
+            ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+            a, b = a.view(ints), b.view(ints) if b.dtype == a.dtype else b
+        same = a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+        return [] if same else [path]
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        return [d for k in a for d in _differ(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _differ(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def _graphed_against_eager(model, batches, k):
+    """K graphed steps (the first call captures, the second replays) against
+    K eager steps from the same state: the state and the merged metrics."""
+    from igm_tpu_torch.models.base import merge_metrics
+    state = model.init_state(0)
+    imgs, labels = batches
+    state, _ = model.train_step(state, (imgs[0], labels[0]))
+    start = state.snapshot()
+    eager = merge_metrics([model.train_step(state, (imgs[i], labels[i]))[1] for i in range(k)])
+    want = state.snapshot()
+    for _ in ("capture", "replay"):
+        state.load_state_dict(start)
+        _, metrics = model.train_step_n(state, (imgs[:k], labels[:k]))
+        assert not _differ(state.snapshot(), want)
+        assert not _differ(metrics, eager)
+    assert state.step == start["step"] + k
+    return state
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_graphed_ddpm_train_step_equals_eager(gen, numerics, k):
+    """The DDPM step with an EMA shadow (updated inside the step), bf16."""
+    model = _model("experiment=ddpm/cifar10", "model.hidden_dim=32", "model.timesteps=50",
+                   "model.ema_decay=0.9")
+    imgs = torch.randint(0, 256, (3, 8, 32, 32, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    labels = torch.zeros(3, 8, dtype=torch.int32, device="cuda")
+    before = group_norm_mish_bwd.launches
+    state = _graphed_against_eager(model, (imgs, labels), k)
+    # one eager step, k eager, k eager and captured, k replayed: 25 a step
+    assert group_norm_mish_bwd.launches - before == 25 * (1 + 3 * k)
+    assert len(state.graphs) == 1
+
+
+def test_graphed_tar_train_step_equals_eager(gen, numerics):
+    """TAR with the dropout flash attention (seeds drawn on the card) and
+    step_lr (the learning rate written into the graph's slots)."""
+    model = _model("experiment=tar/mnist", "model.flash_attention=dropout",
+                   "model.d_model=128", "model.nhead=2", "model.num_layers=1",
+                   "datamodule.width=8", "datamodule.height=8")
+    model.steps_per_epoch = 2                   # the learning rate moves within the chunk
+    imgs = torch.randint(0, 256, (3, 16, 8, 8, 1), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    labels = torch.randint(0, 10, (3, 16), generator=gen, device="cuda", dtype=torch.int32)
+    before = da.dropout_attention_dq.launches
+    _graphed_against_eager(model, (imgs, labels), 3)
+    # one eager step, three eager, three eager and captured, three replayed
+    assert da.dropout_attention_dq.launches - before == 1 + 3 + 3 + 3
+
+
+def test_graphed_denoiser_equals_eager_and_follows_ema(gen, numerics):
+    """DDIM through the denoiser's graph equals the eager chain, with the
+    EMA shadow's weights; after train steps move the shadow in place, the
+    same graph samples with the new shadow."""
+    model = _model("experiment=ddpm/cifar10", "model.hidden_dim=32", "model.timesteps=50",
+                   "model.ema_decay=0.5")
+    state = model.init_state(0)
+    batch = (torch.randint(0, 256, (8, 32, 32, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8), torch.zeros(8, dtype=torch.int32, device="cuda"))
+    x_T = torch.randn(4, 32, 32, 3, generator=gen, device="cuda")
+    for _ in range(2):
+        samples = {}
+        for graphs in (True, False, True):
+            model.use_graphs = graphs
+            samples.setdefault(graphs, []).append(model.ddim_sample(4, steps=5, x_T=x_T))
+        assert torch.equal(samples[True][0], samples[False][0])
+        assert torch.equal(samples[True][1], samples[False][0])
+        assert len(model._graphs) == 1
+        for _ in range(2):
+            state, _ = model.train_step(state, batch)
+    before = group_norm_mish.launches
+    model.use_graphs = True
+    model.ddim_sample(4, steps=5, x_T=x_T)
+    assert group_norm_mish.launches - before == 5 * 25
+
+
+def test_capturable_adam_matches_adam(gen):
+    """The card's Adam (capturable, lr a device tensor, the step count on the
+    card) within float32 tolerance of torch.optim.Adam with a float lr and
+    a host step count, over three steps."""
+    from igm_tpu_torch.core.optim import adam, step_lr
+    params = [torch.randn(64, 32, generator=gen, device="cuda"),
+              torch.randn(32, generator=gen, device="cuda") * 1e-3]
+    mine = [p.clone() for p in params]
+    spec = adam(step_lr(1e-3, 0.5, 1), 0.5, 0.999)
+    opt = spec.create(mine)
+    assert opt.param_groups[0]["capturable"] and torch.is_tensor(opt.param_groups[0]["lr"])
+    ref = torch.optim.Adam(params, lr=1e-3, betas=(0.5, 0.999), eps=1e-8)
+    for step in range(3):
+        grads = [torch.randn(p.shape, generator=gen, device="cuda") for p in params]
+        for group in ref.param_groups:
+            group["lr"] = spec.lr_at(step)
+        opt.param_groups[0]["lr"].fill_(spec.lr_at(step))
+        for p, q, g in zip(params, mine, grads):
+            p.grad, q.grad = g.clone(), g.clone()
+        ref.step()
+        opt.step()
+        for p, q in zip(params, mine):
+            torch.testing.assert_close(q, p, atol=1e-7, rtol=1e-6)
+
+
+def test_pr10_checkpoint_restores_and_replays(gen, numerics, tmp_path):
+    """A checkpoint in the layout the port wrote before capturable Adam (the
+    card's Adam with a float lr and its step count a CPU tensor) restores
+    into the card's state, and graphed steps from it equal eager ones."""
+    from igm_tpu_torch.core.checkpoint import CheckpointManager
+    over = ("experiment=ddpm/cifar10", "model.hidden_dim=32", "model.timesteps=50")
+    model = _model(*over)
+    old = model.init_state(0)
+    params = list(model.modules["denoise"].parameters())
+    old.opt_states["opt"] = torch.optim.Adam(params, lr=2e-4, betas=(0.5, 0.999), eps=1e-8)
+    imgs = torch.randint(0, 256, (2, 8, 32, 32, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    labels = torch.zeros(2, 8, dtype=torch.int32, device="cuda")
+    for i in range(2):
+        old, _ = model.train_step(old, (imgs[i], labels[i]))
+    manager = CheckpointManager(str(tmp_path))
+    manager.save(old.step, old)
+    manager.wait()
+    saved = manager.restore_raw()
+    assert not saved["opt_states"]["opt"]["param_groups"][0]["capturable"]
+    assert isinstance(saved["opt_states"]["opt"]["param_groups"][0]["lr"], float)
+
+    card = manager.restore(model.init_state(1))
+    assert card.step == 2
+    opt = card.opt_states["opt"]
+    assert opt.param_groups[0]["capturable"] and torch.is_tensor(opt.param_groups[0]["lr"])
+    assert all(s["step"].is_cuda for s in opt.state.values())
+    start = card.snapshot()
+    for i in range(2):
+        card, _ = model.train_step(card, (imgs[i], labels[i]))
+    want = card.snapshot()
+    for _ in ("capture", "replay"):
+        card.load_state_dict(start)
+        model.train_step_n(card, (imgs, labels))
+        assert not _differ(card.snapshot(), want)

@@ -100,7 +100,7 @@ def test_train_main_trains_validates_checkpoints_and_resumes(tmp_path, monkeypat
 
 
 def test_trainer_takes_one_device_only():
-    assert Trainer(steps_per_execution="auto").steps_per_execution == 1
+    assert Trainer(steps_per_execution="auto").steps_per_execution == "auto"   # until fit
     Trainer(mesh={"data": -1, "model": 1})
     with pytest.raises(NotImplementedError):
         Trainer(mesh={"data": -1, "model": 2})
