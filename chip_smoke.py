@@ -113,17 +113,21 @@ steps on the state it then restores: the train, latent and tar phases
 count those launches too.
 The fused-block parity rows run with the other parity rows: the kernel
 against block_fwd_plain at the three flagship levels (batch 256 bf16 and
-batch 32 f32, with the kernel's, the plain version's and the UNet Block's
-times and the bound) and tests/test_fused_block.py's four cases.
+batch 32 f32) and at two shapes the group kernel refused (2x64x64x16->128 and
+1x128x128x8->64, the two-pass routes, bf16 and f32), with the kernel's, the
+plain version's and the UNet Block's times and the bound, each row naming
+its route; and tests/test_fused_block.py's four cases.
 The nearest_codebook parity rows (f32, M x K x D = 8192 x 512 x 64, 4096 x
-512 x 64 and a ragged 1000 x 500 x 64) run with the other parity rows: the
+512 x 64, a ragged 1000 x 500 x 64, and past the resident kernel 8192 x 512
+x 256 and 4096 x 512 x 512) run with the other parity rows: the
 indices are equal except at near-ties (counted), with the kernel's time,
 the plain version's, the bound and torch.cdist(z, e).argmin(1) as the
 yardstick.
 
 The kernels line carries, for the redesigned kernels (GroupNorm+Mish
 forward and backward, the linear-attention forward and backward, rows 6-8,
-nearest_codebook), their design and ptxas's registers and spills;
+nearest_codebook, the fused block), their design and ptxas's registers and
+spills; the fused block also every timed row with its route;
 GroupNorm+Mish also its totals at batch 64 (``sampling_batch``: the
 flagship's 25 calls, the latent UNet's 17), its backward and the linear
 attention their latent UNet totals at batch 128, nearest_codebook its time
@@ -222,6 +226,10 @@ FUSED_F32_ATOL = 3e-5
 # tests/test_fused_block.py's cases: (N, H, W, Cin, Cout, dtype)
 FUSED_TEST_CASES = [(4, 8, 8, 16, 16, "float32"), (2, 6, 5, 8, 24, "float32"),
                     (2, 4, 4, 3, 16, "float32"), (2, 8, 8, 16, 16, "bfloat16")]
+# shapes the group kernel's block refused, now on the two-pass routes (timed, in both
+# dtypes): a 64x64 level at Cout 128 (experiment=ddpm/celeba's first level
+# width; cg 16 needed 2,048 threads) and a 128x128 level with Cin 8
+FUSED_WIDE_SHAPES = [(2, 64, 64, 16, 128), (1, 128, 128, 8, 64)]
 BENCH_ITERS = 3
 INPAINT_N = 8
 
@@ -562,20 +570,22 @@ def fused_block_bound(n: int, h: int, w: int, ci: int, co: int, dtype) -> dict:
 
 def parity_fused_block() -> list[dict]:
     """fused_block_fwd against block_fwd_plain: the bench tool's three
-    flagship shapes at batch 256 in bf16 (timed: the kernel, the plain
-    version, the UNet's cuDNN-conv Block and the bound) and at batch
-    FUSED_F32_BATCH in f32, then tests/test_fused_block.py's four cases."""
+    flagship shapes at batch 256 in bf16 and at batch FUSED_F32_BATCH in f32,
+    and FUSED_WIDE_SHAPES in both (timed: the kernel, the plain version, the
+    UNet's cuDNN-conv Block and the bound), then tests/test_fused_block.py's
+    four cases.  Each row names its route (ops.fused_block._route)."""
     import numpy as np
     import torch
-    from igm_tpu_torch.ops.fused_block import block_fwd_plain, fused_block_fwd
+    from igm_tpu_torch.ops.fused_block import _route, block_fwd_plain, fused_block_fwd
     from igm_tpu_torch.tools.bench_fused_block import SHAPES, unet_block
     rows = []
     cases = ([(BATCH, *s, "bfloat16") for s in SHAPES]
-             + [(FUSED_F32_BATCH, *s, "float32") for s in SHAPES])
+             + [(FUSED_F32_BATCH, *s, "float32") for s in SHAPES]
+             + [(*s, d) for d in ("bfloat16", "float32") for s in FUSED_WIDE_SHAPES])
     for n, h, w, ci, co, dname in cases + FUSED_TEST_CASES:
         dtype = getattr(torch, dname)
-        flagship = (h, w, ci, co) in SHAPES
-        if flagship:
+        timed = (n, h, w, ci, co, dname) in cases
+        if timed:
             g = torch.Generator(device="cuda").manual_seed(n * 1000 + h + co)
 
             def make(i, n=n, h=h, w=w, ci=ci, co=co, dtype=dtype, g=g):
@@ -603,8 +613,9 @@ def parity_fused_block() -> list[dict]:
               f"fused_block_fwd {dname} {n}x{h}x{w}x{ci}->{co}: max err "
               f"{err.max().item()} beyond atol {atol} rtol {rtol}")
         row = dict(kernel="fused_block_fwd", dtype=dname, shape=[n, h, w, ci, co],
-                   max_abs_err=err.max().item(), atol=atol, rtol=rtol)
-        if flagship:
+                   route=_route(n, h, w, ci, co, 8, dtype), max_abs_err=err.max().item(),
+                   atol=atol, rtol=rtol, flagship=(h, w, ci, co) in SHAPES)
+        if timed:
             block = unet_block(*sets[0][1:], dtype)
             with torch.no_grad():
                 row.update(
@@ -2012,8 +2023,17 @@ REDESIGNED = {
                             "group_norm_mish_bwd_onepass_kernel"),
     "nearest_codebook": ("f32 FMAs, 8 x 8 scores a thread from float4 loads, the z tile "
                          "resident, code tiles double-buffered by cp.async, the codebook "
-                         "split over a cluster of up to 8 CTAs",
-                         "nearest_codebook_kernel"),
+                         "split over a cluster of up to 8 CTAs; past D = 216 the same tiles "
+                         "with z and the codes in 32-feature chunks through two cp.async "
+                         "stages, the scores kept across chunks, clusters aimed at 3 CTAs "
+                         "an SM", "nearest_codebook"),
+    "fused_block_fwd": ("bf16: an implicit GEMM on mma.sync (8 warps of 64 positions x 32 "
+                        "channels, a CTA all Cout), the halo and weights of 16 input "
+                        "channels by cp.async in two stages, a sample's tiles one cluster "
+                        "summing the group statistics in rank order through DSMEM, "
+                        "normalised in registers; two-pass (y in f32 and tile partials, then "
+                        "a normalising kernel) past 8 tiles a sample; f32 on FMAs",
+                        "fused_block_"),
     "linear_attention": ("mma.sync bf16", "linear_attention_mma_kernel"),
     "linear_attention_bwd": ("mma.sync bf16, f32 operands split into bf16 high and low",
                              "linear_attention_bwd_mma_kernel"),
@@ -2199,7 +2219,8 @@ def main(argv=None) -> int:
                 f"{TAR_RATE} (a TAR train step makes 4); library_ms is "
                 + ("F.scaled_dot_product_attention with dropout" if kind == "fwd" else
                    "the autograd backward of that SDPA call, dq, dk and dv together")))
-    fb_main = [r for r in fb_rows if r["dtype"] == "bfloat16" and "kernel_ms" in r]
+    fb_main = [r for r in fb_rows if r["dtype"] == "bfloat16" and r["flagship"]
+               and "kernel_ms" in r]
     kernels.append(dict(
         name="fused_block_fwd", route="cuda", source="igm_tpu_torch/csrc/fused_block.cu",
         replaces="igm_tpu/ops/pallas_fused_block.py:105", launches=sum(by_path(fb_index).values()),
@@ -2209,7 +2230,12 @@ def main(argv=None) -> int:
         bound_ms=sum(r["bound_ms"] for r in fb_main),
         bound_by="bytes" if sum(r["bound_terms_ms"]["bytes"] for r in fb_main)
         >= sum(r["bound_terms_ms"]["products"] for r in fb_main) else "operations",
-        library_ms=None,
+        library_ms=None, design=REDESIGNED["fused_block_fwd"][0],
+        ptxas={k: v for k, v in usage["fused_block"].items()
+               if k.startswith(REDESIGNED["fused_block_fwd"][1])},
+        shapes=[{key: r.get(key) for key in ("shape", "dtype", "route", "kernel_ms", "plain_ms",
+                                             "block_ms", "bound_ms", "max_abs_err")}
+                for r in fb_rows if "kernel_ms" in r],
         per="one call at each of the three flagship levels (256x32x32x64->64, "
             "256x16x16x128->128, 256x8x8x256->256), bf16, summed; no one PyTorch call "
             "computes conv + GroupNorm + Mish, so library_ms is null; block_ms is the "

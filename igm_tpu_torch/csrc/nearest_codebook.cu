@@ -43,11 +43,18 @@
 // Ragged M and K are masked; a D that is not a multiple of 4 (or inputs off
 // a 16-byte boundary) is copied 4 bytes at a time.  The z tile and two code
 // tiles take 1024 * dp bytes of shared memory: 68 KB at D = 64 (3 CTAs an
-// SM); D up to 216 fits a CTA (kMaxD).  A larger D runs this file's first
-// kernel (nearest_codebook_wide_kernel): z and code tiles staged in chunks
-// of 32 features, 4 x 4 scores a thread, any D, each score the same fmaf
-// chain over d in order, so the indices are the same as the resident
-// kernel would give.
+// SM); D up to 216 fits a CTA (kMaxD).  A larger D runs the chunked kernel
+// (nearest_codebook_chunked_kernel), built the same way with D walked in
+// chunks: the same 128-row x 64-code tiles and 8 x 8 scores a thread, but
+// both z and the codes arrive 32 features at a time through two cp.async
+// stages (36-float rows, the same bank pattern), a tile's 64 scores stay in
+// registers across the chunks and are merged once at its last chunk, and
+// the code tiles are split over a cluster by a rule that aims at three
+// CTAs an SM (a CTA's tile costs D / 64 times the resident one's).  Each
+// score is the same fmaf chain over d = 0 .. D-1 in order (the features past
+// D, to the chunk's end, are 0 on both sides, as in the first chunked
+// kernel, which padded to 32 too), so the indices are bit for bit those of
+// both earlier kernels.
 // On the H100 (700 W) the kernel takes 25.5 us at M = 8192 (the first
 // kernel's call took 70 with e_sq), 18.7 at M = 4096.  Phase stamps
 // (tools/kernel_stamps.py) put 20 of a CTA's 25 us in the code tiles, at
@@ -55,6 +62,14 @@
 // shared-memory loads, and the shared memory of an SM delivers 128 bytes a
 // cycle, as fast as its FMAs take them; loading the next operands during
 // the FMAs did not help (they are not late, they are slow to deliver).
+// The chunked kernel takes 0.095 ms a call (with e_sq) at (M, K, D) =
+// (8192, 512, 256) and 0.105 at (4096, 512, 512), from the first chunked
+// kernel's 0.239 and 0.402 (torch.cdist(z, e).argmin(1): 0.125, 0.122).  Its stamps: at D =
+// 256 the 512 CTAs (clusters of 8, a code tile each) run as a full wave of
+// 396 (3 an SM) and a tail of 116; at D = 512 the 256 CTAs, two an SM, spend
+// 66 of their 72 us in the code tiles, at about half the f32 FMA rate, as
+// the resident kernel does.  A cap of 128 registers (4 CTAs an SM: one wave
+// at D = 256) spilled 48 bytes and ran slower.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -112,6 +127,60 @@ __device__ __forceinline__ void stage_sq(float* dst, const float* __restrict__ e
   if (threadIdx.x < kTileK) {
     const bool valid = k0 + threadIdx.x < k;
     cp_async4(dst + threadIdx.x, e_sq + (valid ? k0 + threadIdx.x : 0), valid);
+  }
+}
+
+// The end of a search: each thread's running (score, index) pair per row,
+// best[i] / best_idx[i] for rows ty + 16 i (best_idx -1: no code met), is
+// merged over the 8 threads of the row, then over the cluster's ranks by
+// rank 0 through distributed shared memory, and written to idx.  best_s and
+// best_i are the CTA's shared (kTileM,) arrays.
+__device__ __forceinline__ void merge_and_store(float (&best)[kRows], int (&best_idx)[kRows],
+                                                float* best_s, int* best_i, int row0, int m,
+                                                int32_t* __restrict__ idx, int csize,
+                                                int rank) {
+  const int tid = threadIdx.x;
+  const int tx = tid % kThreadsK, ty = tid / kThreadsK;
+  // the 8 threads of a row are lanes 8q .. 8q + 7: xor offsets below 8 stay
+  // inside them; a thread that met no code comes last (INT_MAX)
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (best_idx[i] < 0) best_idx[i] = INT_MAX;
+#pragma unroll
+    for (int off = kThreadsK / 2; off > 0; off >>= 1) {
+      const float s = __shfl_xor_sync(0xffffffffu, best[i], off);
+      const int j = __shfl_xor_sync(0xffffffffu, best_idx[i], off);
+      if (precedes(s, j, best[i], best_idx[i])) {
+        best[i] = s;
+        best_idx[i] = j;
+      }
+    }
+    if (tx == 0) {
+      best_s[ty + kThreadsM * i] = best[i];
+      best_i[ty + kThreadsM * i] = best_idx[i];
+    }
+  }
+  IGM_STAMP(3);
+  const int row = row0 + tid;                  // kThreads == kTileM: thread q takes row q
+  if (csize > 1) {
+    cluster_sync();                            // every rank's pairs are written
+    if (rank == 0) {
+      float s = best_s[tid];
+      int j = best_i[tid];
+      for (int r = 1; r < csize; ++r) {
+        const float rs = *remote(&best_s[tid], r);
+        const int rj = *remote(&best_i[tid], r);
+        if (precedes(rs, rj, s, j)) {
+          s = rs;
+          j = rj;
+        }
+      }
+      if (row < m) idx[row] = j;
+    }
+    cluster_sync();                            // no CTA leaves while rank 0 reads it
+  } else {
+    __syncthreads();
+    if (row < m) idx[row] = best_i[tid];
   }
 }
 
@@ -215,184 +284,169 @@ nearest_codebook_kernel(const float* __restrict__ z, const float* __restrict__ e
   cp_async_wait<0>();                          // a rank without tiles still has z in flight
   IGM_STAMP(2);
 
-  // the 8 threads of a row are lanes 8q .. 8q + 7: xor offsets below 8 stay
-  // inside them; a thread that met no code comes last (INT_MAX)
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    if (best_idx[i] < 0) best_idx[i] = INT_MAX;
-#pragma unroll
-    for (int off = kThreadsK / 2; off > 0; off >>= 1) {
-      const float s = __shfl_xor_sync(0xffffffffu, best[i], off);
-      const int j = __shfl_xor_sync(0xffffffffu, best_idx[i], off);
-      if (precedes(s, j, best[i], best_idx[i])) {
-        best[i] = s;
-        best_idx[i] = j;
-      }
-    }
-    if (tx == 0) {
-      best_s[ty + kThreadsM * i] = best[i];
-      best_i[ty + kThreadsM * i] = best_idx[i];
-    }
-  }
-  IGM_STAMP(3);
-  const int row = row0 + tid;                  // kThreads == kTileM: thread q takes row q
-  if (csize > 1) {
-    cluster_sync();                            // every rank's pairs are written
-    if (rank == 0) {
-      float s = best_s[tid];
-      int j = best_i[tid];
-      for (int r = 1; r < csize; ++r) {
-        const float rs = *remote(&best_s[tid], r);
-        const int rj = *remote(&best_i[tid], r);
-        if (precedes(rs, rj, s, j)) {
-          s = rs;
-          j = rj;
-        }
-      }
-      if (row < m) idx[row] = j;
-    }
-    cluster_sync();                            // no CTA leaves while rank 0 reads it
-  } else {
-    __syncthreads();
-    if (row < m) idx[row] = best_i[tid];
-  }
+  merge_and_store(best, best_idx, best_s, best_i, row0, m, idx, csize, rank);
   IGM_STAMP(4);
 }
 
 static_assert(kThreads == kTileM, "the merge gives each thread one row");
 
-// The first kernel of this file, for D > kMaxD: a CTA of 128 threads takes
-// 32 rows of z and walks the codebook in tiles of 64 codes, staging both in
-// shared memory in chunks of 32 features (rows padded by one float against
-// bank conflicts); each thread owns 4 rows x 4 codes of a score tile and
-// the 16 threads of a row merge their (score, index) pairs by shuffles.
-constexpr int kWideTileM = 32;                 // rows of z per CTA
-constexpr int kWideTileK = 64;                 // codes per shared-memory tile
-constexpr int kWideTileD = 32;                 // features per staged chunk
-constexpr int kWideThreadsK = 16;              // threads along the codes
-constexpr int kWideThreadsM = 8;               // threads along the rows
-constexpr int kWideThreads = kWideThreadsK * kWideThreadsM;
-constexpr int kWideRows = kWideTileM / kWideThreadsM;
-constexpr int kWideCodes = kWideTileK / kWideThreadsK;
+// Past kMaxD: the tiles of the resident kernel with D walked in chunks of
+// kChunkD features.  A CTA's steps are (code tile, chunk) pairs in order;
+// step s + 1's z chunk and code chunk arrive by cp.async into the other
+// stage while step s is used, so z is read once per code tile (from L2).
+constexpr int kChunkD = 32;                    // features per stage
+constexpr int kChunkP = kChunkD + 4;           // padded row: 8 n + 4 floats
+constexpr int kStageFloats = (kTileM + kTileK) * kChunkP;
+// CTAs an SM the chunked kernel's cluster rule aims at (its 55 KB of shared
+// memory and 168 registers allow 3)
+constexpr int kChunkedWaves = 3;
 
-__global__ void __launch_bounds__(kWideThreads)
-nearest_codebook_wide_kernel(const float* __restrict__ z, const float* __restrict__ e,
-                             const float* __restrict__ e_sq, int32_t* __restrict__ idx, int m,
-                             int k, int d) {
-  __shared__ float zs[kWideTileM][kWideTileD + 1];
-  __shared__ float es[kWideTileK][kWideTileD + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % kWideThreadsK, ty = tid / kWideThreadsK;
-  const int row0 = blockIdx.x * kWideTileM;
-
-  float best[kWideRows];
-  int best_idx[kWideRows];
-#pragma unroll
-  for (int r = 0; r < kWideRows; ++r) {
-    best[r] = INFINITY;
-    best_idx[r] = INT_MAX;
-  }
-
-  for (int k0 = 0; k0 < k; k0 += kWideTileK) {
-    float acc[kWideRows][kWideCodes];
-#pragma unroll
-    for (int r = 0; r < kWideRows; ++r)
-#pragma unroll
-      for (int j = 0; j < kWideCodes; ++j) acc[r][j] = 0.0f;
-
-    for (int d0 = 0; d0 < d; d0 += kWideTileD) {
-      __syncthreads();                         // the last chunk has been read
-      for (int i = tid; i < kWideTileM * kWideTileD; i += kWideThreads) {
-        const int r = i / kWideTileD, c = i % kWideTileD;
-        const int gr = row0 + r, gc = d0 + c;
-        zs[r][c] = (gr < m && gc < d) ? z[(size_t)gr * d + gc] : 0.0f;
-      }
-      for (int i = tid; i < kWideTileK * kWideTileD; i += kWideThreads) {
-        const int r = i / kWideTileD, c = i % kWideTileD;
-        const int gk = k0 + r, gc = d0 + c;
-        es[r][c] = (gk < k && gc < d) ? e[(size_t)gk * d + gc] : 0.0f;
-      }
-      __syncthreads();
-      // features past D are 0 on both sides: fmaf(0, 0, acc) == acc
-#pragma unroll 8
-      for (int c = 0; c < kWideTileD; ++c) {
-        float zr[kWideRows], ek[kWideCodes];
-#pragma unroll
-        for (int r = 0; r < kWideRows; ++r) zr[r] = zs[ty + r * kWideThreadsM][c];
-#pragma unroll
-        for (int j = 0; j < kWideCodes; ++j) ek[j] = es[tx + j * kWideThreadsK][c];
-#pragma unroll
-        for (int r = 0; r < kWideRows; ++r)
-#pragma unroll
-          for (int j = 0; j < kWideCodes; ++j) acc[r][j] = fmaf(zr[r], ek[j], acc[r][j]);
-      }
+// columns [c0, c0 + kChunkD) of rows [row0, row0 + rows) of src (n, d) into
+// dst (rows, kChunkP) by cp.async, zero past row n and past column d
+__device__ __forceinline__ void stage_chunk(float* dst, const float* __restrict__ src,
+                                            int row0, int rows, int n, int d, int c0,
+                                            bool vec16) {
+  if (vec16) {
+    constexpr int per_row = kChunkD / 4;
+    for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+      const int r = i / per_row, c = (i % per_row) * 4;
+      const bool valid = row0 + r < n && c0 + c < d;
+      cp_async16(dst + r * kChunkP + c, src + (valid ? (size_t)(row0 + r) * d + c0 + c : 0),
+                 valid);
     }
-
-#pragma unroll
-    for (int j = 0; j < kWideCodes; ++j) {
-      const int code = k0 + tx + j * kWideThreadsK;
-      if (code >= k) continue;
-      const float esq = e_sq[code];
-#pragma unroll
-      for (int r = 0; r < kWideRows; ++r) {
-        const float s = esq - 2.0f * acc[r][j];
-        if (precedes(s, code, best[r], best_idx[r])) {
-          best[r] = s;
-          best_idx[r] = code;
-        }
-      }
+  } else {
+    for (int i = threadIdx.x; i < rows * kChunkD; i += kThreads) {
+      const int r = i / kChunkD, c = i % kChunkD;
+      const bool valid = row0 + r < n && c0 + c < d;
+      cp_async4(dst + r * kChunkP + c, src + (valid ? (size_t)(row0 + r) * d + c0 + c : 0),
+                valid);
     }
-  }
-
-  // the 16 threads of a row group are one half-warp: xor offsets below 16
-  // stay inside it
-#pragma unroll
-  for (int r = 0; r < kWideRows; ++r) {
-#pragma unroll
-    for (int off = kWideThreadsK / 2; off > 0; off >>= 1) {
-      const float s = __shfl_xor_sync(0xffffffffu, best[r], off);
-      const int i = __shfl_xor_sync(0xffffffffu, best_idx[r], off);
-      if (precedes(s, i, best[r], best_idx[r])) {
-        best[r] = s;
-        best_idx[r] = i;
-      }
-    }
-    const int row = row0 + ty + r * kWideThreadsM;
-    if (tx == 0 && row < m) idx[row] = best_idx[r];
   }
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kThreads, 3)
+nearest_codebook_chunked_kernel(const float* __restrict__ z, const float* __restrict__ e,
+                                const float* __restrict__ e_sq, int32_t* __restrict__ idx,
+                                int m, int k, int d, int vec16) {
+  extern __shared__ __align__(16) float smem[];  // [2][kTileM + kTileK][kChunkP]
+  __shared__ float best_s[kTileM];
+  __shared__ int best_i[kTileM];
 
-// z (m, d), e (k, d), e_sq (k,) float32 and idx (m,) int32, contiguous on the
-// current device; m, k, d >= 1 (d > 216 runs nearest_codebook_wide_kernel).
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int igm_nearest_codebook_f32(const float* z, const float* e,
-                                        const float* e_sq, int32_t* idx, int m,
-                                        int k, int d, cudaStream_t stream) {
-  if (m < 1 || k < 1 || d < 1) return cudaErrorInvalidValue;
-  if (d > kMaxD) {
-    const dim3 grid((m + kWideTileM - 1) / kWideTileM);
-    nearest_codebook_wide_kernel<<<grid, kWideThreads, 0, stream>>>(z, e, e_sq, idx, m, k, d);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int row_tiles = (m + kTileM - 1) / kTileM;
+  const int tid = threadIdx.x;
+  const int tx = tid % kThreadsK, ty = tid / kThreadsK;
+  const int csize = cluster_size(), rank = cluster_rank();
+  const int row0 = (blockIdx.x / csize) * kTileM;
   const int tiles = (k + kTileK - 1) / kTileK;
-  // the least cluster with which the grid fills the card once (a CTA an
-  // SM), then one CTA more a tile pair: measured on the H100, 4 tiles a CTA
-  // in 128 CTAs beat 2 in 256 at M = 8192, and 1 tile a CTA in 256 CTAs beat
-  // 2 in 128 at M = 4096
+  const int per_rank = (tiles + csize - 1) / csize;
+  const int t_lo = min(tiles, rank * per_rank), t_hi = min(tiles, t_lo + per_rank);
+  const int chunks = (d + kChunkD - 1) / kChunkD;
+  const int steps = (t_hi - t_lo) * chunks;
+  IGM_STAMP(0);
+
+  float best[kRows];
+  int best_idx[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    best[i] = INFINITY;
+    best_idx[i] = -1;
+  }
+
+  // step s: code tile t_lo + s / chunks, features from (s % chunks) * kChunkD
+  auto stage_step = [&](int s, float* buf) {
+    const int c0 = (s % chunks) * kChunkD;
+    stage_chunk(buf, z, row0, kTileM, m, d, c0, vec16);
+    stage_chunk(buf + kTileM * kChunkP, e, (t_lo + s / chunks) * kTileK, kTileK, k, d, c0,
+                vec16);
+  };
+  if (steps > 0) stage_step(0, smem);
+  cp_async_commit();
+  float acc[kRows][kCodes];
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < steps) stage_step(s + 1, smem + (buf ^ 1) * kStageFloats);
+    cp_async_commit();
+    cp_async_wait<1>();                        // all but step s + 1 have arrived
+    __syncthreads();
+    if (s == 0) IGM_STAMP(1);
+    const int chunk = s % chunks;
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCodes; ++j) acc[i][j] = 0.f;
+    }
+    const float* zs = smem + buf * kStageFloats;
+    const float* es = zs + kTileM * kChunkP;
+#pragma unroll 1
+    for (int c = 0; c < kChunkD; c += 4) {
+      float4 zr[kRows], ev[kCodes];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        zr[i] = *reinterpret_cast<const float4*>(zs + (ty + kThreadsM * i) * kChunkP + c);
+#pragma unroll
+      for (int j = 0; j < kCodes; ++j)
+        ev[j] = *reinterpret_cast<const float4*>(es + (tx + kThreadsK * j) * kChunkP + c);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCodes; ++j) acc[i][j] = fmaf(zr[i].x, ev[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCodes; ++j) acc[i][j] = fmaf(zr[i].y, ev[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCodes; ++j) acc[i][j] = fmaf(zr[i].z, ev[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCodes; ++j) acc[i][j] = fmaf(zr[i].w, ev[j].w, acc[i][j]);
+    }
+    if (chunk == chunks - 1) {                 // the tile's scores are whole: merge them
+      const int t = t_lo + s / chunks;
+#pragma unroll
+      for (int j = 0; j < kCodes; ++j) {
+        const int code = t * kTileK + tx + kThreadsK * j;
+        if (code >= k) continue;
+        const float esq = __ldg(e_sq + code);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float sc = esq - 2.0f * acc[i][j];
+          if ((!(sc >= best[i]) && best[i] == best[i]) || best_idx[i] < 0) {
+            best[i] = sc;
+            best_idx[i] = code;
+          }
+        }
+      }
+    }
+    __syncthreads();                           // this stage is free for step s + 2
+  }
+  cp_async_wait<0>();
+  IGM_STAMP(2);
+  merge_and_store(best, best_idx, best_s, best_i, row0, m, idx, csize, rank);
+  IGM_STAMP(4);
+}
+
+// The least cluster with which the grid fills the card `waves` times (CTAs
+// an SM), then one CTA more a tile pair: measured on the H100 for the
+// resident kernel (waves 1), 4 tiles a CTA in 128 CTAs beat 2 in 256 at
+// M = 8192, and 1 tile a CTA in 256 CTAs beat 2 in 128 at M = 4096
+int cluster_for(int row_tiles, int tiles, int waves) {
   int cluster = 1;
-  while (2 * cluster <= kMaxCluster && 2 * cluster <= tiles && row_tiles * cluster < kOneWave)
+  while (2 * cluster <= kMaxCluster && 2 * cluster <= tiles &&
+         row_tiles * cluster < waves * kOneWave)
     cluster *= 2;
   if (2 * cluster <= kMaxCluster && (tiles + cluster - 1) / cluster == 2) cluster *= 2;
-  const int dp = ((d + 7) & ~7) + 4;
-  const bool vec16 = d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(e) % 16 == 0;
-  const size_t smem = (size_t)(kTileM + 2 * kTileK) * dp * sizeof(float);
-  if (cudaError_t err = allow_dynamic_smem(nearest_codebook_kernel, smem)) return err;
+  return cluster;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_clustered(Kernel kernel, int ctas, int cluster, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  if (cudaError_t err = allow_dynamic_smem(kernel, smem)) return err;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(row_tiles * cluster);
+  config.gridDim = dim3(ctas);
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
@@ -403,8 +457,35 @@ extern "C" int igm_nearest_codebook_f32(const float* z, const float* e,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = cluster > 1 ? 1 : 0;
-  if (cudaError_t err = cudaLaunchKernelEx(&config, nearest_codebook_kernel, z, e, e_sq, idx,
-                                           m, k, d, dp, (int)vec16))
-    return err;
+  return cudaLaunchKernelEx(&config, kernel, args...);
+}
+
+}  // namespace
+
+// z (m, d), e (k, d), e_sq (k,) float32 and idx (m,) int32, contiguous on the
+// current device; m, k, d >= 1 (d > 216 runs nearest_codebook_chunked_kernel).
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int igm_nearest_codebook_f32(const float* z, const float* e,
+                                        const float* e_sq, int32_t* idx, int m,
+                                        int k, int d, cudaStream_t stream) {
+  if (m < 1 || k < 1 || d < 1) return cudaErrorInvalidValue;
+  const int row_tiles = (m + kTileM - 1) / kTileM;
+  const int tiles = (k + kTileK - 1) / kTileK;
+  const bool vec16 = d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(e) % 16 == 0;
+  cudaError_t err;
+  if (d > kMaxD) {
+    const int cluster = cluster_for(row_tiles, tiles, kChunkedWaves);
+    err = launch_clustered(nearest_codebook_chunked_kernel, row_tiles * cluster, cluster,
+                           2 * kStageFloats * sizeof(float), stream, z, e, e_sq, idx, m, k,
+                           d, (int)vec16);
+  } else {
+    const int cluster = cluster_for(row_tiles, tiles, 1);
+    const int dp = ((d + 7) & ~7) + 4;
+    err = launch_clustered(nearest_codebook_kernel, row_tiles * cluster, cluster,
+                           (size_t)(kTileM + 2 * kTileK) * dp * sizeof(float), stream, z, e,
+                           e_sq, idx, m, k, d, dp, (int)vec16);
+  }
+  if (err) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -82,7 +82,8 @@ def library(name: str) -> ctypes.CDLL:
 
 def _kernel_name(symbol: str) -> str:
     """A kernel's name from its mangled symbol (namespaces dropped), with
-    its template arguments: ``group_norm_mish_kernel<bf16, 8>``."""
+    its template arguments: ``group_norm_mish_kernel<bf16, 8>``,
+    ``fused_block_mma_kernel<true>``."""
     parts, i = [], 3 if symbol.startswith("_ZN") else 2
     while m := re.match(r"\d+", symbol[i:]):
         n, i = int(m.group()), i + m.end()
@@ -90,11 +91,11 @@ def _kernel_name(symbol: str) -> str:
         i += n
     if not parts:
         return symbol
-    m = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", symbol[i:])
+    m = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+)E", symbol[i:])
     if not m:
         return parts[-1]
-    args = [{"f": "float", "13__nv_bfloat16": "bf16"}.get(a, a[2:-1])
-            for a in re.findall(r"f|13__nv_bfloat16|Li\d+E", m.group(1))]
+    args = [{"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "false", "Lb1E": "true"}.get(
+        a, a[2:-1]) for a in re.findall(r"f|13__nv_bfloat16|Li\d+E|Lb[01]E", m.group(1))]
     return f"{parts[-1]}<{', '.join(args)}>"
 
 

@@ -19,10 +19,12 @@ the device time of one call by kernel, at the flagship's shapes (batch
 256) and the latent UNet's (batch 128), with ``split_us`` in its rows.  So a run imports that checkout's
 ``igm_tpu_torch`` and builds its kernels into that checkout's ``_build/``.
 Prints the card's name and power limit, then one JSON line per run and
-phase: the phase's rows (shape, kernel_ms, plain_ms, bound_ms,
-max_abs_err) and its total kernel time (``kernel_ms`` times
-``calls_per_forward``, summed: the calls of one UNet pass; rows without
-``calls_per_forward``, as parity_vq's, count once).
+phase: the phase's rows (shape, dtype, route, kernel_ms, plain_ms,
+block_ms, library_ms, bound_ms, max_abs_err, where the row has them) and its
+total kernel time (``kernel_ms`` times ``calls_per_forward``, summed over
+the timed rows: the calls of one UNet pass; rows without
+``calls_per_forward``, as parity_vq's and parity_fused_block's, count
+once).
 
 ``--vq-indices`` then builds the base's ``csrc/nearest_codebook.cu`` (the
 same C interface) beside this tree's and runs both in one process on the
@@ -166,8 +168,10 @@ def main(argv=None) -> int:
             print(json.dumps({
                 "run": i, "tree": label, "phase": result["phase"],
                 "batch": rows[0]["shape"][0],
-                "kernel_ms": sum(r["kernel_ms"] * r.get("calls_per_forward", 1) for r in rows),
-                "rows": [{k: r.get(k) for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
+                "kernel_ms": sum(r["kernel_ms"] * r.get("calls_per_forward", 1) for r in rows
+                                 if r.get("kernel_ms") is not None),
+                "rows": [{k: r.get(k) for k in ("shape", "dtype", "route", "kernel_ms",
+                                                "plain_ms", "block_ms", "library_ms", "bound_ms",
                                                 "max_abs_err", "split_us") if k in r}
                          for r in rows]}), flush=True)
     if args.vq_indices:

@@ -3,6 +3,7 @@
     python -m igm_tpu_torch.tools.kernel_stamps [--kernel group_norm_mish_bwd]
         [--dtype bfloat16]
     python -m igm_tpu_torch.tools.kernel_stamps --kernel nearest_codebook
+    python -m igm_tpu_torch.tools.kernel_stamps --kernel fused_block
 
 Builds the kernel's source with ``-DIGM_STAMPS`` (``csrc/mma_sm90.cuh``
 ``IGM_STAMP``: thread 0 of each CTA writes ``%globaltimer`` at the kernel's
@@ -38,6 +39,11 @@ KERNELS = {
     "nearest_codebook": ("nearest_codebook", [
         "z and the first tile arrive", "the code tiles", "merge in the CTA",
         "merge over the cluster"]),
+    # the bf16 tensor-core kernel (fused_block_mma_kernel) at the flagship's
+    # levels, batch 256: the cluster route
+    "fused_block": ("fused_block", [
+        "the first chunk arrives", "the conv (mma.sync)", "statistics (cluster exchange)",
+        "normalise, Mish and write"]),
 }
 SLOTS, MAX_CTAS = 8, 4096       # csrc/mma_sm90.cuh kStampSlots, kStampCtas
 
@@ -100,6 +106,23 @@ def cases(kernel: str, dtype):
 
             sets = c.rotation(make, 3 * c.BATCH * h * w * ch * elt)
             yield [c.BATCH, h, w, ch], (lambda *a: group_norm_mish_bwd(*a, 8)), sets
+    elif kernel == "fused_block":
+        from igm_tpu_torch.ops.fused_block import fused_block_fwd
+        from igm_tpu_torch.tools.bench_fused_block import SHAPES
+        for h, w, ci, co in SHAPES:
+            n = c.BATCH
+            g = torch.Generator(device="cuda").manual_seed(n * 1000 + h + co)  # parity's seed
+
+            def make(i, n=n, h=h, w=w, ci=ci, co=co, g=g):
+                return (torch.randn(n, h, w, ci, generator=g, device="cuda").to(torch.bfloat16),
+                        (torch.randn(3, 3, ci, co, generator=g, device="cuda") * 0.05).to(
+                            torch.bfloat16),
+                        torch.randn(co, generator=g, device="cuda") * 0.1,
+                        1 + torch.randn(co, generator=g, device="cuda") * 0.1,
+                        torch.randn(co, generator=g, device="cuda") * 0.1)
+
+            yield ([n, h, w, ci, co], fused_block_fwd,
+                   c.rotation(make, c.fused_block_bound(n, h, w, ci, co, torch.bfloat16)["bytes"]))
     else:
         from igm_tpu_torch.ops.vq import nearest_codebook
         for m, k, d in c.VQ_SHAPES:
@@ -119,7 +142,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_stamps: needs a CUDA card")
-    from igm_tpu_torch.ops import _build, groupnorm, vq
+    from igm_tpu_torch.ops import _build, fused_block, groupnorm, vq
     from igm_tpu_torch.tools.profiling import nvidia_smi
     print(nvidia_smi(), flush=True)
     source, phases = KERNELS[args.kernel]
@@ -130,6 +153,7 @@ def main(argv=None) -> int:
     _build.library = lambda name: lib if name == source else plain_library(name)
     groupnorm._kernels.cache_clear()
     vq._kernel.cache_clear()
+    fused_block._kernels.cache_clear()
     try:
         for shape, fn, sets in cases(args.kernel, getattr(torch, args.dtype)):
             for a in sets:
@@ -138,13 +162,15 @@ def main(argv=None) -> int:
             before = read(lib)
             fn(*sets[0])                       # the rotation has moved it out of L2
             torch.cuda.synchronize()
-            dtype = args.dtype if args.kernel == "group_norm_mish_bwd" else "float32"
+            dtype = {"group_norm_mish_bwd": args.dtype, "fused_block": "bfloat16"}.get(
+                args.kernel, "float32")
             print(json.dumps({"kernel": args.kernel, "dtype": dtype, "shape": shape,
                               **summary(before, read(lib), phases)}), flush=True)
     finally:
         _build.library = plain_library
         groupnorm._kernels.cache_clear()
         vq._kernel.cache_clear()
+        fused_block._kernels.cache_clear()
     return 0
 
 

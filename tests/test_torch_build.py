@@ -26,6 +26,10 @@ NS = "_ZN53_GLOBAL__N__80ca1e8f_20_dropout_attention_cu_efa49c01"
      "dropout_attention_dq_kernel<float>"),
     ("_ZN51_GLOBAL__N__cc202229_18_group_norm_mish_cu_3252673626group_norm_mish_bwd_kernel"
      "I13__nv_bfloat16Li8EEEvPKT_PKfS6_S4_PS2_PfS8_iiif", "group_norm_mish_bwd_kernel<bf16, 8>"),
+    ("_ZN47_GLOBAL__N__0c3f5a11_14_fused_block_cu_6e2b41d722fused_block_mma_kernelILb1EEEvPK13"
+     "__nv_bfloat16S3_PKfS5_S5_PS1_PfS7_NS_7MmaPlanEf", "fused_block_mma_kernel<true>"),
+    ("_ZN47_GLOBAL__N__0c3f5a11_14_fused_block_cu_6e2b41d722fused_block_mma_kernelILb0EEEvPK13"
+     "__nv_bfloat16S3_PKfS5_S5_PS1_PfS7_NS_7MmaPlanEf", "fused_block_mma_kernel<false>"),
     ("_Z15group_norm_mishPKf", "group_norm_mish"),
     ("not_mangled", "not_mangled"),
 ])

@@ -24,6 +24,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from igm_tpu_torch.ops import dropout_attention as da  # noqa: E402
+from igm_tpu_torch.ops import fused_block as fb  # noqa: E402
 from igm_tpu_torch.ops.fused_block import block_fwd_plain, fused_block_fwd  # noqa: E402
 from igm_tpu_torch.ops.groupnorm import (  # noqa: E402
     GroupNormMishFn, group_norm_mish, group_norm_mish_bwd, group_norm_mish_bwd_plain,
@@ -389,6 +390,21 @@ def test_nearest_codebook_kernel(gen, m, k, d):
     n_diff, gap, _ = near_tie_gaps(z, book, got, want)
     print(f"rows that differ: {n_diff} of {m}, largest gap {gap:.3g}")
     assert gap <= 1.0
+    if d > RESIDENT_MAX_D:              # the chunked kernel: no row differed here before
+        assert n_diff == 0
+
+
+def test_nearest_codebook_chunked_kernel_exact_ties(gen):
+    """D = 256 (the chunked kernel): a codebook of two copies of its first
+    half scores every code and its copy the same bits, so each row's code is
+    in the first half, and it is the plain version's."""
+    z = torch.randn(4096, 256, generator=gen, device="cuda")
+    half = torch.randn(256, 256, generator=gen, device="cuda")
+    book = torch.cat([half, half])
+    got = nearest_codebook(z, book)
+    assert int(got.max()) < 256
+    assert torch.equal(got, nearest_codebook_plain(z, book))
+    assert torch.equal(got, nearest_codebook(z, half))
 
 
 def test_nearest_codebook_kernel_ties_and_hits(gen):
@@ -582,8 +598,11 @@ def test_dropout_attention_rejects_what_it_cannot_take(gen):
 
 # (N, H, W, Cin, Cout): tests/test_fused_block.py's (odd spatial with cg = 3,
 # RGB input), N that is a multiple of nothing, and the flagship's middle level
+# (bf16: the cluster route, 2 tiles a sample); then two shapes the group kernel
+# refused, on the two-pass routes: 64x64 at Cout 128 (cg 16 needed 2,048
+# threads) and a 128x128 level (Cin 8: the tensor cores' chunk half empty)
 FUSED_SHAPES = [(4, 8, 8, 16, 16), (2, 6, 5, 8, 24), (2, 4, 4, 3, 16), (3, 7, 9, 5, 40),
-                (17, 16, 16, 128, 128)]
+                (17, 16, 16, 128, 128), (2, 64, 64, 16, 128), (1, 128, 128, 8, 64)]
 # float32: the conv sums in another order than cuDNN's, as
 # tests/test_fused_block.py holds the Pallas kernel to XLA
 FUSED_F32_ATOL = 3e-5
@@ -619,17 +638,64 @@ def test_fused_block_kernel(gen, no_tf32, dtype, n, h, w, ci, co):
         _close(got, want, dtype)
 
 
-def test_fused_block_kernel_repeats_exactly(gen):
-    """No atomics: the same inputs give the same bits."""
-    args = _fused_inputs(gen, 8, 32, 32, 64, 64, torch.bfloat16)
+@pytest.mark.parametrize("dtype,shape,route", [
+    (torch.bfloat16, (8, 32, 32, 64, 64), "cluster"),
+    (torch.bfloat16, (2, 64, 64, 16, 128), "two_pass_mma"),
+    (torch.float32, (2, 64, 64, 16, 128), "two_pass_fma"),
+], ids=str)
+def test_fused_block_kernel_repeats_exactly(gen, dtype, shape, route):
+    """No atomics: the same inputs give the same bits, on the cluster route
+    and both two-pass routes."""
+    n, h, w, ci, co = shape
+    assert fb._route(n, h, w, ci, co, 8, dtype) == route
+    args = _fused_inputs(gen, *shape, dtype)
     assert torch.equal(fused_block_fwd(*args), fused_block_fwd(*args))
 
 
+@pytest.mark.parametrize("h,w,cin,cout,groups", [
+    (32, 32, 64, 64, 8), (16, 16, 128, 128, 8), (8, 8, 256, 256, 8), (64, 64, 16, 128, 8),
+    (128, 128, 8, 64, 8), (7, 9, 8, 32, 4), (1, 8000, 8, 8, 8), (3, 7, 5, 40, 8),
+    (5, 300, 24, 256, 256)])
+def test_fused_block_routes_match_the_library(gen, h, w, cin, cout, groups):
+    """The wrapper's tile counts (it sizes the partials by them) are the
+    built library's plans."""
+    k = fb._kernels()
+    mma = fb._mma_tiles(h, w, cin, cout, groups)
+    assert k["mma_tiles"](h, w, cin, cout, groups) == (-1 if mma is None else mma)
+    assert k["fma_tiles"](h, w, cin, cout, groups) == fb._fma_tiles(h, w, cout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_fused_block_kernel_takes_any_group(gen, no_tf32, dtype):
+    """A group of 64x64 positions x 64 channels, which the group kernel refused,
+    and a 1 x 8000 row (a 3 x 8002 tile of one channel did not fit its
+    shared memory): the two-pass routes."""
+    for shape, groups in (((1, 64, 64, 8, 64), 1), ((1, 1, 8000, 8, 8), 8)):
+        args = _fused_inputs(gen, *shape, dtype)
+        before = fused_block_fwd.launches
+        got = fused_block_fwd(*args, groups=groups)
+        torch.cuda.synchronize()
+        assert fused_block_fwd.launches == before + 1
+        want = block_fwd_plain(*args, groups=groups)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=FUSED_F32_ATOL, rtol=0)
+        else:
+            _close(got, want, dtype)
+
+
 def test_fused_block_kernel_rejects_what_it_cannot_take(gen):
+    """What igm_tpu refuses, and what no CUDA kernel takes; a group that PR
+    6's block refused now launches (the two-pass route)."""
     x, w, b, sc, bi = _fused_inputs(gen, 1, 64, 64, 8, 64, torch.float32)
     before = fused_block_fwd.launches
-    with pytest.raises(ValueError, match="limit is 1024"):
-        fused_block_fwd(x, w, b, sc, bi, groups=1)                    # oversize group
+    fused_block_fwd(x, w, b, sc, bi, groups=1)                        # formerly refused
+    assert fused_block_fwd.launches == before + 1
+    before = fused_block_fwd.launches
+    with pytest.raises(ValueError, match="not divisible by groups"):
+        fused_block_fwd(x, w, b, sc, bi, groups=3)
+    with pytest.raises(ValueError, match="16-byte boundary"):        # cp.async
+        xb = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:]
+        fused_block_fwd(xb.view(x.shape).copy_(x), w, b, sc, bi)
     with pytest.raises(ValueError):
         fused_block_fwd(x.transpose(1, 2), w, b, sc, bi)             # not contiguous
     with pytest.raises(TypeError):

@@ -97,12 +97,61 @@ def test_fused_block_checks_shapes_and_devices():
     (1, 8000, 8, 8, "limit is 47104"),       # 1000 slots, a 3x8002 tile of one channel
 ])
 def test_fused_block_group_limit(h, w, cout, groups, limit):
-    """The groups the kernel's block cannot hold are refused before a launch,
-    with the limit in the message; the flagship levels fit."""
-    with pytest.raises(ValueError, match=limit):
-        fb._check_fits(h, w, cout, groups)
-    for h, w, _, c in bench_fused_block.SHAPES:
-        fb._check_fits(h, w, c, 8)
+    """The groups that the group kernel's block could not hold (it refused them with
+    ``limit``) are taken now, as igm_tpu takes any shape: in f32 by the
+    two-pass kernel pair; in bf16 by the tensor cores where they have a plan
+    (64x64 at Cout 64 is 8 tiles of 512 positions: one cluster a sample) and
+    by the two-pass pair where not (Cout 8).  The flagship levels route to
+    the cluster kernel in bf16 and to the group kernel in f32."""
+    assert not fb._group_kernel_fits(h, w, 8, cout, groups)
+    assert fb._route(2, h, w, 8, cout, groups, torch.float32) == "two_pass_fma"
+    want = "cluster" if cout in fb.MMA_COUTS else "two_pass_fma"
+    assert fb._route(2, h, w, 8, cout, groups, torch.bfloat16) == want
+    for h, w, ci, c in bench_fused_block.SHAPES:
+        assert fb._route(256, h, w, ci, c, 8, torch.bfloat16) == "cluster"
+        assert fb._route(256, h, w, ci, c, 8, torch.float32) == "group"
+
+
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((256, 32, 32, 64, 64), torch.bfloat16, "cluster"),       # 2 tiles of 16 rows
+    ((256, 8, 8, 256, 256), torch.bfloat16, "cluster"),       # 2 samples a tile
+    ((2, 64, 64, 16, 128), torch.bfloat16, "two_pass_mma"),   # 16 tiles of 4 rows
+    ((1, 128, 128, 8, 64), torch.bfloat16, "two_pass_mma"),   # Cin 8: half a chunk
+    ((2, 64, 64, 16, 128), torch.float32, "two_pass_fma"),    # f32: exact FMAs only
+    ((4, 8, 8, 16, 16), torch.bfloat16, "group"),             # Cout 16: no tensor-core plan
+    ((2, 4, 4, 3, 64), torch.bfloat16, "group"),              # Cin 3: not 16-byte rows
+])
+def test_fused_block_route(shape, dtype, route):
+    n, h, w, ci, co = shape
+    assert fb._route(n, h, w, ci, co, 8, dtype) == route
+
+
+def test_fused_block_route_names_cuda_limits():
+    """Only CUDA's own limits are refused, by name: the grid's 2^31 - 1 CTAs
+    and the two-pass finish's groups in shared memory."""
+    with pytest.raises(ValueError, match="grid limit"):
+        fb._route(2 ** 30, 64, 64, 16, 128, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 16384"):
+        fb._route(1, 128, 128, 8, 32768, 32768, torch.float32)
+
+
+def test_fused_block_plain_matches_igm_tpu_past_the_old_limit():
+    """A shape the group kernel refused (cg 16 over 64x64 positions needed 2,048
+    threads): the plain version, which the card's two-pass kernels are held
+    to, against igm_tpu's Pallas kernel in interpret mode, f32, atol 3e-5."""
+    n, h, w, ci, co, groups = 1, 64, 64, 4, 32, 2
+    assert not fb._group_kernel_fits(h, w, ci, co, groups)
+    assert fb._route(n, h, w, ci, co, groups, torch.float32) == "two_pass_fma"
+    rng = np.random.default_rng(0)
+    arrays = (rng.normal(size=(n, h, w, ci)).astype(np.float32),
+              (rng.normal(size=(3, 3, ci, co)) * 0.1).astype(np.float32),
+              (rng.normal(size=(co,)) * 0.1).astype(np.float32),
+              (1 + rng.normal(size=(co,)) * 0.1).astype(np.float32),
+              (rng.normal(size=(co,)) * 0.1).astype(np.float32))
+    x, wt, *vectors = (torch.from_numpy(a) for a in arrays)
+    got = fb.fused_block_fwd(x, wt, *vectors, groups=groups).numpy()
+    want = jax_fused(*(jnp.asarray(a) for a in arrays), groups=groups, nb=1, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=F32_ATOL)
 
 
 def test_bench_tool_on_the_cpu(capsys):
