@@ -89,9 +89,30 @@ and prints no result line):
           each flagship level, and exactly 3 x (20 x (1 + 3) + 1) launches of
           the fused-block kernel (and of the Block's GroupNorm+Mish); no
           other path launches it.
+  dit     the DiT backbone, its Switch-MoE, EDM and flow matching, counters
+          zeroed just before and read just after: full-width DiT forwards
+          (384 wide, 8 deep, 6 heads, batch 8, f32, TF32 off) on the card
+          against the same weights on the CPU, the xla, flash and scan arms
+          and an MoE DiT (8 experts every 2nd block, scatter); one f32
+          train step's loss and gradients of the DDPM-DiT, EDM and flow on
+          the DiT against the CPU; EDM's and flow's train steps on the
+          flagship-width UNet (exactly 25 + 25 GroupNorm+Mish and 6 + 6
+          linear attention); the train CLI on ddpm/cifar10_dit (DDIM
+          validation), ddpm/cifar10_dit_v (DPM validation), edm/cifar10_dit
+          and flow/cifar10_dit (2 epochs of 3 steps, then a resume) and the
+          sampling CLI from their checkpoints (--sampler ddim, dpm, heun,
+          the ODE); one block's attention core forward and backward at the
+          train step's shapes, the xla arm and SDPA; the train step at
+          batch 256 bf16 for attn=xla, attn=flash and the MoE DiT, graphed
+          against eager a-b-b-a (ms, images/s, peak memory, a profile of
+          each: idle share and device ms by group); DDIM-50 and DPM-20 on
+          the DiT, EDM Heun-18 and flow Heun-50 on the DiT and the UNet at
+          batch 64, graphed against eager a-b-b-a.  Every DiT run launches
+          exactly no hand kernel; a UNet sampler 25 and 6 a forward.
   chain   graphed against eager (igm_tpu_torch/core/graphs.py): the train
           steps of the flagship (batch 256, bf16), the VQ-VAE (128, f32),
-          the latent DDPM (128) and TAR (128, flash_attention=dropout), K
+          the latent DDPM (128), TAR (128, flash_attention=dropout) and the
+          DiT, dense and MoE (256, bf16, no hand kernel), K
           graphed steps (the first call eager and captured, the second a
           replay) against K eager steps from the same state at K = 1 and 4:
           parameters, buffers, Adam moments and step counts, generator and
@@ -640,6 +661,12 @@ PATH_KERNELS = {
                "linear_attention_bwd", "nearest_codebook"),
     "tar": ("dropout_attention_fwd", "dropout_attention_dq", "dropout_attention_dkv"),
     "fused_block": ("fused_block_fwd",),
+    # the DiT's paths (forwards, train steps, the CLIs, DDIM, DPM, Heun, the
+    # ODE) launch no hand kernel: phase dit holds them to exactly 0
+    "dit": (),
+    # EDM's and flow matching's train steps and samplers on the UNet
+    "edm_flow_unet": ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
+                      "linear_attention_bwd"),
 }
 
 
@@ -1727,8 +1754,443 @@ def phase_fused_block() -> dict:
     return row
 
 
+# ---------------------------------------------------------------- dit
+# the four DiT configs' full width (configs/experiment/ddpm/cifar10_dit.yaml):
+# 384 wide, 8 deep, 6 heads of 64, patch 2 (256 tokens at 32x32x3)
+DIT_WIDTH = dict(dim=384, depth=8, heads=6, patch=2, channels=3)
+DIT_MOE = dict(moe_experts=8, moe_every=2, moe_dispatch="scatter")
+DIT_MOE_OVERRIDES = [f"+model.{k}={v}" for k, v in DIT_MOE.items()]
+DIT_EXPERIMENTS = ("ddpm/cifar10_dit", "ddpm/cifar10_dit_v", "edm/cifar10_dit",
+                   "flow/cifar10_dit")
+DIT_REF_BATCH = 8                    # card against CPU: forwards
+DIT_STEP_BATCH = 4                   # card against CPU: train steps
+# float32 with TF32 off on both sides: the same GEMMs and softmaxes summed in
+# another order over 8 blocks (a few ulps a layer); held to 1e-4 of the
+# output's largest value, the loss to 1e-4 of itself, and the gradients to
+# 1e-3 of the largest gradient entry plus 1% of each, as train_unet holds them
+DIT_FWD_RTOL = 1e-4
+# the bf16 DiT on the card against the f32 forward on the CPU: the residual
+# stream, every GEMM input and the probabilities round to bf16 (2^-8 of a
+# value); held to 2% of the output's largest value, as
+# tests/test_torch_cuda.py::test_dit_bf16_forward_near_f32 holds it
+DIT_BF16_RTOL = 2e-2
+DIT_TIMED_STEPS = 10
+DIT_PROFILED_STEPS = 5
+DIT_SAMPLE_BATCH = 64
+# the train step's FLOPs at batch 256 (README's count for igm_tpu's Flax
+# tree, forward and backward): the bound at the bf16 tensor-core rate
+DIT_STEP_FLOPS = 6.274e12
+
+
+def _release() -> None:
+    """Free the device memory of models no longer referenced: their CUDA
+    graphs' pools sit in reference cycles (a graph's callable holds its
+    model), which only the cycle collector breaks."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _seeded_dit(gen, **kw):
+    """A full-width DiT on the CPU, its Flax-default init drawn from ``gen``
+    and every parameter moved by 0.05 N(0, 1) (adaLN-Zero would output 0)."""
+    import torch
+    from igm_tpu_torch.networks.dit import DiT
+    net = DiT(**DIT_WIDTH, **kw).eval()
+    for m in net.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return net
+
+
+def dit_reference() -> dict:
+    """Full-width DiT forwards (batch 8, f32, TF32 off) on the card against
+    the same weights on the CPU: the xla, flash and scan arms of a dense
+    DiT against one CPU forward, and an MoE DiT; no hand-kernel launch."""
+    import torch
+    from igm_tpu_torch.networks.dit import DiT
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(DIT_REF_BATCH, 32, 32, 3, generator=gen)
+    t = torch.rand(DIT_REF_BATCH, generator=gen) * 999
+    out = {}
+    for name, kw, arms in (("dense", {}, ("xla", "flash", "scan")),
+                           ("moe", DIT_MOE, ("xla",))):
+        net = _seeded_dit(gen, **kw)
+        with torch.no_grad():
+            want = net(x, t)
+        scale = want.abs().max().item()
+        for arm in arms + (("xla_bf16", "flash_bf16") if name == "dense" else ()):
+            arm, bf16 = arm.removesuffix("_bf16"), arm.endswith("_bf16")
+            card = DiT(**DIT_WIDTH, **kw, **(dict(block_mode="scan") if arm == "scan"
+                                            else dict(attn=arm)),
+                       dtype=torch.bfloat16 if bf16 else None).eval()
+            card.load_state_dict(net.state_dict())
+            card.to("cuda")
+            before = counts()
+            with torch.no_grad():
+                got = card(x.cuda(), t.cuda())
+            torch.cuda.synchronize()
+            launched = since(before)
+            err = (got.cpu() - want).abs().max().item()
+            rtol = DIT_BF16_RTOL if bf16 else DIT_FWD_RTOL
+            dtype = "bfloat16" if bf16 else "float32"
+            check(launched == expected(), f"dit {name} {arm}: launched {launched}")
+            check(math.isfinite(err) and err <= rtol * scale,
+                  f"dit {name} {arm} {dtype} forward: card vs CPU max err {err} beyond "
+                  f"{rtol} x {scale}")
+            out[f"{name}_{arm}_{dtype}"] = row = dict(batch=DIT_REF_BATCH, dtype=dtype,
+                                                      max_abs_err=err, output_abs_max=scale,
+                                                      rtol_of_max=rtol)
+            emit("dit", run="reference", net=name, arm=arm, **row)
+            del card
+    _release()
+    return out
+
+
+def dit_train_reference() -> dict:
+    """One f32 train step's loss and gradients (the DDPM-DiT, EDM and flow
+    losses on the full-width DiT, batch 4, TF32 off) on the card against the
+    same weights and draws on the CPU; no hand-kernel launch."""
+    import torch
+    from igm_tpu_torch.config import compose, instantiate
+    gen = torch.Generator().manual_seed(23)
+    out = {}
+    for experiment in ("ddpm/cifar10_dit", "edm/cifar10_dit", "flow/cifar10_dit"):
+        cfg = compose(REPO / "configs", [f"experiment={experiment}", "print_config=False"])
+        models = [instantiate(cfg.model, datamodule=cfg.datamodule, device=d,
+                              compute_dtype="float32") for d in ("cuda", "cpu")]
+        name = models[0].weights_module
+        weights = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+                   for k, v in models[1].modules.state_dict().items()}
+        imgs = torch.randint(0, 256, (DIT_STEP_BATCH, 32, 32, 3), generator=gen,
+                             dtype=torch.uint8)
+        noise = torch.randn(DIT_STEP_BATCH, 32, 32, 3, generator=gen)
+        if experiment.startswith("ddpm"):
+            level = torch.randint(0, models[0].timesteps, (DIT_STEP_BATCH,), generator=gen)
+        elif experiment.startswith("edm"):
+            level = torch.exp(-1.2 + 1.2 * torch.randn(DIT_STEP_BATCH, generator=gen))
+        else:
+            level = torch.rand(DIT_STEP_BATCH, generator=gen)
+        res = []
+        for model in models:
+            dev = model.device
+            model.modules.load_state_dict(weights)
+            before = counts()
+            loss, _ = model.loss(model.preprocess(imgs), level.to(dev), noise.to(dev))
+            grads = torch.autograd.grad(loss, list(model.modules[name].parameters()))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                launched = since(before)
+            res.append((loss.item(), [g.cpu() for g in grads]))
+        (l_card, g_card), (l_cpu, g_cpu) = res
+        scale = max(g.abs().max().item() for g in g_cpu)
+        err = max(((a - b).abs() - 1e-2 * b.abs()).max().item() for a, b in zip(g_card, g_cpu))
+        rel = max(((a - b).abs().max() / scale).item() for a, b in zip(g_card, g_cpu))
+        check(launched == expected(), f"dit train {experiment}: launched {launched}")
+        check(math.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu),
+              f"dit train {experiment}: loss card {l_card} vs CPU {l_cpu}")
+        check(err <= 1e-3 * scale, f"dit train {experiment}: gradient error {err} "
+                                   f"beyond 1e-3 x {scale}")
+        out[experiment] = row = dict(batch=DIT_STEP_BATCH, dtype="float32", loss_card=l_card,
+                                     loss_cpu=l_cpu, grad_max_abs_err_over_max_grad=rel,
+                                     max_grad=scale, parameters=len(g_cpu))
+        emit("dit", run="train_reference", experiment=experiment, **row)
+        del models
+    _release()
+    return out
+
+
+def dit_unet_launches() -> tuple:
+    """EDM's and flow's train step on the flagship-width UNet (experiment=
+    edm/cifar10, flow/cifar10, bf16, batch 8): exactly 25 + 25
+    GroupNorm+Mish and 6 + 6 linear-attention launches each."""
+    import torch
+    total = expected()
+    for experiment in ("edm/cifar10", "flow/cifar10"):
+        model, _ = _chain_model(experiment, [f"experiment={experiment}"])
+        state = model.init_state(0)
+        imgs, labels = _chain_batches(model, 8, 1, 13)
+        before = counts()
+        state, metrics = model.train_step(state, (imgs[0], labels[0]))
+        torch.cuda.synchronize()
+        launched = since(before)
+        check(launched == expected(group_norm_mish=25, linear_attention=6,
+                                   group_norm_mish_bwd=25, linear_attention_bwd=6),
+              f"{experiment} train step launched {launched}")
+        check(math.isfinite(float(metrics["train_loss/loss"])), f"{experiment}: loss")
+        total = tuple(a + b for a, b in zip(total, launched))
+        emit("dit", run="unet_train_step", experiment=experiment,
+             loss=float(metrics["train_loss/loss"]), launches=dict(zip(KERNELS, launched)))
+        del model, state
+    _release()
+    return total
+
+
+def dit_cli() -> tuple:
+    """The train CLI on the four DiT experiments (2 epochs of 3 steps with
+    validation samples, then a resume for one more epoch), then the
+    sampling CLI from their checkpoints: --sampler ddim, dpm, heun, and flow
+    matching's default ODE.  Returns the launches (all 0)."""
+    from PIL import Image
+    from igm_tpu_torch.cli import sample_main
+    before = counts()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for experiment in DIT_EXPERIMENTS:
+            run = tmp / "logs" / "runs" / experiment
+            extra = ["model.val_sampler=ddim"] if experiment == "ddpm/cifar10_dit" else []
+            for name, overrides, ckpts in (
+                    ("fit", ["trainer.max_epochs=2"], ["step_3.pt", "step_6.pt"]),
+                    ("resume", ["trainer.max_epochs=3",
+                                f"trainer.resume={run / 'checkpoints'}"],
+                     ["step_6.pt", "step_9.pt"])):
+                t0 = time.perf_counter()
+                loss = _train_cli(tmp, *extra, *overrides, experiment=experiment)
+                got = sorted(p.name for p in (run / "checkpoints").iterdir())
+                check(loss is not None and math.isfinite(loss),
+                      f"{experiment} {name}: loss {loss}")
+                check(got == ckpts, f"{experiment} {name}: checkpoints {got}")
+                grids = sorted(p.name for p in (run / "results").iterdir())
+                check(grids[:2] == ["0.jpg", "1.jpg"], f"{experiment}: grids {grids}")
+                out[f"{experiment} {name}"] = row = dict(seconds=time.perf_counter() - t0,
+                                                         loss=loss, checkpoints=got)
+                emit("dit", run="cli_train", experiment=experiment, stage=name, **row)
+        for experiment, sampler in (("ddpm/cifar10_dit", "ddim"), ("ddpm/cifar10_dit_v", "dpm"),
+                                    ("edm/cifar10_dit", "heun"), ("flow/cifar10_dit", None)):
+            png = tmp / f"{experiment.replace('/', '_')}.png"
+            t0 = time.perf_counter()
+            imgs = sample_main([f"experiment={experiment}", "--ckpt",
+                                str(tmp / "logs" / "runs" / experiment / "checkpoints"),
+                                "--n", "16", "--out", str(png),
+                                *(["--sampler", sampler] if sampler else [])])
+            with Image.open(png) as img:
+                size = img.size
+            check(tuple(imgs.shape) == (16, 32, 32, 3) and bool(imgs.isfinite().all()),
+                  f"{experiment} --sampler {sampler}: {tuple(imgs.shape)}")
+            check(size == (2 + 8 * 34, 2 + 2 * 34), f"{experiment} grid {size}")
+            emit("dit", run="cli_sample", experiment=experiment, sampler=sampler or "ode",
+                 seconds=time.perf_counter() - t0, grid=list(size))
+    _release()
+    launched = since(before)
+    check(launched == expected(), f"dit CLIs launched {launched}")
+    return launched
+
+
+def _abba(run, warm: int = 1) -> dict:
+    """``run(graphed)`` timed eager, graphed, graphed, eager (host clock,
+    fenced): seconds of each turn by mode."""
+    import torch
+    for mode in (True, False):
+        for _ in range(warm):
+            run(mode)
+    sec = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(mode == "graphed")
+        torch.cuda.synchronize()
+        sec[mode].append(time.perf_counter() - t0)
+    return sec
+
+
+def top_kernels(prof, steps: int, n: int = 12) -> list:
+    """The ``n`` kernels with the most device time per step: [name (cut to
+    90 characters), ms, launches]."""
+    import torch
+    from collections import defaultdict
+    us, count = defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            us[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
+    top = sorted(us, key=us.get, reverse=True)[:n]
+    return [[k[:90], us[k] / 1e3 / steps, count[k] / steps] for k in top]
+
+
+def dit_train_timed(name: str, overrides: list[str]) -> dict:
+    """The DiT train step at batch 256, bf16: graphed against eager a-b-b-a
+    (ms, images/s), the peak memory of each, and a profile of each mode:
+    device busy ms, idle share, device ms by group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from igm_tpu_torch.tools.profiling import DIT_GROUPS, device_summary
+    model, _ = _chain_model(name, overrides)
+    check(model.compute_dtype == torch.bfloat16, f"{name}: not bf16")
+    state = model.init_state(0)
+    chunk = _chain_batches(model, TRAIN_BATCH, 1, 17)
+    metrics = {}
+
+    def steps(graphed: bool, n: int = DIT_TIMED_STEPS):
+        nonlocal state, metrics
+        for _ in range(n):
+            state, metrics = model.train_step_n(state, chunk, graph=graphed)
+
+    before = counts()
+    sec = _abba(steps)
+    ms = {m: [1e3 * s / DIT_TIMED_STEPS for s in v] for m, v in sec.items()}
+    peak = {}
+    for mode in ("eager", "graphed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps(mode == "graphed", 2)
+        torch.cuda.synchronize()
+        peak[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof_rows = {}
+    for mode in ("eager", "graphed"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(mode == "graphed", DIT_PROFILED_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof_rows[mode] = device_summary(prof, DIT_PROFILED_STEPS,
+                                         1e-3 * min(ms[mode]) * DIT_PROFILED_STEPS, wall,
+                                         DIT_GROUPS)
+        prof_rows[mode]["top_kernels_ms_per_step"] = top_kernels(prof, DIT_PROFILED_STEPS)
+    launched = since(before)
+    loss = float(metrics["train_loss/loss"])
+    check(launched == expected() and math.isfinite(loss),
+          f"{name} timed: launches {launched}, loss {loss}")
+    row = dict(batch=TRAIN_BATCH, dtype="bfloat16", ms_per_step=ms,
+               images_per_s={m: [TRAIN_BATCH * 1e3 / t for t in v] for m, v in ms.items()},
+               bound_ms=1e3 * DIT_STEP_FLOPS / PEAK_OPS["bfloat16"], peak_memory_gib=peak,
+               profile=prof_rows, loss=loss,
+               metrics={k: float(v) for k, v in metrics.items()})
+    emit("dit", run="train_timed", model=name, **row)
+    del model, state
+    _release()
+    return row
+
+
+def dit_attention_core() -> dict:
+    """One block's attention core, forward and backward, at the train step's
+    shapes (B 256, 256 tokens, 6 heads of 64, bf16, q/k/v slices of the
+    head-grouped qkv): the xla arm (the product-softmax-product) and SDPA,
+    CUDA-event timed; x8 is the step's."""
+    import torch
+    from igm_tpu_torch.networks.dit import attention_core
+    from igm_tpu_torch.ops.causal_attention import flash_full_attention
+    gen = torch.Generator("cuda").manual_seed(19)
+    b, n, h, hd = TRAIN_BATCH, 256, 6, 64
+    qkv = torch.randn(b, n, h, 3 * hd, generator=gen, device="cuda",
+                      dtype=torch.bfloat16).requires_grad_(True)
+    g = torch.randn(b, n, h, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for arm, core in (("xla", attention_core),
+                      ("flash", lambda q, k, v: flash_full_attention(q, k, v, hd ** -0.5))):
+        def run():
+            o = core(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:])
+            torch.autograd.grad(o, qkv, g.to(o.dtype))
+        out[arm] = time_ms(run, [()], iters=10)
+    flops = 3 * 4 * b * h * n * n * hd             # two products, forward and backward
+    row = dict(shape=[b, n, h, hd], dtype="bfloat16", ms_per_block=out,
+               ms_per_step={k: 8 * v for k, v in out.items()},
+               bound_ms_per_block=1e3 * flops / PEAK_OPS["bfloat16"])
+    emit("dit", run="attention_core", **row)
+    return row
+
+
+def dit_samplers() -> tuple[dict, tuple, tuple]:
+    """DDIM-50 and DPM-20 on the DiT, EDM Heun-18 and flow Heun-50 on the DiT
+    and on the flagship-width UNet, batch 64, bf16: images/s graphed against
+    eager a-b-b-a, and the launches of the graphed runs (0 on the DiT; 25
+    and 6 a UNet forward)."""
+    import torch
+    out, dit_l, unet_l = {}, expected(), expected()
+    cases = (("dit", "ddim", "ddpm/cifar10_dit"), ("dit", "dpm", "ddpm/cifar10_dit"),
+             ("dit", "edm_heun", "edm/cifar10_dit"), ("unet", "edm_heun", "edm/cifar10"),
+             ("dit", "flow_heun", "flow/cifar10_dit"), ("unet", "flow_heun", "flow/cifar10"))
+    models = {}
+    n = DIT_SAMPLE_BATCH
+    for backbone, sampler, experiment in cases:
+        if experiment not in models:
+            models[experiment], _ = _chain_model(experiment, [f"experiment={experiment}"])
+            models[experiment].init_state(0)
+        model = models[experiment]
+        x_T = torch.randn(n, 32, 32, 3, generator=torch.Generator("cuda").manual_seed(4),
+                          device="cuda")
+        if sampler == "ddim":
+            run, forwards = (lambda: model.ddim_sample(n, steps=50, x_T=x_T)), 50
+        elif sampler == "dpm":
+            run = lambda: model.dpm_sample(n, steps=20, x_T=x_T)     # noqa: E731
+            forwards = len(model._dpm_timesteps(20, str(model.hparams.dpm_schedule)))
+        elif sampler == "edm_heun":
+            run, forwards = (lambda: model.heun_sample(n, noise=x_T)), 35
+        else:
+            run, forwards = (lambda: model.ode_sample(n, x0=x_T)), 100
+        samples = {}
+
+        def timed(graphed: bool):
+            model.use_graphs = graphed
+            samples[graphed] = run()
+
+        model.use_graphs = True
+        before = counts()
+        run()                                              # capture
+        torch.cuda.synchronize()
+        sec = _abba(timed, warm=0)
+        model.use_graphs = True
+        before_g = counts()
+        timed(True)
+        torch.cuda.synchronize()
+        per_run = since(before_g)
+        launched = since(before)
+        want = (expected() if backbone == "dit" else
+                expected(group_norm_mish=25 * forwards, linear_attention=6 * forwards))
+        check(per_run == want, f"{backbone} {sampler}: one graphed run launched {per_run}")
+        x = samples[True]
+        check(tuple(x.shape) == (n, 32, 32, 3) and bool(torch.isfinite(x).all()),
+              f"{backbone} {sampler}: samples")
+        if backbone == "dit":
+            dit_l = tuple(a + b for a, b in zip(dit_l, launched))
+        else:
+            unet_l = tuple(a + b for a, b in zip(unet_l, launched))
+        key = f"{backbone}_{sampler}"
+        out[key] = row = dict(batch=n, forwards=forwards, seconds=sec,
+                              images_per_s={m: [n / s for s in v] for m, v in sec.items()},
+                              launches_per_run=dict(zip(KERNELS, per_run)))
+        emit("dit", run="sampler", backbone=backbone, sampler=sampler, **row)
+    del models, model
+    _release()
+    return out, dit_l, unet_l
+
+
+def phase_dit() -> dict:
+    """The DiT, its MoE, EDM and flow matching; the caller zeroes the
+    counters before it.  Returns the launches of the DiT runs (all 0) and
+    of EDM's and flow's UNet runs apart."""
+    t0 = time.perf_counter()
+    out = {"reference": dit_reference(), "train_reference": dit_train_reference()}
+    dit_l = counts()
+    unet_l = dit_unet_launches()
+    dit_l = tuple(a + b for a, b in zip(dit_l, dit_cli()))
+    out["attention_core"] = dit_attention_core()
+    out["train"] = {
+        "xla": dit_train_timed("ddpm/cifar10_dit", ["experiment=ddpm/cifar10_dit"]),
+        "flash": dit_train_timed("ddpm/cifar10_dit", ["experiment=ddpm/cifar10_dit",
+                                                      "+model.attention=flash"]),
+        "moe": dit_train_timed("ddpm/cifar10_dit", ["experiment=ddpm/cifar10_dit",
+                                                    *DIT_MOE_OVERRIDES])}
+    samplers, s_dit, s_unet = dit_samplers()
+    out["samplers"] = samplers
+    out["launches"] = {"dit": tuple(a + b for a, b in zip(dit_l, s_dit)),
+                       "edm_flow_unet": tuple(a + b for a, b in zip(unet_l, s_unet))}
+    total = tuple(a + b for a, b in zip(*out["launches"].values()))
+    check(total == counts(), f"dit phase: launches {counts()} are not its runs' {total}")
+    check(out["launches"]["dit"] == expected(),
+          f"the DiT path launched {out['launches']['dit']}")
+    emit("dit", run="path", seconds=time.perf_counter() - t0,
+         launches={k: dict(zip(KERNELS, v)) for k, v in out["launches"].items()})
+    return out
+
+
 # ---------------------------------------------------------------- chain
-# the four train steps the chain phase holds graphed against eager:
+# the train steps the chain phase holds graphed against eager:
 # (name, overrides, batch, launches per step)
 CHAIN_MODELS = (
     ("flagship", ["experiment=ddpm/cifar10"], TRAIN_BATCH,
@@ -1740,6 +2202,8 @@ CHAIN_MODELS = (
           linear_attention_bwd=4)),
     ("tar", ["experiment=tar/mnist", "model.flash_attention=dropout"], TAR_SHAPE[0],
      dict(dropout_attention_fwd=4, dropout_attention_dq=4, dropout_attention_dkv=4)),
+    ("dit", ["experiment=ddpm/cifar10_dit"], TRAIN_BATCH, {}),
+    ("dit_moe", ["experiment=ddpm/cifar10_dit", *DIT_MOE_OVERRIDES], TRAIN_BATCH, {}),
 )
 CHAIN_K = (1, 4)
 CHAIN_TIMED_STEPS = 16               # per turn of the a-b-b-a timing
@@ -1931,7 +2395,7 @@ def chain_train(name: str, overrides: list[str], batch: int, per_step: dict) -> 
                         peak_memory_gib=peak)
     emit("chain", model=name, run="speed", auto_k=k_auto, **out["speed"])
     del model, state
-    torch.cuda.empty_cache()
+    _release()
     return out
 
 
@@ -2056,7 +2520,7 @@ ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
          "first_stage": lambda: phase_first_stage(), "latent": lambda: phase_latent(),
          "tar_reference": lambda: phase_tar_reference(), "tar": lambda: phase_tar(),
          "fused_block": lambda: phase_fused_block(), "chain": lambda: phase_chain(),
-         "parity_vq": lambda: parity_vq()}
+         "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit()}
 
 
 def main(argv=None) -> int:
@@ -2130,6 +2594,10 @@ def main(argv=None) -> int:
     fb_index = KERNELS.index("fused_block_fwd")
     elsewhere = {p: n[fb_index] for p, n in path_launches.items() if p != "fused_block"}
     check(not any(elsewhere.values()), f"fused_block_fwd launched on {elsewhere}")
+    reset_counts()                      # the DiT, EDM and flow matching paths
+    dit = phase_dit()
+    check_path("edm_flow_unet", dit["launches"]["edm_flow_unet"])
+    path_launches.update(dit["launches"])
     chain = phase_chain()               # graphed against eager
 
     def by_path(i: int) -> dict:
@@ -2261,6 +2729,9 @@ def main(argv=None) -> int:
          graphed_sampling_images_per_s={
              f"{m}_{s}": chain[f"{m}_samplers"][s]["images_per_s"]
              for m in ("flagship", "latent") for s in ("ddim", "dpm")},
+         dit_train_ms_per_step={k: v["ms_per_step"] for k, v in dit["train"].items()},
+         dit_attention_core_ms_per_step=dit["attention_core"]["ms_per_step"],
+         dit_sampling_images_per_s={k: v["images_per_s"] for k, v in dit["samplers"].items()},
          seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

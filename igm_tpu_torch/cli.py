@@ -15,10 +15,12 @@ TensorBoard files go) and trains (``igm_tpu_torch.train.train``).
 
 Composes the config, instantiates the port's model on the card (or on the
 device ``--device`` names), loads the weights, runs the model's sampler
-(diffusion: ancestral, or ``--sampler ddim|dpm``; ``experiment=vqvae/*``:
-decoded random codes; ``experiment=tar/*``: the KV-cached decode), and
-writes a grid image.  ``--sampler heun|multistep`` (the EDM and consistency
-samplers) exit with a message for a model that lacks them.  ``--label``
+(DDPM: ancestral, or ``--sampler ddim|dpm``; EDM: Heun over the Karras
+grid, also as ``--sampler heun``; flow matching: the ODE;
+``experiment=vqvae/*``: decoded random codes; ``experiment=tar/*``: the
+KV-cached decode), and writes a grid image.  A ``--sampler`` the model
+lacks (``heun`` on a DDPM; ``multistep``, the consistency sampler, not
+ported yet) exits with a message.  ``--label``
 draws every sample from one class (class-conditional models).  ``--inpaint``
 erases a region of the first n validation images of the datamodule
 (synthetic when its files are absent) and fills it with RePaint, with
@@ -29,7 +31,8 @@ module (for latent DDPM the denoiser, the first stage, the codebook and the
 latent scale) and the EMA shadow the samplers use.  ``--weights`` takes the
 model's network alone (the denoiser; TAR's ``net``): a ``torch.save``d
 state_dict or an ``.npz`` of that network's ``igm_tpu`` param leaves keyed by
-their ``/``-joined path (converted through ``igm_tpu_torch.interop``).  Without either the weights are a seeded random
+their ``/``-joined path (converted through ``igm_tpu_torch.interop``; flow
+matching's network is its ``velocity``).  Without either the weights are a seeded random
 init, and the CLI says so.
 
 The config tree is found via (first hit wins): ``$IGM_CONFIG_DIR``, then
@@ -136,8 +139,8 @@ def sample_main(argv=None) -> torch.Tensor:
                         help="RePaint resampling passes per step (U)")
     parser.add_argument("--sampler", default=None,
                         choices=["ddim", "dpm", "heun", "multistep"],
-                        help="a fast sampler instead of the model's default (ddim, "
-                             "dpm: the DDPM family; heun: EDM; multistep: consistency)")
+                        help="a sampler instead of the model's default (ddim, dpm: the "
+                             "DDPM family; heun: EDM; multistep: consistency)")
     parser.add_argument("--steps", type=int, default=None,
                         help="fast-sampler step count (default: config)")
     parser.add_argument("--device", default=None,

@@ -62,6 +62,21 @@ DISPATCH_S = 51.9e-6
 AUTO_TIMED = 3
 
 
+def _bmm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """2 B M N K for ``torch.bmm``, with or without ``out_dtype`` (torch's
+    own formula takes the ``out_dtype`` argument of ``aten::bmm.dtype``,
+    which the DiT's bf16 attention calls, for its ``out_shape`` and
+    raises)."""
+    b, m, k = a_shape
+    return 2 * b * m * b_shape[-1] * k
+
+
+def step_flop_counter():
+    """``FlopCounterMode`` as the trainer counts a step's FLOPs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    return FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flops})
+
+
 def _np(x):
     if x is None:
         return None
@@ -196,8 +211,7 @@ class Trainer:
             for chunk in DevicePrefetcher(chunk_batches(batches, k_exec), device):
                 k = len(chunk[0])
                 if self.step_flops is None:
-                    from torch.utils.flop_counter import FlopCounterMode
-                    with FlopCounterMode(display=False) as counter:
+                    with step_flop_counter() as counter:
                         state, metrics = model.train_step_n(state, chunk, graph=False)
                     self.step_flops = float(counter.get_total_flops()) / k
                 else:

@@ -27,6 +27,15 @@ onto buffers (:func:`flax_mutables_to_torch`).  Layouts:
 - GroupNorm ``scale``/``bias``, ChannelLayerNorm ``g``/``b``, LayerNorm
   ``scale``/``bias``, ``Embed_*/embedding``, the class ``embedding`` and
   TAR's ``h_pe``/``w_pe``/``first_pe`` carry over as they are.
+- The DiT (``igm_tpu/networks/dit.py``): plain Flax ``Dense`` layers (no
+  wrapper level to drop), whatever the tree (``denoise/...``,
+  ``velocity/...``).  Its Switch-MoE leaves ``w_up``, ``b_up``, ``w_dn``,
+  ``b_dn`` are not kernels and carry over as they are; the router kernel is
+  a Dense kernel.  ``nn.remat`` names a block ``CheckpointDiTBlock_<i>``:
+  the prefix is dropped, so a remat tree maps onto the same modules.
+  ``block_mode="scan"`` stacks the blocks into one ``blocks/<leaf>`` tree
+  of ``(depth, ...)`` leaves: each is split along axis 0 onto
+  ``DiTBlock_<i>/<leaf>``.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ def _kind(name: str) -> str:
 
 
 def flax_key_to_torch(path: str) -> str:
-    parts = path.split("/")
+    parts = [p[len("Checkpoint"):] if p.startswith("Checkpoint") else p
+             for p in path.split("/")]
     if (len(parts) >= 3 and _kind(parts[-3]) in _WRAPPED
             and parts[-2] == f"{_kind(parts[-3])}_0"):
         del parts[-2]
@@ -72,12 +82,28 @@ def _convert(path: str, value: np.ndarray) -> np.ndarray:
     return value.transpose(3, 2, 0, 1)                # HWIO -> OIHW
 
 
-def flax_to_torch(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """``{'/'-joined Flax path: array}`` -> ``state_dict`` of the port's
-    module with that tree (the ``Unet``, or a model's ``modules`` for a
-    whole-model tree), float32 CPU tensors."""
+def unstack_blocks(params: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """The DiT's scan layout split per block: ``.../blocks/<leaf>`` of shape
+    ``(depth, ...)`` -> ``.../DiTBlock_<i>/<leaf>`` for i < depth; other
+    leaves as they are."""
     out = {}
     for path, value in params.items():
+        parts = path.split("/")
+        if "blocks" not in parts[:-1]:
+            out[path] = value
+            continue
+        at = parts.index("blocks")
+        for i in range(value.shape[0]):
+            out["/".join(parts[:at] + [f"DiTBlock_{i}"] + parts[at + 1:])] = value[i]
+    return out
+
+
+def flax_to_torch(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """``{'/'-joined Flax path: array}`` -> ``state_dict`` of the port's
+    module with that tree (the ``Unet`` or the ``DiT``, or a model's
+    ``modules`` for a whole-model tree), float32 CPU tensors."""
+    out = {}
+    for path, value in unstack_blocks(params).items():
         arr = _convert(path, np.asarray(value, np.float32))
         out[flax_key_to_torch(path)] = torch.from_numpy(np.array(arr, order="C"))
     return out

@@ -17,6 +17,17 @@ Interface the Trainer calls:
   on_train_epoch_end(trainer)
 Metrics are dicts of scalar tensors, fetched by the trainer when it logs.
 
+``network(name, x, t, y)`` calls the diffusion-style network
+``modules[name]`` for the samplers (DDPM's denoiser, EDM's ``F``, flow
+matching's velocity): with the EMA shadow's weights when the train state
+keeps one (``opt_states["ema"]``, updated in place by ``update_ema``, as
+``igm_tpu`` samples from the shadow), and on a CUDA device, outside
+autograd, as a CUDA graph per input signature (batch, dtype, with or
+without labels, the shadow or the network's own weights): the inputs are
+copied into the graph's static buffers and it is replayed.  The graph
+reads the weights where they lie, so it follows the parameters and the
+shadow, both updated in place.
+
 ``train_step_n`` is the counterpart of ``igm_tpu``'s (``base.py:111-128``,
 K steps in one ``lax.scan``): K train steps on ``[k, ...]`` batches, the
 metrics the per-key nan-mean over the chunk.  On a CUDA device with
@@ -54,6 +65,19 @@ def merge_metrics(per_step):
     if len(per_step) == 1:
         return dict(per_step[0])
     return {k: torch.stack([m[k] for m in per_step]).nanmean(dim=0) for k in per_step[0]}
+
+
+def draw_labels(model: "BaseModel", labels, n: int, gen, drop) -> Optional[torch.Tensor]:
+    """Conditional models: the labels with the drop mask (drawn from
+    ``gen`` with ``cond_drop_prob`` when not given) set to the null token;
+    None for unconditional ones."""
+    if not model.num_classes:
+        return None
+    if drop is None:
+        drop = (torch.rand(n, generator=gen, device=model.device)
+                < float(model.hparams.cond_drop_prob))
+    labels = labels.to(model.device, non_blocking=True).long()
+    return torch.where(drop, torch.full_like(labels, model.num_classes), labels)
 
 
 @dataclasses.dataclass
@@ -175,6 +199,59 @@ class BaseModel:
         metrics = step_graph(*batches)
         state.step = first + k
         return state, metrics
+
+    # ------------------------------------------- the samplers' network call
+    @property
+    def ema_decay(self) -> float:
+        return float(self.hparams.get("ema_decay") or 0.0)
+
+    def ema_shadow(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The EMA shadow of the network's parameters, by name, when the
+        model keeps one (``ema_decay > 0``) and ``init_state`` made it."""
+        if self.ema_decay > 0 and self.state is not None and "ema" in self.state.opt_states:
+            return self.state.opt_states["ema"]
+        return None
+
+    def init_ema(self, state: TrainState, name: str) -> None:
+        """With ``ema_decay > 0``: the shadow of ``modules[name]``'s
+        parameters under ``state.opt_states["ema"]``, a copy of them."""
+        if self.ema_decay > 0:
+            state.opt_states["ema"] = {
+                k: p.detach().clone() for k, p in self.modules[name].named_parameters()}
+
+    def update_ema(self, state: TrainState, name: str) -> None:
+        """``shadow = d * shadow + (1 - d) * params``, in place."""
+        d = self.ema_decay
+        if d <= 0:
+            return
+        ema = state.opt_states["ema"]
+        params = dict(self.modules[name].named_parameters())
+        with torch.no_grad():
+            shadow = list(ema.values())
+            torch._foreach_mul_(shadow, d)
+            torch._foreach_add_(shadow, [params[k] for k in ema], alpha=1.0 - d)
+
+    def network(self, name: str, x: torch.Tensor, t: torch.Tensor,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``modules[name](x, t, y)`` with the EMA shadow's weights when
+        there is one; on the card outside autograd a CUDA graph per input
+        signature."""
+        ema = self.ema_shadow()
+        if not (self.use_graphs and x.is_cuda and not torch.is_grad_enabled()):
+            return self._network_eager(name, ema, x, t, y)
+        inputs = (x, t) if y is None else (x, t, y)
+        key = (name, id(ema), tuple((tuple(a.shape), a.dtype) for a in inputs))
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(
+                lambda x, t, y=None: self._network_eager(name, ema, x, t, y))
+        return graph(*inputs)
+
+    def _network_eager(self, name: str, ema, x, t, y) -> torch.Tensor:
+        net = self.modules[name]
+        if ema is not None:
+            return torch.func.functional_call(net, ema, (x, t, y))
+        return net(x, t, y)
 
     def on_fit_start(self, state: TrainState, train_arrays) -> TrainState:
         """Run once after ``init_state``, before a resume restores a

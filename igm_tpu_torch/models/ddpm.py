@@ -5,13 +5,11 @@ call, classifier-free guidance, and the samplers: ancestral, DDIM,
 DPM-Solver++(2M), interpolation and RePaint inpainting.
 
 ``igm_tpu`` runs each chain as one ``lax.scan``; here it is a Python loop
-over the timesteps, one UNet forward per step.  On a CUDA card (with
-``use_graphs``) that forward is a CUDA graph: ``_denoise`` replays a graph
-captured per input signature (batch, dtype, with or without labels, the
-EMA weights or the network's), its inputs copied into the graph's static
-buffers; the per-step update arithmetic stays eager.  The graph reads the
-weights where they lie, so it follows the network's parameters and the
-EMA shadow, both updated in place.  Random draws take an explicit
+over the timesteps, one denoiser forward per step.  On a CUDA card (with
+``use_graphs``) that forward is a CUDA graph: ``_denoise`` calls
+``BaseModel.network``, which replays a graph captured per input signature
+(the EMA weights when the state keeps a shadow); the per-step update
+arithmetic stays eager.  Random draws take an explicit
 ``torch.Generator`` (training: the TrainState's); for tests, the train
 step also takes its timesteps, noise and label drop as tensors, and the
 samplers their initial ``x`` and per-step draws.  The train step draws
@@ -22,22 +20,69 @@ it.
 ``denoise_channels``, ``_sample_shape`` and ``_to_diffusion_space`` are the
 hooks through which ``LatentDDPM`` diffuses in a VQ-VAE's latent space.
 
-Not yet ported (it waits for a later slice): the DiT backbone.
+``build_denoiser`` is the backbone factory the diffusion-style models share
+(``igm_tpu/models/ddpm.py:25-53``): ``network=unet`` the conv UNet,
+``network=dit`` the DiT (``hidden_dim`` its token width), with its
+Switch-MoE blocks when ``moe_experts > 0``; the train step then adds
+``moe_aux_weight`` times the mean load-balance aux over the MoE blocks to
+the loss and reports it (``train_loss/moe_aux``) with the router's load
+entropy and smallest share (``moe/load_entropy``, ``moe/min_share``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..core.graphs import StepGraph
 from ..core.optim import OptimizerSet, adam
 from ..core.state import TrainState
+from ..networks.dit import PARALLEL_REFUSED, DiT
 from ..networks.unet import Unet
 from ..ops import diffusion as gd
-from .base import BaseModel, ValidationResult
+from .base import BaseModel, ValidationResult, draw_labels
+
+
+def build_denoiser(network: str, *, hidden_dim: int, channels: int, dim_mults,
+                   dtype: torch.dtype | None, num_classes: int, remat: bool,
+                   depth: int = 8, heads: int = 6, patch: int = 2, attention: str = "auto",
+                   block_mode: str = "unroll", moe_experts: int = 0, moe_every: int = 2,
+                   moe_capacity: float = 1.25, moe_dispatch: str = "auto") -> nn.Module:
+    """The conv ``Unet`` (``network="unet"``) or the ``DiT`` (``"dit"``,
+    ``hidden_dim`` its token width).  ``igm_tpu``'s ``pallas_gn`` and
+    parallel meshes are not among the keywords: the kernels always run on
+    the card, and ``DDPM`` refuses the meshes."""
+    if network == "unet":
+        return Unet(dim=hidden_dim, channels=channels, dim_mults=tuple(dim_mults),
+                    num_classes=num_classes, dtype=dtype, remat=remat)
+    if network == "dit":
+        return DiT(dim=hidden_dim, depth=depth, heads=heads, patch=patch,
+                   channels=channels, num_classes=num_classes, dtype=dtype, remat=remat,
+                   attn=attention, block_mode=block_mode, moe_experts=moe_experts,
+                   moe_every=moe_every, moe_capacity=moe_capacity,
+                   moe_dispatch=moe_dispatch)
+    raise ValueError(f"network must be unet|dit, got {network!r}")
+
+
+def moe_loss(net: nn.Module, loss: torch.Tensor, weight: float, metrics: dict):
+    """The Switch load-balance aux of a DiT's MoE blocks (their last
+    forward) added to ``loss`` with ``weight``, and the router-health
+    metrics, as ``igm_tpu``'s train step aggregates them -> (loss,
+    metrics).  A network without MoE blocks leaves both as they are."""
+    stats = net.take_moe_stats() if isinstance(net, DiT) else []
+    if not stats:
+        return loss, metrics
+    aux = sum(a for a, _ in stats) / len(stats)
+    loss = loss + weight * aux
+    load = sum(ld for _, ld in stats) / len(stats)           # [E] mean fraction
+    e = load.shape[0]
+    ent = -torch.sum(load * torch.log(load + 1e-9))
+    return loss, {**metrics, "train_loss/loss": loss.detach(),
+                  "train_loss/moe_aux": aux.detach(),
+                  "moe/load_entropy": (ent / math.log(float(e))).detach(),
+                  "moe/min_share": (load.min() * e).detach()}
 
 
 class DDPM(BaseModel):
@@ -53,7 +98,13 @@ class DDPM(BaseModel):
                  pallas_gn: str | bool = "auto",
                  num_classes: int | None = 0, cond_drop_prob: float = 0.1,
                  guidance_scale: float = 2.0, network: str = "unet",
+                 depth: int = 8, heads: int = 6, patch: int = 2,
                  parameterization: str = "eps", snr_gamma: float = 0.0,
+                 attention: str = "auto", block_mode: str = "unroll",
+                 pipe_mesh=None, pipe_microbatches: int = 1, sp_mesh=None,
+                 moe_experts: int = 0, moe_every: int = 2,
+                 moe_capacity: float = 1.25, moe_aux_weight: float = 0.01,
+                 moe_dispatch: str = "auto",
                  device: str | torch.device | None = None, **kwargs):
         """Same keyword arguments as ``igm_tpu``'s DDPM, plus ``device``
         (the card unless the CPU is asked for).
@@ -62,9 +113,10 @@ class DDPM(BaseModel):
         ``pallas_gn`` is accepted and has no effect: on the card the
         GroupNorm+Mish kernels always run.  ``remat`` recomputes each UNet
         ResnetBlock in the backward.  ``optim`` is accepted; the optimizer is
-        Adam, as in ``igm_tpu``.  The DiT-only keywords (``depth``,
-        ``heads``, ``moe_*``, ...) land in ``kwargs`` and are ignored with
-        the unet backbone.
+        Adam, as in ``igm_tpu``.  The DiT keywords (``depth``, ``heads``,
+        ``patch``, ``attention``, ``block_mode``, ``moe_*``) are ignored with
+        the unet backbone; ``pipe_mesh`` and ``sp_mesh`` are refused
+        (parallelism, ROADMAP Queue 1 item 8).
         """
         super().__init__(datamodule, device)
         if parameterization not in ("eps", "v"):
@@ -72,9 +124,8 @@ class DDPM(BaseModel):
                              f"got {parameterization!r}")
         if loss_type not in ("l1", "l2"):
             raise NotImplementedError(f"loss_type={loss_type!r}")
-        if network != "unet":
-            raise NotImplementedError(
-                f"network={network!r}: the port has the unet backbone only")
+        if pipe_mesh is not None or sp_mesh is not None:
+            raise NotImplementedError(f"pipe_mesh / sp_mesh: {PARALLEL_REFUSED}")
         self.num_classes = int(num_classes or 0)
         self.save_hyperparameters(hidden_dim=hidden_dim, timesteps=timesteps,
                                   loss_type=loss_type,
@@ -88,9 +139,14 @@ class DDPM(BaseModel):
                                   num_classes=self.num_classes,
                                   cond_drop_prob=cond_drop_prob,
                                   guidance_scale=guidance_scale,
-                                  network=network,
+                                  network=network, depth=depth, heads=heads,
+                                  patch=patch,
                                   parameterization=parameterization,
-                                  snr_gamma=snr_gamma)
+                                  snr_gamma=snr_gamma, attention=attention,
+                                  block_mode=block_mode,
+                                  pipe_microbatches=pipe_microbatches,
+                                  moe_experts=int(moe_experts),
+                                  moe_aux_weight=float(moe_aux_weight))
         self.timesteps = int(timesteps)
         self.tables = gd.make_tables(self.timesteps, beta_schedule, self.device)
         if compute_dtype == "auto":
@@ -98,11 +154,23 @@ class DDPM(BaseModel):
                              else "float32")
         dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
         self.compute_dtype = dtype or torch.float32
-        self.modules = nn.ModuleDict({"denoise": Unet(
-            dim=hidden_dim, channels=self.denoise_channels, dim_mults=tuple(dim_mults),
-            num_classes=self.num_classes, dtype=dtype, remat=bool(remat))})
+        self.modules = nn.ModuleDict({"denoise": build_denoiser(
+            network, hidden_dim=hidden_dim, channels=self.denoise_channels,
+            dim_mults=dim_mults, dtype=dtype, num_classes=self.num_classes,
+            remat=bool(remat), depth=depth, heads=heads, patch=patch,
+            attention=attention, block_mode=block_mode, moe_experts=int(moe_experts),
+            moe_every=int(moe_every), moe_capacity=float(moe_capacity),
+            moe_dispatch=str(moe_dispatch))})
         self.modules.eval()
         self.init_params(0)
+
+    def enable_sequence_parallel(self, mesh) -> None:
+        """``igm_tpu``'s Megatron-SP rebuild of the DiT: refused."""
+        raise NotImplementedError(f"sequence parallelism {PARALLEL_REFUSED}")
+
+    def enable_pipeline(self, mesh, microbatches: int = 1) -> None:
+        """``igm_tpu``'s GPipe rebuild of the DiT: refused."""
+        raise NotImplementedError(f"pipeline parallelism {PARALLEL_REFUSED}")
 
     # hooks overridden by LatentDDPM (diffusion in a learned latent space)
     @property
@@ -123,10 +191,7 @@ class DDPM(BaseModel):
         self.optimizers = OptimizerSet().add(
             "opt", adam(hp.lr, hp.b1, hp.b2), ["denoise"])
         state = self.make_state(seed)
-        if hp.ema_decay > 0:
-            state.opt_states["ema"] = {
-                k: p.detach().clone()
-                for k, p in self.modules["denoise"].named_parameters()}
+        self.init_ema(state, "denoise")
         self.state = state
         return state
 
@@ -143,12 +208,14 @@ class DDPM(BaseModel):
             target = noise
         w = gd.loss_weight(self.tables, t, x_start.ndim, str(hp.parameterization),
                            float(hp.snr_gamma))
-        pred = self.modules["denoise"](x_noisy, t, y)
+        net = self.modules["denoise"]
+        pred = net(x_noisy, t, y)
         if hp.loss_type == "l1":
             loss = (w * torch.abs(target - pred)).mean()
         else:
             loss = (w * (target - pred) ** 2).mean()
-        return loss, {"train_loss/loss": loss.detach()}
+        return moe_loss(net, loss, float(hp.moe_aux_weight),
+                        {"train_loss/loss": loss.detach()})
 
     def train_step(self, state: TrainState, batch,
                    t: Optional[torch.Tensor] = None,
@@ -169,27 +236,14 @@ class DDPM(BaseModel):
                               device=self.device)
         if noise is None:
             noise = torch.randn(imgs.shape, generator=gen, device=self.device)
-        y = None
-        if self.num_classes:
-            if drop is None:
-                drop = (torch.rand(n, generator=gen, device=self.device)
-                        < float(self.hparams.cond_drop_prob))
-            labels = labels.to(self.device, non_blocking=True).long()
-            y = torch.where(drop, torch.full_like(labels, self.num_classes), labels)
+        y = draw_labels(self, labels, n, gen, drop)
         self.modules.train()
         try:
             state, _, metrics = self.optimizers.grad_step(
                 state, "opt", lambda: self.loss(imgs, t, noise, y))
         finally:
             self.modules.eval()
-        d = float(self.hparams.ema_decay)
-        if d > 0:
-            ema = state.opt_states["ema"]
-            params = dict(self.modules["denoise"].named_parameters())
-            with torch.no_grad():
-                shadow = list(ema.values())
-                torch._foreach_mul_(shadow, d)
-                torch._foreach_add_(shadow, [params[k] for k in ema], alpha=1.0 - d)
+        self.update_ema(state, "denoise")
         state.step += 1
         return state, metrics
 
@@ -232,33 +286,15 @@ class DDPM(BaseModel):
     # --------------------------------------------------------------- sampling
     def _denoise(self, x: torch.Tensor, t: torch.Tensor,
                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The denoiser; with an EMA shadow in the train state, run with the
-        shadow's weights, as ``igm_tpu`` samples from them.  On the card,
-        outside autograd, a CUDA graph per input signature."""
+        """The denoiser (``BaseModel.network``: the EMA shadow's weights when
+        the train state has one; on the card a CUDA graph per input
+        signature)."""
         if self.num_classes and y is None:
             # unconditional generation from a conditional model = the
             # trained null token
             y = torch.full((x.shape[0],), self.num_classes, dtype=torch.long,
                            device=x.device)
-        ema = None
-        if (self.hparams.ema_decay > 0 and self.state is not None
-                and "ema" in self.state.opt_states):
-            ema = self.state.opt_states["ema"]
-        if not (self.use_graphs and x.is_cuda and not torch.is_grad_enabled()):
-            return self._denoise_eager(x, t, y, ema)
-        inputs = (x, t) if y is None else (x, t, y)
-        key = ("denoise", id(ema), tuple((tuple(a.shape), a.dtype) for a in inputs))
-        graph = self._graphs.get(key)
-        if graph is None:
-            graph = self._graphs[key] = StepGraph(
-                lambda x, t, y=None: self._denoise_eager(x, t, y, ema))
-        return graph(*inputs)
-
-    def _denoise_eager(self, x, t, y, ema) -> torch.Tensor:
-        net = self.modules["denoise"]
-        if ema is not None:
-            return torch.func.functional_call(net, ema, (x, t, y))
-        return net(x, t, y)
+        return self.network("denoise", x, t, y)
 
     @torch.no_grad()
     def _eps(self, x: torch.Tensor, t: torch.Tensor,

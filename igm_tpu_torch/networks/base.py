@@ -11,7 +11,9 @@ float32).  ``dtype=None`` computes in the promotion of the input's and the
 parameters' dtypes, as Flax infers it.
 
 Initialisation reproduces ``igm_tpu``'s (torch's nn.Linear / nn.Conv2d
-defaults): kernel and bias ~ U(+-1/sqrt(fan_in)).  ``reset_parameters``
+defaults): kernel and bias ~ U(+-1/sqrt(fan_in)); ``FlaxDense`` is
+``Dense`` with Flax's default init instead (lecun_normal kernel, zero
+bias), as the DiT and its MoE build theirs.  ``reset_parameters``
 takes an explicit ``torch.Generator``.
 """
 from __future__ import annotations
@@ -110,6 +112,34 @@ class Dense(nn.Module):
         dt = compute_dtype(x, self.weight, self.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Flax's ``lecun_normal``: a normal truncated at 2 standard deviations,
+    scaled to variance 1/fan_in."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        p.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
+class FlaxDense(Dense):
+    """``Dense`` with Flax's default init: lecun_normal kernel (or zeros,
+    ``zero_kernel``), zero bias."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 dtype: torch.dtype | None = None, zero_kernel: bool = False):
+        super().__init__(in_features, features, use_bias, dtype)
+        self.zero_kernel = zero_kernel
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.zero_kernel:
+            with torch.no_grad():
+                self.weight.zero_()
+        else:
+            lecun_normal_(self.weight, self.weight.shape[1], generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
 
 class Embed(nn.Module):

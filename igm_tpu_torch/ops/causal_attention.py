@@ -21,6 +21,10 @@ Counterpart of ``igm_tpu/ops/causal_attention.py``: q, k, v are
   the ``true``/``eval`` modes.  ``torch.nn.functional.scaled_dot_product_attention``
   stands in for JAX's stock Pallas flash kernel there, which is not one of
   this repo's kernels.
+- :func:`flash_full_attention`: the bidirectional counterpart for the DiT's
+  ``attn=flash`` (``:67-89``), SDPA again, with ``igm_tpu``'s refusal of a
+  sequence not divisible by the kernel's 128-row block kept as it is (a
+  mirrored rule: SDPA itself takes any length).
 """
 from __future__ import annotations
 
@@ -103,6 +107,23 @@ def hash_dropout_attention(query, key, value, mask=None, seed: Seed = 0,
         probs = torch.where(keep, probs / torch.tensor(1.0 - rate, dtype=probs.dtype),
                             torch.zeros((), dtype=probs.dtype, device=probs.device))
     return torch.einsum("bhqk,bkhd->bqhd", probs, value.to(dtype))
+
+
+FLASH_BLOCK = 128
+
+
+def flash_full_attention(query, key, value,
+                         sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Exact bidirectional attention, (B, S, H, D) -> same, through
+    ``F.scaled_dot_product_attention``; S must be a multiple of 128, as
+    ``igm_tpu`` requires."""
+    s = query.shape[1]
+    if s % FLASH_BLOCK:
+        raise ValueError(f"flash_full_attention needs seq % {FLASH_BLOCK} == 0, got {s} "
+                         "(padded keys would receive softmax mass)")
+    q, k, v = (x.transpose(1, 2) for x in (query, key, value))
+    out = F.scaled_dot_product_attention(q, k, v, scale=sm_scale)
+    return out.transpose(1, 2)
 
 
 def flash_causal_attention(query, key, value,

@@ -23,9 +23,22 @@ GROUPS = (("group_norm_mish_bwd", ("group_norm_mish_bwd", "sum_partials")),
           ("elementwise", ("elementwise", "vectorized", "reduce", "cat")))
 
 
-def group_of(name: str) -> str:
+# the DiT's device time (no hand kernel on its path): cuBLAS GEMMs (the
+# attention products of attn=xla included), the attention core's own kernels
+# (softmax; SDPA's fused kernels), LayerNorm, the MoE's routing and slot
+# moves, casts and copies, the modulation and residual elementwise ops
+DIT_GROUPS = (("attention_core", ("softmax", "flash", "fmha", "sdpa", "attention")),
+              ("layer_norm", ("layer_norm", "gammabeta")),
+              ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "splitk", "gemv")),
+              ("optimizer", ("adam", "foreach", "multi_tensor")),
+              ("moe_routing", ("index", "scatter", "gather", "cumsum", "scan", "argmax")),
+              ("copy_cast", ("copy", "cast", "convert")),
+              ("elementwise", ("elementwise", "vectorized", "reduce", "cat")))
+
+
+def group_of(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
@@ -39,7 +52,8 @@ def nvidia_smi() -> str:
     return out.splitlines()[0]
 
 
-def device_summary(prof, steps: int, wall_unprofiled: float, wall: float) -> dict:
+def device_summary(prof, steps: int, wall_unprofiled: float, wall: float,
+                   groups=GROUPS) -> dict:
     """Per step: device busy time (the sum of kernel times; one stream, so
     they do not overlap), the idle share against the unprofiled and the
     profiled wall time, and launches and device time by group."""
@@ -51,7 +65,7 @@ def device_summary(prof, steps: int, wall_unprofiled: float, wall: float) -> dic
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_group_us, by_group_n = defaultdict(float), defaultdict(int)
     for e in kernels:
-        g = group_of(e.name)
+        g = group_of(e.name, groups)
         by_group_us[g] += e.time_range.elapsed_us()
         by_group_n[g] += 1
     return {

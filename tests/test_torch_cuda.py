@@ -878,3 +878,111 @@ def test_pr10_checkpoint_restores_and_replays(gen, numerics, tmp_path):
         card.load_state_dict(start)
         model.train_step_n(card, (imgs, labels))
         assert not _differ(card.snapshot(), want)
+
+
+# ------------------------------------------------------------ the DiT path
+DIT_TINY = ("model.hidden_dim=128", "model.depth=2", "model.heads=2")
+# bf16 against f32 on the card, the same weights: the residual stream, every
+# GEMM input and the attention probabilities round to bf16 (8 bits), so the
+# output moves by a few bf16 ulps of the activations it sums; held to 2% of
+# the output's largest value
+DIT_BF16_REL = 2e-2
+
+
+def test_dit_product_f32_forward_and_backward(gen):
+    """The bf16 products with a float32 result (torch.bmm out_dtype): the
+    forward the float32 products of the same values (exact products, f32
+    sums in another order); the gradients bf16 products of the cotangent
+    rounded to bf16."""
+    from igm_tpu_torch.networks.dit import _product_f32
+    a = torch.randn(12, 256, 64, generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    b = torch.randn(12, 64, 256, generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    out = _product_f32(a, b)
+    a32, b32 = (t.detach().float().requires_grad_(True) for t in (a, b))
+    want = torch.bmm(a32, b32)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    ga, gb = torch.autograd.grad(out, (a, b), g)
+    wa, wb = torch.autograd.grad(want, (a32, b32), g)
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    for got, ref in ((ga, wa), (gb, wb)):
+        # two bf16 roundings (the cotangent's terms, the result), 2^-8 of a
+        # value each: held to 2^-7 of the largest gradient entry
+        assert (got.float() - ref).abs().max() <= 2.0 ** -7 * ref.abs().max()
+
+
+@pytest.mark.parametrize("attn", ["xla", "flash"])
+def test_dit_bf16_forward_near_f32(gen, numerics, attn):
+    """The full-width DiT block stack (384 wide, 6 heads of 64, 256 tokens,
+    depth 2) in bf16 against the same weights in f32; the bf16 logits are
+    the float32 accumulator of bf16 products (torch.bmm out_dtype)."""
+    from igm_tpu_torch.networks.dit import DiT
+    nets = [DiT(dim=384, depth=2, heads=6, attn=attn, dtype=dt) for dt in (torch.bfloat16,
+                                                                          None)]
+    g = torch.Generator().manual_seed(0)
+    for m in nets[0].modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+    with torch.no_grad():
+        for p in nets[0].parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    nets[1].load_state_dict(nets[0].state_dict())
+    x = torch.randn(4, 32, 32, 3, generator=gen, device="cuda")
+    t = torch.rand(4, generator=gen, device="cuda") * 999
+    with torch.no_grad():
+        got, want = (net.to("cuda")(x, t) for net in nets)
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= DIT_BF16_REL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("extra", [(), ("+model.moe_experts=4", "+model.moe_every=2",
+                                        "+model.moe_dispatch=scatter")],
+                         ids=["dense", "moe"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_graphed_dit_train_step_equals_eager(gen, numerics, extra, k):
+    """The DDPM-DiT step (bf16, EMA), dense and Switch-MoE (the router, the
+    slot scatter and the aux in the graph): graphed equals eager bit for
+    bit, with no hand-kernel launch."""
+    model = _model("experiment=ddpm/cifar10_dit", *DIT_TINY, "model.ema_decay=0.9", *extra)
+    imgs = torch.randint(0, 256, (3, 8, 32, 32, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    labels = torch.zeros(3, 8, dtype=torch.int32, device="cuda")
+    before = [c.launches for c in _counters()]
+    _graphed_against_eager(model, (imgs, labels), k)
+    assert [c.launches for c in _counters()] == before
+
+
+def _counters():
+    from igm_tpu_torch.core.graphs import launch_counters
+    return launch_counters()
+
+
+@pytest.mark.parametrize("experiment", ["edm/cifar10_dit", "flow/cifar10_dit",
+                                        "edm/cifar10", "flow/cond_mnist"])
+def test_graphed_edm_flow_train_step_equals_eager(gen, numerics, experiment):
+    tiny = DIT_TINY if "dit" in experiment else ("model.hidden_dim=16",)
+    model = _model(f"experiment={experiment}", *tiny, "model.ema_decay=0.9")
+    imgs = torch.randint(0, 256, (3, 8, model.height, model.width, model.channels),
+                         generator=gen, device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 10, (3, 8), generator=gen, device="cuda", dtype=torch.int32)
+    _graphed_against_eager(model, (imgs, labels), 3)
+
+
+@pytest.mark.parametrize("experiment", ["edm/cifar10_dit", "flow/cifar10_dit"])
+def test_graphed_heun_and_ode_equal_eager(gen, numerics, experiment):
+    """EDM's Heun and flow's ODE through the network's graph equal the eager
+    chains; one graph per input signature."""
+    model = _model(f"experiment={experiment}", *DIT_TINY, "model.sample_steps=4")
+    model.init_state(0)
+    noise = torch.randn(4, 32, 32, 3, generator=gen, device="cuda")
+    run = ((lambda: model.heun_sample(4, noise=noise)) if experiment.startswith("edm")
+           else (lambda: model.ode_sample(4, x0=noise)))
+    out = {}
+    for graphs in (True, False, True):
+        model.use_graphs = graphs
+        out.setdefault(graphs, []).append(run())
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][0])
+    assert len(model._graphs) == 1
