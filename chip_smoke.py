@@ -109,6 +109,25 @@ and prints no result line):
           the DiT, EDM Heun-18 and flow Heun-50 on the DiT and the UNet at
           batch 64, graphed against eager a-b-b-a.  Every DiT run launches
           exactly no hand kernel; a UNet sampler 25 and 6 a forward.
+  families  the score-SDE, consistency and distillation paths, counters
+          zeroed just before and read just after: at full width in f32 (TF32
+          off), batch 4, each family's train-step loss and gradients on the
+          card against the CPU (score_sde/cifar10, consistency/cifar10,
+          distill/mnist; the distillation target compared on its own below
+          t = T-1 and the CPU's fed to both), a 4-level VE PC chain (1
+          corrector), a 4-level VE ODE and 2-step consistency sampling from
+          the same draws; exact launches: 25 + 25 and 6 + 6 a score-SDE
+          step, 50 + 25 and 12 + 6 a consistency step, 51 + 17 and 12 + 4 a
+          distillation step, 25 and 6 (17 and 4 on MNIST) a sampler forward;
+          the train CLI (2 epochs of 3 steps, then a resume) on the three
+          experiments, distill/mnist from a ddpm/mnist teacher trained in the
+          phase, and the sampling CLI from their checkpoints (the defaults,
+          --sampler multistep, the student's --sampler ddim); each train step
+          at batch 256 bf16 (distill 128) graphed against eager bit for bit
+          and a-b-b-a (ms, images/s, peak memory, the graphed step's device
+          busy time and idle share); VE PC-64, VE ODE-64, VP PC-64,
+          consistency 1- and 2-step and the 8-step student at batch 64,
+          graphed against eager, the samples bit for bit, a-b-b-a.
   chain   graphed against eager (igm_tpu_torch/core/graphs.py): the train
           steps of the flagship (batch 256, bf16), the VQ-VAE (128, f32),
           the latent DDPM (128), TAR (128, flash_attention=dropout) and the
@@ -667,6 +686,9 @@ PATH_KERNELS = {
     # EDM's and flow matching's train steps and samplers on the UNet
     "edm_flow_unet": ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
                       "linear_attention_bwd"),
+    # score-SDE, consistency and distillation: train steps, CLIs, samplers
+    "families": ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
+                 "linear_attention_bwd"),
 }
 
 
@@ -2189,6 +2211,399 @@ def phase_dit() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- families
+# the score-SDE, consistency and distillation paths: (name, experiment, the
+# UNet forwards of one train step; each step makes one backward)
+FAMILIES = (("score_sde", "score_sde/cifar10", 1), ("consistency", "consistency/cifar10", 2),
+            ("distill", "distill/mnist", 3))
+FAMILY_REF_BATCH = 4                 # card against CPU, f32
+FAMILY_TIMED_STEPS = 5               # per turn of the a-b-b-a timing
+FAMILY_PROFILED_STEPS = 3
+FAMILY_TRAIN_BATCH = {"score_sde": TRAIN_BATCH, "consistency": TRAIN_BATCH, "distill": 128}
+FAMILY_SAMPLE_BATCH = 64
+# the distillation teacher: experiment=ddpm/mnist with distill/mnist's denoiser
+TEACHER_OVERRIDES = ("model.dim_mults=[1,2]", "model.timesteps=256",
+                     "+model.parameterization=v", "model.val_sampler=ddim")
+# the timed samplers: (name, overrides, method, keyword arguments, forwards a run)
+FAMILY_SAMPLERS = (
+    ("ve_pc64", ["experiment=score_sde/cifar10"], "pc_sample", {}, 127),
+    ("ve_ode64", ["experiment=score_sde/cifar10"], "ode_sample", {}, 127),
+    ("vp_pc64", ["experiment=score_sde/cifar10", "model.sde=vp"], "pc_sample", {}, 127),
+    ("consistency_1", ["experiment=consistency/cifar10"], "multistep_sample", {"steps": 1}, 1),
+    ("consistency_2", ["experiment=consistency/cifar10"], "multistep_sample", {"steps": 2}, 2),
+    ("student_8", ["experiment=distill/mnist"], "student_sample", {}, 8),
+)
+
+
+def unet_launches(dim_mults, forwards: int, backwards: int = 0) -> tuple:
+    """counts() of ``forwards`` and ``backwards`` passes of a UNet: 25
+    GroupNorm+Mish and 6 linear attention each at dim_mults [1, 2, 4], 17 and
+    4 at [1, 2]."""
+    gn, la = {3: (25, 6), 2: (17, 4)}[len(dim_mults)]
+    return expected(group_norm_mish=gn * forwards, linear_attention=la * forwards,
+                    group_norm_mish_bwd=gn * backwards, linear_attention_bwd=la * backwards)
+
+
+def add(*launches) -> tuple:
+    return tuple(sum(v) for v in zip(*launches))
+
+
+def _near(got, want, what: str) -> dict:
+    """Card against CPU in f32: within 1e-3 of the output's largest
+    magnitude (at least 1e-3), as the unet phase holds a forward."""
+    scale = max(1.0, want.abs().max().item())
+    err = (got.cpu() - want).abs().max().item()
+    check(math.isfinite(err) and err <= 1e-3 * scale,
+          f"{what}: card vs CPU max err {err} beyond 1e-3 x {scale}")
+    return dict(max_abs_err=err, output_abs_max=want.abs().max().item(), atol=1e-3 * scale)
+
+
+def family_reference(name: str, experiment: str, forwards: int, gen) -> tuple[dict, tuple]:
+    """One family at full width in f32 (TF32 off), on the card against the
+    same weights and draws on the CPU: the train-step loss and gradients,
+    with the step's exact launches; then its samplers' short chains.  The
+    distillation target, a constant of the step, is compared on its own
+    (below t = T-1, where its first DDIM step divides by sqrt(a) = 1.9e-4:
+    reported there), and the CPU's feeds both losses."""
+    import torch
+    from igm_tpu_torch.config import compose, instantiate
+    from igm_tpu_torch.ops import diffusion as gd
+    cfg = compose(REPO / "configs", [f"experiment={experiment}", "print_config=False"])
+    models = [instantiate(cfg.model, datamodule=cfg.datamodule, device=d,
+                          compute_dtype="float32") for d in ("cuda", "cpu")]
+    states = [m.init_state(0) for m in models]
+    cpu = models[1]
+    n = FAMILY_REF_BATCH
+    shape = (n, cpu.height, cpu.width, cpu.channels)
+    weights = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+               for k, v in cpu.modules["denoise"].state_dict().items()}
+    imgs = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    noise = torch.randn(shape, generator=gen)
+    teacher = {}
+    if name == "score_sde":
+        draw = torch.rand(n, generator=gen)
+    elif name == "consistency":
+        draw = torch.randint(0, int(cpu.hparams.n_grid) - 1, (n,), generator=gen)
+    else:                          # one student time at t = T-1, three below
+        draw = torch.tensor([1, 3, 5, int(cpu.hparams.student_steps)])
+        teacher = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+                   for k, v in cpu.modules["denoise"].named_parameters()}
+    for model, state in zip(models, states):
+        model.modules["denoise"].load_state_dict(weights)
+        for slot, values in (("ema", weights), ("teacher", teacher)):
+            for k, t in state.opt_states.get(slot, {}).items():
+                t.copy_(values[k])
+    out, launched = {}, expected()
+    if name == "distill":
+        targets = []
+        for model, state in zip(models, states):
+            dev = model.device
+            i, grid = draw.to(dev), model._grid_t
+            t = grid[2 * i]
+            x_t = gd.q_sample(model.tables, model.preprocess(imgs), t, noise.to(dev))
+            before = counts()
+            targets.append(model._distill_target(state, x_t, t, grid[2 * i - 1],
+                                                  grid[2 * i - 2]).cpu())
+            if model is not cpu:
+                launched = since(before)
+        below = (cpu._grid_t[2 * draw] < cpu.timesteps - 1)
+        out["target"] = _near(targets[0][below], targets[1][below], f"{name} target")
+        out["target"]["max_abs_err_at_t_T_minus_1"] = (
+            targets[0][~below] - targets[1][~below]).abs().max().item()
+        for model in models:
+            model._distill_target = lambda *args, dev=model.device: targets[1].to(dev)
+    res = []
+    for model, state in zip(models, states):
+        dev = model.device
+        x, d, z = model.preprocess(imgs), draw.to(dev), noise.to(dev)
+        model.modules.train()
+        before = counts()
+        if name == "distill":
+            loss, _ = model.distill_loss(state, x, d, z)
+        else:                                   # t for score-SDE, i for consistency
+            loss, _ = model.loss(x, d, z)
+        grads = torch.autograd.grad(loss, list(model.modules["denoise"].parameters()))
+        model.modules.eval()
+        if model is not cpu:
+            torch.cuda.synchronize()
+            launched = add(launched, since(before))
+        res.append((loss.item(), [g.cpu() for g in grads]))
+    check(launched == unet_launches(cpu.hparams.dim_mults, forwards, 1),
+          f"{name} train step: launched {dict(zip(KERNELS, launched))}")
+    (l_card, g_card), (l_cpu, g_cpu) = res
+    scale = max(g.abs().max().item() for g in g_cpu)
+    err = max(((a - b).abs() - 1e-2 * b.abs()).max().item() for a, b in zip(g_card, g_cpu))
+    check(math.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"{name} train step: loss card {l_card} vs CPU {l_cpu}")
+    check(err <= 1e-3 * scale, f"{name} train step: gradient error {err} beyond "
+                               f"1e-3 x {scale}")
+    out["train"] = dict(batch=n, dtype="float32", loss_card=l_card, loss_cpu=l_cpu,
+                        grad_max_abs_err_over_max_grad=max(
+                            ((a - b).abs().max() / scale).item()
+                            for a, b in zip(g_card, g_cpu)),
+                        max_grad=scale, launches=dict(zip(KERNELS, launched)))
+    emit("families", run="reference", family=name, **out["train"],
+         **({"target": out["target"]} if "target" in out else {}))
+
+    # short chains from the same draws: (name, call, draws, forwards)
+    chains = {"score_sde": (("ve_pc4", lambda m, zs: m.pc_sample(n, steps=4, noises=zs), 7, 7),
+                            ("ve_ode4", lambda m, zs: m.ode_sample(n, steps=4, noises=zs), 1, 7)),
+              "consistency": (("multistep2", lambda m, zs: m.multistep_sample(
+                  n, steps=2, noises=zs), 2, 2),),
+              "distill": ()}[name]
+    for chain, run, n_draws, chain_forwards in chains:
+        zs = [torch.randn(shape, generator=gen) for _ in range(n_draws)]
+        before = counts()
+        got = run(models[0], [z.cuda() for z in zs])
+        torch.cuda.synchronize()
+        chain_l = since(before)
+        check(chain_l == unet_launches(cpu.hparams.dim_mults, chain_forwards),
+              f"{name} {chain}: launched {dict(zip(KERNELS, chain_l))}")
+        launched = add(launched, chain_l)
+        out[chain] = row = dict(batch=n, forwards=chain_forwards,
+                                **_near(got, run(cpu, zs), f"{name} {chain}"))
+        emit("families", run="reference", family=name, chain=chain, **row)
+    del models, states
+    _release()
+    return out, launched
+
+
+def families_cli() -> tuple[dict, tuple]:
+    """The train CLI (2 epochs of 3 steps with validation samples, then a
+    resume for one more epoch) on score_sde/cifar10, consistency/cifar10 and
+    distill/mnist, the last from the checkpoints of a ddpm/mnist teacher
+    trained here (1 epoch); then the sampling CLI from their checkpoints:
+    the default samplers, consistency's --sampler multistep and the
+    student's --sampler ddim.  Backward launches are exact (the steps and
+    steps_per_execution=auto's probe); forwards at least the steps'."""
+    from PIL import Image
+    from igm_tpu_torch.cli import sample_main
+    from igm_tpu_torch.config import compose
+    from igm_tpu_torch.core.trainer import AUTO_TIMED
+    probe = 1 + AUTO_TIMED
+    out, total = {}, expected()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        teacher = tmp / "logs" / "runs" / "ddpm" / "mnist" / "checkpoints"
+        runs = [("ddpm/mnist", "teacher", list(TEACHER_OVERRIDES), ["trainer.max_epochs=1"],
+                 3, 1, ["step_3.pt"])]
+        for name, experiment, forwards in FAMILIES:
+            ckpts = tmp / "logs" / "runs" / experiment / "checkpoints"
+            extra = [f"model.teacher_ckpt={teacher}"] if name == "distill" else []
+            runs += [(experiment, "fit", extra, ["trainer.max_epochs=2"], 6, forwards,
+                      ["step_3.pt", "step_6.pt"]),
+                     (experiment, "resume", extra, ["trainer.max_epochs=3",
+                                                    f"trainer.resume={ckpts}"],
+                      3, forwards, ["step_6.pt", "step_9.pt"])]
+        for experiment, stage, extra, overrides, steps, forwards, want_ckpts in runs:
+            run = tmp / "logs" / "runs" / experiment
+            cfg = compose(REPO / "configs", [f"experiment={experiment}", *extra,
+                                             "print_config=False"])
+            per_step = unet_launches(cfg.model.dim_mults, forwards, 1)
+            before = counts()
+            t0 = time.perf_counter()
+            loss = _train_cli(tmp, *extra, *overrides, experiment=experiment)
+            sec = time.perf_counter() - t0
+            launched = since(before)
+            got = sorted(p.name for p in (run / "checkpoints").iterdir())
+            check(loss is not None and math.isfinite(loss), f"{experiment} {stage}: loss {loss}")
+            check(got == want_ckpts, f"{experiment} {stage}: checkpoints {got}")
+            bwd = slice(2, 4)
+            check(launched[bwd] == tuple(v * (steps + probe) for v in per_step[bwd])
+                  and all(a >= b * (steps + probe) for a, b in zip(launched[:2], per_step[:2]))
+                  and not any(launched[4:]),
+                  f"{experiment} {stage}: launched {dict(zip(KERNELS, launched))} for "
+                  f"{steps} steps and auto's {probe}")
+            grids = sorted(p.name for p in (run / "results").iterdir())
+            check(grids[:1] == ["0.jpg"], f"{experiment}: grids {grids}")
+            total = add(total, launched)
+            out[f"{experiment} {stage}"] = row = dict(
+                seconds=sec, steps=steps, loss=loss, checkpoints=got,
+                launches=dict(zip(KERNELS, launched)))
+            emit("families", run="cli_train", experiment=experiment, stage=stage, **row)
+        for experiment, sampler, forwards in (("score_sde/cifar10", None, 127),
+                                              ("consistency/cifar10", "multistep", 2),
+                                              ("consistency/cifar10", None, 2),
+                                              ("distill/mnist", None, 8),
+                                              ("distill/mnist", "ddim", 8)):
+            png = tmp / f"{experiment.replace('/', '_')}_{sampler}.png"
+            cfg = compose(REPO / "configs", [f"experiment={experiment}", "print_config=False"])
+            dm = cfg.datamodule
+            before = counts()
+            t0 = time.perf_counter()
+            imgs = sample_main([f"experiment={experiment}", "--ckpt",
+                                str(tmp / "logs" / "runs" / experiment / "checkpoints"),
+                                "--n", "16", "--out", str(png),
+                                *(["--sampler", sampler] if sampler else [])])
+            sec = time.perf_counter() - t0
+            launched = since(before)
+            with Image.open(png) as img:
+                size = img.size
+            shape = (16, int(dm.height), int(dm.width), int(dm.channels))
+            check(tuple(imgs.shape) == shape and bool(imgs.isfinite().all())
+                  and imgs.abs().max().item() <= 1.0,
+                  f"{experiment} --sampler {sampler}: {tuple(imgs.shape)}")
+            check(size == (2 + 8 * (int(dm.width) + 2), 2 + 2 * (int(dm.height) + 2)),
+                  f"{experiment} grid {size}")
+            check(launched == unet_launches(cfg.model.dim_mults, forwards),
+                  f"{experiment} --sampler {sampler}: launched {dict(zip(KERNELS, launched))}")
+            total = add(total, launched)
+            out[f"{experiment} sample {sampler or 'default'}"] = row = dict(
+                seconds=sec, forwards=forwards, grid=list(size))
+            emit("families", run="cli_sample", experiment=experiment,
+                 sampler=sampler or "default", **row)
+    _release()
+    return out, total
+
+
+def family_train_timed(name: str, experiment: str, forwards: int) -> tuple[dict, tuple]:
+    """The train step at batch 256 (distill 128), bf16: one eager step and
+    the graphed step (its first call eager and captured, then a replay)
+    from the same state, bit for bit (parameters, Adam state, EMA shadow,
+    teacher, generator, step; the metrics), each with exactly one step's
+    launches; then eager against graphed a-b-b-a (ms, images/s), the peak
+    memory of each, and a profile of the graphed step (device busy ms, idle
+    share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from igm_tpu_torch.tools.profiling import device_summary
+    batch = FAMILY_TRAIN_BATCH[name]
+    model, _ = _chain_model(name, [f"experiment={experiment}"])
+    check(model.compute_dtype == torch.bfloat16, f"{name}: not bf16")
+    state = model.init_state(0)
+    per_step = unet_launches(model.hparams.dim_mults, forwards, 1)
+    imgs, labels = _chain_batches(model, batch, 1, 31)
+    before = counts()
+    state, _ = model.train_step(state, (imgs[0], labels[0]))     # the Adam state exists
+    start = state.snapshot()
+    _, eager = model.train_step(state, (imgs[0], labels[0]))
+    want = state.snapshot()
+    torch.cuda.synchronize()
+    check(since(before) == add(per_step, per_step), f"{name}: eager steps' launches")
+    for stage in ("warm_up", "replay"):
+        state.load_state_dict(start)
+        before_run = counts()
+        _, metrics = model.train_step_n(state, (imgs, labels))
+        torch.cuda.synchronize()
+        diff = same_bits(state.snapshot(), want) + same_bits(metrics, eager)
+        check(not diff, f"{name} {stage}: graphed differs from eager at {diff[:8]}")
+        check(since(before_run) == per_step,
+              f"{name} {stage}: launched {dict(zip(KERNELS, since(before_run)))}")
+
+    def steps(graphed: bool, k: int = FAMILY_TIMED_STEPS):
+        nonlocal state, metrics
+        for _ in range(k):
+            state, metrics = model.train_step_n(state, (imgs, labels), graph=graphed)
+
+    sec = _abba(steps)
+    ms = {m: [1e3 * s / FAMILY_TIMED_STEPS for s in v] for m, v in sec.items()}
+    peak = {}
+    for mode in ("eager", "graphed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps(mode == "graphed", 1)
+        torch.cuda.synchronize()
+        peak[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(True, FAMILY_PROFILED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_summary(prof, FAMILY_PROFILED_STEPS,
+                             1e-3 * min(ms["graphed"]) * FAMILY_PROFILED_STEPS, wall)
+    launched = since(before)
+    # eager and graphed pairs, a-b-b-a after one warm-up turn a mode, peaks, profile
+    n_steps = 2 + 2 + 6 * FAMILY_TIMED_STEPS + 2 + FAMILY_PROFILED_STEPS
+    check(launched == tuple(v * n_steps for v in per_step), f"{name} timed: launches "
+                                                            f"{dict(zip(KERNELS, launched))}")
+    loss = float(metrics["train_loss/loss"])
+    check(math.isfinite(loss), f"{name} timed: loss {loss}")
+    row = dict(batch=batch, dtype="bfloat16", bit_equal=True, ms_per_step=ms,
+               images_per_s={m: [batch * 1e3 / t for t in v] for m, v in ms.items()},
+               peak_memory_gib=peak, loss=loss, launches_per_step=dict(zip(KERNELS, per_step)),
+               profile_graphed={k: summary[k] for k in (
+                   "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+                   "kernels_per_step")})
+    emit("families", run="train_timed", family=name, **row)
+    del model, state
+    _release()
+    return row, launched
+
+
+def families_samplers() -> tuple[dict, tuple]:
+    """VE PC-64, VE ODE-64 and VP PC-64 (1 corrector) on score_sde/cifar10,
+    consistency 1- and 2-step on consistency/cifar10 and the 8-step student
+    of distill/mnist, batch 64, bf16: graphed against eager a-b-b-a from the
+    same generator seed, the samples bit for bit, images/s, and exactly the
+    forwards' launches a run."""
+    import torch
+    out, total, models = {}, expected(), {}
+    n = FAMILY_SAMPLE_BATCH
+    for name, overrides, method, kw, forwards in FAMILY_SAMPLERS:
+        key = tuple(overrides)
+        if key not in models:
+            models[key], _ = _chain_model(name, overrides)
+            models[key].init_state(0)
+        model = models[key]
+        fn = getattr(model, method)
+        samples = {}
+
+        def run(graphed: bool):
+            model.use_graphs = graphed
+            samples[graphed] = fn(n, generator=torch.Generator("cuda").manual_seed(4), **kw)
+
+        before = counts()
+        run(True)                                           # capture
+        torch.cuda.synchronize()
+        sec = _abba(run, warm=0)
+        before_g = counts()
+        run(True)
+        torch.cuda.synchronize()
+        per_run = since(before_g)
+        model.use_graphs = True
+        total = add(total, since(before))
+        check(per_run == unet_launches(model.hparams.dim_mults, forwards),
+              f"{name}: one graphed run launched {dict(zip(KERNELS, per_run))}")
+        x = samples[True]
+        diff = same_bits(x, samples[False])
+        check(not diff and bool(torch.isfinite(x).all())
+              and tuple(x.shape) == (n, model.height, model.width, model.channels),
+              f"{name}: graphed samples differ from eager, or are not finite")
+        out[name] = row = dict(batch=n, forwards=forwards, bit_equal=True, seconds=sec,
+                               images_per_s={m: [n / s for s in v] for m, v in sec.items()})
+        emit("families", run="sampler", sampler=name, **row)
+    del models, model
+    _release()
+    return out, total
+
+
+def phase_families() -> dict:
+    """The score-SDE, consistency and distillation paths; the caller zeroes
+    the counters before it."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(29)
+    out, parts = {"reference": {}, "train": {}}, []
+    for name, experiment, forwards in FAMILIES:
+        out["reference"][name], launched = family_reference(name, experiment, forwards, gen)
+        parts.append(launched)
+    out["cli"], launched = families_cli()
+    parts.append(launched)
+    for name, experiment, forwards in FAMILIES:
+        out["train"][name], launched = family_train_timed(name, experiment, forwards)
+        parts.append(launched)
+    out["samplers"], launched = families_samplers()
+    parts.append(launched)
+    out["launches"] = add(*parts)
+    check(out["launches"] == counts(),
+          f"families phase: launches {counts()} are not its runs' {out['launches']}")
+    emit("families", run="path", seconds=time.perf_counter() - t0,
+         launches=dict(zip(KERNELS, out["launches"])))
+    return out
+
+
+
 # ---------------------------------------------------------------- chain
 # the train steps the chain phase holds graphed against eager:
 # (name, overrides, batch, launches per step)
@@ -2520,7 +2935,8 @@ ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
          "first_stage": lambda: phase_first_stage(), "latent": lambda: phase_latent(),
          "tar_reference": lambda: phase_tar_reference(), "tar": lambda: phase_tar(),
          "fused_block": lambda: phase_fused_block(), "chain": lambda: phase_chain(),
-         "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit()}
+         "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit(),
+         "families": lambda: phase_families()}
 
 
 def main(argv=None) -> int:
@@ -2598,6 +3014,10 @@ def main(argv=None) -> int:
     dit = phase_dit()
     check_path("edm_flow_unet", dit["launches"]["edm_flow_unet"])
     path_launches.update(dit["launches"])
+    reset_counts()                      # the score-SDE, consistency and distillation paths
+    fam = phase_families()
+    check_path("families", fam["launches"])
+    path_launches["families"] = fam["launches"]
     chain = phase_chain()               # graphed against eager
 
     def by_path(i: int) -> dict:
@@ -2732,6 +3152,9 @@ def main(argv=None) -> int:
          dit_train_ms_per_step={k: v["ms_per_step"] for k, v in dit["train"].items()},
          dit_attention_core_ms_per_step=dit["attention_core"]["ms_per_step"],
          dit_sampling_images_per_s={k: v["images_per_s"] for k, v in dit["samplers"].items()},
+         families_train_ms_per_step={k: v["ms_per_step"] for k, v in fam["train"].items()},
+         families_sampling_images_per_s={k: v["images_per_s"]
+                                         for k, v in fam["samplers"].items()},
          seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

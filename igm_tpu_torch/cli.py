@@ -9,18 +9,22 @@ composes the config, changes into the run directory ``hydra.run.dir``
 TensorBoard files go) and trains (``igm_tpu_torch.train.train``).
 
     python -m igm_tpu_torch.cli experiment=ddpm/cifar10 [--ckpt DIR | --weights w.pt] \\
-        [--n 64] [--seed 0] [--out samples.png] [--sampler ddim|dpm] [--steps 50] \\
+        [--n 64] [--seed 0] [--out samples.png] [--sampler ddim|dpm|heun|multistep] \\
+        [--steps 50] \\
         [--label 3] [--inpaint left|right|top|bottom|center [--resample 1]] \\
         [--device cpu]
 
 Composes the config, instantiates the port's model on the card (or on the
 device ``--device`` names), loads the weights, runs the model's sampler
 (DDPM: ancestral, or ``--sampler ddim|dpm``; EDM: Heun over the Karras
-grid, also as ``--sampler heun``; flow matching: the ODE;
-``experiment=vqvae/*``: decoded random codes; ``experiment=tar/*``: the
-KV-cached decode), and writes a grid image.  A ``--sampler`` the model
-lacks (``heun`` on a DDPM; ``multistep``, the consistency sampler, not
-ported yet) exits with a message.  ``--label``
+grid, also as ``--sampler heun``; flow matching: the ODE; score-SDE:
+``model.sampler``, the predictor-corrector chain or the probability-flow
+ODE; consistency: multistep, also as ``--sampler multistep``; progressive
+distillation: the student's DDIM on its own grid, or ``--sampler ddim``
+at ``student_steps``; ``experiment=vqvae/*``: decoded random codes;
+``experiment=tar/*``: the KV-cached decode), and writes a grid image.  A
+``--sampler`` the model lacks (``heun`` on a DDPM, ``multistep`` on
+anything but a consistency model) exits with a message.  ``--label``
 draws every sample from one class (class-conditional models).  ``--inpaint``
 erases a region of the first n validation images of the datamodule
 (synthetic when its files are absent) and fills it with RePaint, with

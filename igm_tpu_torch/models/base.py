@@ -80,6 +80,20 @@ def draw_labels(model: "BaseModel", labels, n: int, gen, drop) -> Optional[torch
     return torch.where(drop, torch.full_like(labels, model.num_classes), labels)
 
 
+def noise_source(shape, generator: Optional[torch.Generator], noises, device):
+    """A sampler's N(0, I) draws of ``shape``: the next of ``noises`` (given
+    in the order the sampler draws) when given, else one from
+    ``generator``."""
+    given = iter(noises) if noises is not None else None
+
+    def draw() -> torch.Tensor:
+        if given is not None:
+            return next(given)
+        return torch.randn(shape, generator=generator, device=device)
+
+    return draw
+
+
 @dataclasses.dataclass
 class ValidationResult:
     others: Dict[str, Any] = dataclasses.field(default_factory=dict)

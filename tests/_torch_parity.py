@@ -38,6 +38,30 @@ def _perturb(tree, seed: int = 1):
         lambda p: p + 0.05 * rng.normal(size=p.shape).astype(np.float32), tree)
 
 
+def adam_grads(new_state, opt_name: str, module: str, b1: float):
+    """The gradients of igm_tpu's train step, read back from its Adam first
+    moment after one step (mu = (1 - b1) g), so one compiled train step
+    gives the loss, the gradients and the new parameters."""
+    adam = next(s for s in new_state.opt_states[opt_name] if hasattr(s, "mu"))
+    assert int(adam.count) == 1
+    return jax.tree_util.tree_map(lambda m: m / (1.0 - b1), adam.mu[module])
+
+
+def check_ema(tstate, new_state, want_grads):
+    """The port's EMA shadow after one step against igm_tpu's, where the
+    step moved the parameter (|g| > G_FLOOR, as check_train_step holds the
+    parameters)."""
+    if "ema" not in tstate.opt_states:
+        return
+    want_e = {k: v.numpy() for k, v in flax_to_torch(
+        _flatten(new_state.opt_states["ema"])).items()}
+    want_g = {k: v.numpy() for k, v in flax_to_torch(_flatten(want_grads)).items()}
+    for k, e in tstate.opt_states["ema"].items():
+        big = np.abs(want_g[k]) > G_FLOOR
+        np.testing.assert_allclose(e.numpy()[big], want_e[k][big], atol=PARAM_ATOL,
+                                   rtol=PARAM_RTOL, err_msg=k)
+
+
 def check_train_step(tm, module, params, want_loss, want_grads, new_state, torch_loss,
                      torch_step, want_metrics=None):
     """The port's loss and gradients (``torch_loss()``), then one train step

@@ -29,7 +29,8 @@ from igm_tpu.models.flow_matching import FlowMatching as JaxFlow  # noqa: E402
 from igm_tpu_torch.interop import flax_to_torch  # noqa: E402
 from igm_tpu_torch.models.edm import EDM, karras_sigmas  # noqa: E402
 from igm_tpu_torch.models.flow_matching import TIME_SCALE, FlowMatching  # noqa: E402
-from tests._torch_parity import LR, _flatten, _perturb, check_train_step, dm  # noqa: E402
+from tests._torch_parity import (LR, _flatten, _perturb, check_ema,  # noqa: E402
+                                 check_train_step, dm)
 
 torch.set_num_threads(1)
 
@@ -81,18 +82,6 @@ def _torch_model(tcls, kw, c, module, params, ema: bool):
     return tm, tstate
 
 
-def _check_ema(tstate, new_state, want_grads):
-    if "ema" not in tstate.opt_states:
-        return
-    want_e = {k: v.numpy() for k, v in flax_to_torch(
-        _flatten(new_state.opt_states["ema"])).items()}
-    want_g = {k: v.numpy() for k, v in flax_to_torch(_flatten(want_grads)).items()}
-    for k, e in tstate.opt_states["ema"].items():
-        big = np.abs(want_g[k]) > 1e-6
-        np.testing.assert_allclose(e.numpy()[big], want_e[k][big], atol=1e-6, rtol=1e-6,
-                                   err_msg=k)
-
-
 @pytest.mark.parametrize("case", ["unet", "dit_conditional_ema"])
 def test_edm_train_step_matches_igm_tpu(case):
     kw, c, jm, state, module, params, imgs, labels, keys, drop, y = _setup(jedm.EDM, case)
@@ -131,7 +120,7 @@ def test_edm_train_step_matches_igm_tpu(case):
 
     check_train_step(tm, module, params, want_loss, want_grads, new_state,
                      lambda: tm.loss(tx, sigma, tnoise, ty), step)
-    _check_ema(tstate, new_state, want_grads)
+    check_ema(tstate, new_state, want_grads)
 
 
 @pytest.mark.parametrize("case", ["unet_conditional", "dit"])
@@ -170,7 +159,7 @@ def test_flow_train_step_matches_igm_tpu(case):
 
     check_train_step(tm, module, params, want_loss, want_grads, new_state,
                      lambda: tm.loss(tx1, tt, tx0, ty), step)
-    _check_ema(tstate, new_state, want_grads)
+    check_ema(tstate, new_state, want_grads)
 
 
 def test_karras_sigmas_match_igm_tpu():

@@ -82,6 +82,13 @@ def test_targets_resolve_to_the_port():
     assert resolve_target("src.models.ddpm.DDPM") is DDPM
     assert resolve_target("igm_tpu.models.tar.TAR") is TAR
     assert resolve_target("igm_tpu.data.mnist.MNISTDataModule") is MNISTDataModule
+    from igm_tpu_torch.models.consistency import ConsistencyModel
+    from igm_tpu_torch.models.distill import ProgressiveDistillation
+    from igm_tpu_torch.models.score_sde import ScoreSDE
+    assert resolve_target("igm_tpu.models.score_sde.ScoreSDE") is ScoreSDE
+    assert resolve_target("igm_tpu.models.consistency.ConsistencyModel") is ConsistencyModel
+    assert resolve_target("igm_tpu.models.distill.ProgressiveDistillation") \
+        is ProgressiveDistillation
 
 
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
@@ -91,10 +98,14 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    from igm_tpu_torch.models.consistency import ConsistencyModel
     from igm_tpu_torch.models.ddpm import DDPM
+    from igm_tpu_torch.models.distill import ProgressiveDistillation
+    from igm_tpu_torch.models.score_sde import ScoreSDE
     dm = {"width": 8, "height": 8, "channels": 3, "transforms": {}}
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        DDPM(datamodule=dm, hidden_dim=8, dim_mults=(1,), timesteps=4)
+    for cls in (DDPM, ScoreSDE, ConsistencyModel, ProgressiveDistillation):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(datamodule=dm, hidden_dim=8, dim_mults=(1,), timesteps=4, student_steps=1)
     from igm_tpu_torch.cli import sample_main, train_main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample_main(["experiment=ddpm/cifar10", "--n", "1"])
