@@ -128,6 +128,25 @@ and prints no result line):
           busy time and idle share); VE PC-64, VE ODE-64, VP PC-64,
           consistency 1- and 2-step and the 8-step student at batch 64,
           graphed against eager, the samples bit for bit, a-b-b-a.
+  likelihood  MADE, the gated PixelCNN and RealNVP (made/mnist,
+          pixelcnn/mnist, pixelcnn/cifar10, realnvp/mnist, realnvp/cifar10),
+          counters zeroed just before and read just after (no hand kernel on
+          these paths: every count exactly 0): at full width in f32 (TF32
+          off), batch 8, each train step's bpd and gradients on the card
+          against the CPU; MADE's bf16 path (bf16 products, the output kernel
+          and the Adam moments stored in bf16, counter-hash stochastic
+          rounding): its bpd within 5e-3 of f32 on the same weights, 20 SR
+          steps whose bpd falls, every masked entry of every kernel and
+          moment exactly 0 after them, and the SR rounding of 2**20 values
+          bit for bit as the CPU's; each train step at batch 128 graphed
+          against eager bit for bit (MADE's SR seed draw included) and
+          a-b-b-a (ms, images/s, peak memory, the graphed step's device busy
+          time and idle share); MADE's optimizer update alone against its
+          bound and its eager step by group; the samplers at batch 64 (MADE's
+          784-step chain and PixelCNN's row sampler eager, RealNVP's inverse
+          pass graphed against eager, bit for bit); the train CLI on each
+          experiment (3 steps with the sample grid, a resume for 1) and the
+          sampling CLI on realnvp/cifar10.
   chain   graphed against eager (igm_tpu_torch/core/graphs.py): the train
           steps of the flagship (batch 256, bf16), the VQ-VAE (128, f32),
           the latent DDPM (128), TAR (128, flash_attention=dropout) and the
@@ -689,6 +708,9 @@ PATH_KERNELS = {
     # score-SDE, consistency and distillation: train steps, CLIs, samplers
     "families": ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
                  "linear_attention_bwd"),
+    # MADE, PixelCNN and RealNVP launch no hand kernel: phase likelihood
+    # holds them to exactly 0
+    "likelihood": (),
 }
 
 
@@ -2604,6 +2626,377 @@ def phase_families() -> dict:
 
 
 
+# ---------------------------------------------------------------- likelihood
+# the exact-likelihood models: (name, experiment)
+LIKELIHOOD = (("made", "made/mnist"), ("pixelcnn_mnist", "pixelcnn/mnist"),
+              ("pixelcnn_cifar10", "pixelcnn/cifar10"), ("realnvp_mnist", "realnvp/mnist"),
+              ("realnvp_cifar10", "realnvp/cifar10"))
+LIK_REF_BATCH = 8                    # card against CPU, f32
+LIK_BATCH = 128                      # the datamodules' batch
+LIK_SR_STEPS = 20
+LIK_TIMED_STEPS = 5                  # per turn of the a-b-b-a timing
+LIK_PROFILED_STEPS = 3
+LIK_SAMPLE_BATCH = 64
+SR_ELEMENTS = 2 ** 20
+SR_SEED = 1_234_567_891
+# MADE in bf16 against f32, the same weights and batch: a bf16 operand moves
+# a logit by ~5e-4 (1024 products, each operand rounded to 2**-9); the bpd,
+# a mean of log-softmax values, moves less
+MADE_BF16_BPD_TOL = 5e-3
+MADE_OUT_ELEMENTS = 1024 * 784 * 256          # the output kernel, hidden x (D x 256)
+# the update's least traffic with bf16 weights and moments: g, mu, nu and w
+# read, mu, nu and w written, 2 bytes each; the step's weight traffic adds w
+# read twice (forward, dgrad) and dW written: 20 bytes an element, ~4.1 GB
+MADE_UPDATE_BYTES = 14 * MADE_OUT_ELEMENTS
+MADE_STEP_WEIGHT_BYTES = 20 * MADE_OUT_ELEMENTS
+# MADE's products a step at batch 128: 3 x 2 x B x 1024 x 200704 (the output
+# layer's forward, dgrad and wgrad; the hidden layers add 2%)
+MADE_STEP_FLOPS = 3 * 2 * LIK_BATCH * 1024 * 784 * 256
+# MADE's eager step by group: the optimizer update is the kernels inside the
+# device span of Optimizer.step; the rest by name
+MADE_GROUPS = (("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "splitk", "gemv")),
+               ("softmax", ("softmax",)),
+               ("copy_cast", ("copy", "cast", "convert")),
+               ("elementwise", ("elementwise", "vectorized", "reduce", "index", "gather",
+                                "scatter", "fill")))
+
+
+def _lik_model(experiment: str, device: str = "cuda", **kw):
+    from igm_tpu_torch.config import compose, instantiate
+    cfg = compose(REPO / "configs", [f"experiment={experiment}", "print_config=False"])
+    model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device, **kw)
+    model.steps_per_epoch = (60_000 if "mnist" in experiment else 50_000) // LIK_BATCH
+    return model
+
+
+def _lik_loss(model, imgs, labels, u):
+    """The model's bpd on a batch (RealNVP with the dequantisation noise u)."""
+    kind = type(model).__name__
+    if kind == "RealNVP":
+        return model.bpd(imgs, u)
+    return model.bpd(imgs, labels) if kind == "PixelCNN" else model.bpd(imgs)
+
+
+def lik_reference(name: str, experiment: str, gen) -> dict:
+    """At full width in f32 (TF32 off), batch 8: the loss and every gradient
+    of the train step on the card against the same weights, batch and
+    dequantisation noise on the CPU (RealNVP's weights moved by 0.02 N(0, 1):
+    its Conv_2 starts at 0)."""
+    import torch
+    kw = {"compute_dtype": "float32", "weight_dtype": "float32"} if name == "made" else {}
+    models = [_lik_model(experiment, d, **kw) for d in ("cuda", "cpu")]
+    cpu = models[1]
+    if name.startswith("realnvp"):
+        with torch.no_grad():
+            for p in cpu.modules.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    models[0].modules.load_state_dict(cpu.modules.state_dict())
+    shape = (LIK_REF_BATCH, cpu.height, cpu.width, cpu.channels)
+    imgs = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    labels = torch.randint(0, 10, (LIK_REF_BATCH,), generator=gen, dtype=torch.int32)
+    u = torch.rand(shape, generator=gen)
+    res = []
+    for model in models:
+        dev = model.device
+        params = list(model.modules.parameters())
+        loss = _lik_loss(model, imgs.to(dev), labels.to(dev), u.to(dev))
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        res.append((loss.item(), [torch.zeros(p.shape) if g is None else g.cpu()
+                                  for p, g in zip(params, grads)]))
+    (l_card, g_card), (l_cpu, g_cpu) = res
+    scale = max(g.abs().max().item() for g in g_cpu)
+    err = max(((a - b).abs() - 1e-2 * b.abs()).max().item() for a, b in zip(g_card, g_cpu))
+    check(math.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"{name} train step: bpd card {l_card} vs CPU {l_cpu}")
+    check(err <= 1e-3 * scale, f"{name} train step: gradient error {err} beyond 1e-3 x {scale}")
+    row = dict(batch=LIK_REF_BATCH, dtype="float32", bpd_card=l_card, bpd_cpu=l_cpu,
+               grad_max_abs_err_over_max_grad=max(((a - b).abs().max() / scale).item()
+                                                  for a, b in zip(g_card, g_cpu)),
+               max_grad=scale, parameters=len(g_cpu))
+    emit("likelihood", run="reference", model=name, **row)
+    del models
+    _release()
+    return row
+
+
+def made_bf16(gen) -> dict:
+    """MADE's bf16 path on the card (bf16 products, the output kernel and the
+    Adam moments stored in bf16, stochastic rounding): its bpd against f32
+    on the same weights and batch 128; 20 SR steps whose bpd falls; every
+    masked entry of every kernel and moment exactly 0 after them; the SR
+    rounding of 2**20 float32 values bit for bit as the CPU's."""
+    import torch
+    from igm_tpu_torch.core.optim import hash_noise_u16, stochastic_round_bf16
+    f32 = _lik_model("made/mnist", compute_dtype="float32", weight_dtype="float32")
+    model = _lik_model("made/mnist")
+    check(model.compute_dtype == torch.bfloat16 and model.bf16_weights and model.sr_active(),
+          "made/mnist on the card: not bf16 weights with SR")
+    state = model.init_state(0)
+    model.modules.load_state_dict(f32.modules.state_dict())
+    imgs, labels = _chain_batches(model, LIK_BATCH, 1, 41)
+    batch = (imgs[0], labels[0])
+    with torch.no_grad():
+        bpd32, bpd16 = f32.bpd(batch[0]).item(), model.bpd(batch[0]).item()
+    del f32
+    _release()
+    check(abs(bpd16 - bpd32) <= MADE_BF16_BPD_TOL,
+          f"MADE bf16 bpd {bpd16} vs f32 {bpd32} beyond {MADE_BF16_BPD_TOL}")
+    traj = []
+    for _ in range(LIK_SR_STEPS):
+        state, metrics = model.train_step(state, batch)
+        traj.append(metrics["train_bpd"])
+    traj = [float(t) for t in traj]
+    check(all(map(math.isfinite, traj)) and traj[-1] < traj[0], f"MADE SR steps: bpd {traj}")
+    net, opt = model.net, state.opt_states["opt"]
+    nonzero = {}
+    for lname, weight, mask in ([(f"layers_{i}", layer.weight, layer.mask_t)
+                                 for i, layer in enumerate(net.layers())]
+                                + [("out_layer", net.out_layer.weight,
+                                    net.out_layer.expanded_mask())]):
+        masked = mask == 0
+        for key, t in (("kernel", weight), ("mu", opt.state[weight]["exp_avg"]),
+                       ("nu", opt.state[weight]["exp_avg_sq"])):
+            nonzero[f"{lname}/{key}"] = int((t[masked] != 0).sum())
+        check(opt.state[weight]["exp_avg"].dtype == torch.bfloat16,
+              f"{lname}: moments not bf16")
+    check(not any(nonzero.values()), f"MADE masked entries not 0 after SR steps: {nonzero}")
+    x = (torch.randn(SR_ELEMENTS, generator=gen)
+         * torch.exp2(torch.randint(-30, 30, (SR_ELEMENTS,), generator=gen).float()))
+    card = stochastic_round_bf16(x.cuda(), torch.tensor(SR_SEED, device="cuda")).cpu()
+    plain = stochastic_round_bf16(x, SR_SEED)
+    noise_card = hash_noise_u16((SR_ELEMENTS,), torch.tensor(SR_SEED, device="cuda")).cpu()
+    differ = int((card.view(torch.int16) != plain.view(torch.int16)).sum())
+    check(differ == 0 and torch.equal(noise_card, hash_noise_u16((SR_ELEMENTS,), SR_SEED)),
+          f"SR on the card: {differ} of {SR_ELEMENTS} roundings differ from the CPU's")
+    rounded_up = float((card.float().abs() > x.abs()).float().mean())
+    row = dict(batch=LIK_BATCH, bpd_f32=bpd32, bpd_bf16=bpd16, bpd_tol=MADE_BF16_BPD_TOL,
+               sr_steps=LIK_SR_STEPS, bpd_trajectory=traj, masked_nonzero=nonzero,
+               sr_elements=SR_ELEMENTS, sr_bits_differ=differ,
+               sr_share_rounded_away_from_zero=rounded_up,
+               weight_dtype=str(net.out_layer.weight.dtype))
+    emit("likelihood", run="made_bf16", **row)
+    del model, state
+    _release()
+    return row
+
+
+def made_update_ms(model, state, batch) -> dict:
+    """MADE's optimizer update alone (CastAdam.step with SR, the gradients of
+    one backward set), timed with CUDA events over 5 calls, beside its bound;
+    then the eager step profiled, the update read as the kernels inside the
+    device span of Optimizer.step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from igm_tpu_torch.tools.profiling import group_of
+    params = list(model.net.parameters())
+    opt = state.opt_states["opt"]
+    grads = torch.autograd.grad(model.bpd(batch[0]), params)
+    seeds = torch.randint(0, 2 ** 31 - 1, (len(params),), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(3))
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step(sr_seeds=seeds)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        opt.step(sr_seeds=seeds)
+    end.record()
+    torch.cuda.synchronize()
+    for p in params:
+        p.grad = None
+    update_ms = start.elapsed_time(end) / 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(LIK_PROFILED_STEPS):
+            state, _ = model.train_step(state, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if getattr(e, "is_user_annotation", False) and "Optimizer.step" in e.name]
+    by_group = {}
+    for e in events:
+        if getattr(e, "is_user_annotation", False):
+            continue
+        inside = any(a <= e.time_range.start and e.time_range.end <= b for a, b in spans)
+        g = "optimizer_update" if inside else group_of(e.name, MADE_GROUPS)
+        by_group[g] = by_group.get(g, 0.0) + e.time_range.elapsed_us() / 1e3 / LIK_PROFILED_STEPS
+    return dict(update_ms=update_ms, update_bound_ms=1e3 * MADE_UPDATE_BYTES / HBM_BYTES_PER_S,
+                update_bytes=MADE_UPDATE_BYTES,
+                step_weight_bound_ms=1e3 * MADE_STEP_WEIGHT_BYTES / HBM_BYTES_PER_S,
+                step_flops_bound_ms=1e3 * MADE_STEP_FLOPS / PEAK_OPS["bfloat16"],
+                eager_device_ms_per_step_by_group=by_group,
+                optimizer_spans_found=len(spans))
+
+
+def lik_train_timed(name: str, experiment: str) -> dict:
+    """The train step at batch 128 as the CLI runs it (MADE bf16 with SR,
+    PixelCNN and RealNVP f32): one eager step and the graphed step (its first
+    call eager and captured, then a replay) from the same state, bit for bit
+    (parameters, Adam state, generator, step, metrics); eager against
+    graphed a-b-b-a (ms, images/s) and the peak memory of each; the graphed
+    step's device busy time and idle share (MADE: its update alone against
+    the bound, and the eager step by group); then the sampler at batch 64:
+    MADE's 784-step chain and PixelCNN's row sampler eager (two runs each),
+    RealNVP's inverse pass graphed against eager a-b-b-a, bit for bit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from igm_tpu_torch.tools.profiling import device_summary
+    model = _lik_model(experiment)
+    state = model.init_state(0)
+    imgs, labels = _chain_batches(model, LIK_BATCH, 1, 43)
+    state, _ = model.train_step(state, (imgs[0], labels[0]))      # the Adam state exists
+    start = state.snapshot()
+    _, eager = model.train_step(state, (imgs[0], labels[0]))
+    want = state.snapshot()
+    for stage in ("warm_up", "replay"):
+        state.load_state_dict(start)
+        _, metrics = model.train_step_n(state, (imgs, labels))
+        torch.cuda.synchronize()
+        diff = same_bits(state.snapshot(), want) + same_bits(metrics, eager)
+        check(not diff, f"{name} {stage}: graphed differs from eager at {diff[:8]}")
+
+    def steps(graphed: bool, k: int = LIK_TIMED_STEPS):
+        nonlocal state, metrics
+        for _ in range(k):
+            state, metrics = model.train_step_n(state, (imgs, labels), graph=graphed)
+
+    sec = _abba(steps)
+    ms = {m: [1e3 * s / LIK_TIMED_STEPS for s in v] for m, v in sec.items()}
+    peak = {}
+    for mode in ("eager", "graphed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps(mode == "graphed", 1)
+        torch.cuda.synchronize()
+        peak[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(True, LIK_PROFILED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_summary(prof, LIK_PROFILED_STEPS,
+                             1e-3 * min(ms["graphed"]) * LIK_PROFILED_STEPS, wall)
+    summary["top_kernels_ms_per_step"] = top_kernels(prof, LIK_PROFILED_STEPS, 6)
+    bpd = float(metrics["train_bpd"])
+    check(math.isfinite(bpd), f"{name} timed: bpd {bpd}")
+    row = dict(batch=LIK_BATCH, dtype=str(getattr(model, "compute_dtype", torch.float32)),
+               bit_equal=True, ms_per_step=ms,
+               images_per_s={m: [LIK_BATCH * 1e3 / t for t in v] for m, v in ms.items()},
+               peak_memory_gib=peak, bpd=bpd,
+               profile_graphed={k: summary[k] for k in (
+                   "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+                   "kernels_per_step", "device_ms_per_step_by_group",
+                   "top_kernels_ms_per_step")})
+    if name == "made":
+        row["update"] = made_update_ms(model, state, (imgs[0], labels[0]))
+    row["sample"] = lik_sampler(name, model)
+    emit("likelihood", run="train_timed", model=name, **row)
+    del model, state
+    _release()
+    return row
+
+
+def lik_sampler(name: str, model) -> dict:
+    """The sampler at batch 64 from a generator seed: seconds and images/s."""
+    import torch
+    n = LIK_SAMPLE_BATCH
+    shape = (n, model.height, model.width, model.channels)
+    samples = {}
+    if name.startswith("realnvp"):
+        def run(graphed: bool):
+            model.use_graphs = graphed
+            samples[graphed] = model.sample(n, torch.Generator("cuda").manual_seed(5))
+
+        run(True)                                           # capture
+        sec = _abba(run, warm=0)
+        model.use_graphs = True
+        diff = same_bits(samples[True], samples[False])
+        check(not diff, f"{name}: graphed samples differ from eager")
+        x = samples[True]
+    else:
+        method = model.sample_images
+        sec = {"eager": []}
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = method(n, torch.Generator("cuda").manual_seed(5 + i))
+            torch.cuda.synchronize()
+            sec["eager"].append(time.perf_counter() - t0)
+    check(tuple(x.shape) == shape and bool(torch.isfinite(x).all())
+          and x.abs().max().item() <= 1.0, f"{name} samples: {tuple(x.shape)}")
+    return dict(batch=n, seconds=sec, images_per_s={m: [n / s for s in v] for m, v in sec.items()},
+                bit_equal=name.startswith("realnvp") or None,
+                steps={"made": 784, "pixelcnn_mnist": 28 * 28,
+                       "pixelcnn_cifar10": 32 * 32}.get(name, 1))
+
+
+def lik_cli() -> dict:
+    """Through the port's CLI, each experiment: 3 steps (an epoch of one
+    step each, validation with the sample grid after the last), then a resume
+    for 1 more step without validation; realnvp/cifar10 then samples
+    through igm_tpu_torch.cli from its checkpoints."""
+    from PIL import Image
+    from igm_tpu_torch.cli import sample_main
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, experiment in LIKELIHOOD:
+            ckpts = tmp / "logs" / "runs" / experiment / "checkpoints"
+            for stage, overrides, want in (
+                    ("fit", ["trainer.max_epochs=3", "trainer.check_val_every_n_epoch=3"],
+                     ["step_2.pt", "step_3.pt"]),
+                    ("resume", ["trainer.max_epochs=4", "trainer.limit_val_batches=0",
+                                f"trainer.resume={ckpts}"], ["step_3.pt", "step_4.pt"])):
+                t0 = time.perf_counter()
+                bpd = _train_cli(tmp, "trainer.limit_train_batches=1", *overrides,
+                                 experiment=experiment, metric="train_bpd")
+                sec = time.perf_counter() - t0
+                got = sorted(p.name for p in ckpts.iterdir())
+                grids = sorted(p.name for p in (ckpts.parent / "results").iterdir())
+                check(bpd is not None and math.isfinite(bpd), f"{experiment} {stage}: bpd {bpd}")
+                check(got == want, f"{experiment} {stage}: checkpoints {got}")
+                check(grids == ["2.jpg"], f"{experiment} {stage}: grids {grids}")
+                out[f"{experiment} {stage}"] = row = dict(seconds=sec, train_bpd=bpd,
+                                                          checkpoints=got)
+                emit("likelihood", run="cli_train", experiment=experiment, stage=stage, **row)
+        png = tmp / "realnvp.png"
+        t0 = time.perf_counter()
+        imgs = sample_main(["experiment=realnvp/cifar10", "--ckpt",
+                            str(tmp / "logs" / "runs" / "realnvp" / "cifar10" / "checkpoints"),
+                            "--n", "16", "--out", str(png)])
+        sec = time.perf_counter() - t0
+        with Image.open(png) as img:
+            size = img.size
+        check(tuple(imgs.shape) == (16, 32, 32, 3) and bool(imgs.isfinite().all())
+              and imgs.abs().max().item() <= 1.0 and size == (2 + 8 * 34, 2 + 2 * 34),
+              f"realnvp/cifar10 sampling CLI: {tuple(imgs.shape)}, grid {size}")
+        out["realnvp/cifar10 sample"] = row = dict(seconds=sec, grid=list(size))
+        emit("likelihood", run="cli_sample", experiment="realnvp/cifar10", **row)
+    _release()
+    return out
+
+
+def phase_likelihood() -> dict:
+    """MADE, PixelCNN and RealNVP; the caller zeroes the counters before it.
+    No hand kernel is on these paths: every count must stay 0."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(31)
+    out = {"reference": {}, "train": {}}
+    for name, experiment in LIKELIHOOD:
+        out["reference"][name] = lik_reference(name, experiment, gen)
+    out["made_bf16"] = made_bf16(gen)
+    for name, experiment in LIKELIHOOD:
+        out["train"][name] = lik_train_timed(name, experiment)
+    out["cli"] = lik_cli()
+    out["launches"] = counts()
+    check(out["launches"] == expected(),
+          f"likelihood phase launched {dict(zip(KERNELS, out['launches']))}")
+    emit("likelihood", run="path", seconds=time.perf_counter() - t0,
+         launches=dict(zip(KERNELS, out["launches"])))
+    return out
+
+
 # ---------------------------------------------------------------- chain
 # the train steps the chain phase holds graphed against eager:
 # (name, overrides, batch, launches per step)
@@ -2936,7 +3329,7 @@ ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
          "tar_reference": lambda: phase_tar_reference(), "tar": lambda: phase_tar(),
          "fused_block": lambda: phase_fused_block(), "chain": lambda: phase_chain(),
          "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit(),
-         "families": lambda: phase_families()}
+         "families": lambda: phase_families(), "likelihood": lambda: phase_likelihood()}
 
 
 def main(argv=None) -> int:
@@ -3018,6 +3411,10 @@ def main(argv=None) -> int:
     fam = phase_families()
     check_path("families", fam["launches"])
     path_launches["families"] = fam["launches"]
+    reset_counts()                      # MADE, PixelCNN and RealNVP
+    lik = phase_likelihood()
+    check_path("likelihood", lik["launches"])
+    path_launches["likelihood"] = lik["launches"]
     chain = phase_chain()               # graphed against eager
 
     def by_path(i: int) -> dict:
@@ -3155,6 +3552,12 @@ def main(argv=None) -> int:
          families_train_ms_per_step={k: v["ms_per_step"] for k, v in fam["train"].items()},
          families_sampling_images_per_s={k: v["images_per_s"]
                                          for k, v in fam["samplers"].items()},
+         likelihood_train_images_per_s={k: v["images_per_s"]
+                                        for k, v in lik["train"].items()},
+         likelihood_sampling_images_per_s={k: v["sample"]["images_per_s"]
+                                           for k, v in lik["train"].items()},
+         made_update_ms=lik["train"]["made"]["update"]["update_ms"],
+         made_update_bound_ms=lik["train"]["made"]["update"]["update_bound_ms"],
          seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,7 +22,11 @@ grid, also as ``--sampler heun``; flow matching: the ODE; score-SDE:
 ODE; consistency: multistep, also as ``--sampler multistep``; progressive
 distillation: the student's DDIM on its own grid, or ``--sampler ddim``
 at ``student_steps``; ``experiment=vqvae/*``: decoded random codes;
-``experiment=tar/*``: the KV-cached decode), and writes a grid image.  A
+``experiment=tar/*``: the KV-cached decode; ``experiment=realnvp/*``: one
+inverse pass of the flow), and writes a grid image.  MADE and PixelCNN have
+no sampler here (``igm_tpu``'s CLI fails on them with a KeyError from
+``BaseModel.sample``): the port exits with a message; their sample grids come
+from validation.  A
 ``--sampler`` the model lacks (``heun`` on a DDPM, ``multistep`` on
 anything but a consistency model) exits with a message.  ``--label``
 draws every sample from one class (class-conditional models).  ``--inpaint``
@@ -33,8 +37,8 @@ results.  ``--ckpt`` restores the
 whole train state from the newest of the port's checkpoints in DIR: every
 module (for latent DDPM the denoiser, the first stage, the codebook and the
 latent scale) and the EMA shadow the samplers use.  ``--weights`` takes the
-model's network alone (the denoiser; TAR's ``net``): a ``torch.save``d
-state_dict or an ``.npz`` of that network's ``igm_tpu`` param leaves keyed by
+model's network alone (the denoiser; TAR's ``net``; RealNVP's ``flow``): a
+``torch.save``d state_dict or an ``.npz`` of that network's ``igm_tpu`` param leaves keyed by
 their ``/``-joined path (converted through ``igm_tpu_torch.interop``; flow
 matching's network is its ``velocity``).  Without either the weights are a seeded random
 init, and the CLI says so.
@@ -125,9 +129,9 @@ def sample_main(argv=None) -> torch.Tensor:
                          help="a directory of the port's checkpoints: restore "
                               "every module from the newest")
     weights.add_argument("--weights", default=None,
-                         help="the network's weights (the denoiser; TAR's net): a "
-                              "torch state_dict file, or an .npz of igm_tpu param "
-                              "leaves by '/'-joined path")
+                         help="the network's weights (the denoiser; TAR's net; RealNVP's "
+                              "flow): a torch state_dict file, or an .npz of igm_tpu "
+                              "param leaves by '/'-joined path")
     parser.add_argument("--n", type=int, default=64)
     parser.add_argument("--out", default="samples.png")
     parser.add_argument("--seed", type=int, default=0)
@@ -209,6 +213,9 @@ def sample_main(argv=None) -> torch.Tensor:
                            -1.0, 1.0)
         n_show = args.n
     else:
+        if not hasattr(model, "sample"):
+            raise SystemExit(f"{type(model).__name__} has no sampler here: its sample grids "
+                             "come from validation (python -m igm_tpu_torch.train)")
         imgs = model.sample(args.n, generator, **kwargs)
         n_show = args.n
     grid = get_grid_images(imgs.float().cpu().numpy(), model, nimgs=n_show)

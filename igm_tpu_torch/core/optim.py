@@ -17,12 +17,24 @@ before each launch (:meth:`OptimizerSet.capture_lr_slots`).  The eager CUDA
 step is the same capturable arithmetic.  On the CPU, where ``capturable``
 is refused, it is the plain ``torch.optim.Adam`` with a float learning rate.
 
-Not ported yet (they wait for the GAN and MADE slices): ``rmsprop``,
-``grouped_adam``, ``clip_params`` and the stochastic-rounding helpers.
+Adam with moments *stored* in a reduced dtype (``mu_dtype``/``nu_dtype``,
+``igm_tpu``'s ``_scale_by_adam_cast``, or optax's ``mu_dtype`` alone) and
+parameters stored in bfloat16 are :class:`CastAdam`, an optimizer of this
+module with the same state layout as ``torch.optim.Adam`` (``step``,
+``exp_avg``, ``exp_avg_sq``) and the same capturable rule on the card
+(device step count and learning rate, no host sync).  Its step can apply a
+bfloat16 parameter's update with the counter-hash stochastic rounding of
+``igm_tpu`` (``stochastic_round_bf16``), one uint32 seed a parameter,
+given as a device tensor.  ``Adam.clip_norm`` chains optax's
+``clip_by_global_norm`` ahead of the update.
+
+Not ported yet (they wait for the GAN slice): ``rmsprop``,
+``grouped_adam`` and ``clip_params``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -55,34 +67,202 @@ def halving_lr(base_lr: float, drop_lr_epoch: int, steps_per_epoch: int) -> Sche
     return schedule
 
 
+# ----------------------------------------------------- stochastic rounding
+def _int32(c: int) -> int:
+    """The int32 with the bits of the uint32 ``c``."""
+    return c - (1 << 32) if c >= 1 << 31 else c
+
+
+def hash_noise_u16(shape, seed, device=None) -> torch.Tensor:
+    """``igm_tpu``'s ``_hash_noise_u16`` (``core/optim.py:114-128``) bit for
+    bit: per element, 16 bits of a multiply-xor hash of its linear index
+    (row-major in ``shape``) and ``seed`` (an int, or an integer tensor,
+    holding a value in [0, 2**31)).  int32 tensors carry the uint32
+    arithmetic: products wrap mod 2**32 as uint32 ones do, and the right
+    shifts are made logical by a mask.  Returns int32 values in [0, 65535]."""
+    if isinstance(seed, torch.Tensor):
+        device = seed.device
+        seed = seed.to(torch.int32)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    if n >= 1 << 31:
+        raise ValueError(f"hash_noise_u16: {n} elements, the index is 32 bits")
+    h = torch.arange(n, dtype=torch.int32, device=device) * _int32(0x9E3779B1) ^ seed
+    h = (h ^ ((h >> 16) & 0xFFFF)) * _int32(0x85EBCA77)
+    h = h ^ ((h >> 13) & 0x7FFFF)
+    return (h & 0xFFFF).reshape(shape)
+
+
+def stochastic_round_bf16(x: torch.Tensor, seed) -> torch.Tensor:
+    """float32 -> bfloat16 with ``igm_tpu``'s unbiased stochastic rounding
+    (``core/optim.py:131-144``): the hash noise added below the bfloat16
+    mantissa of the float32 bits, then truncated.  ``seed`` is the uint32
+    seed ``igm_tpu`` draws from its key (``randint(key, (), 0, 2**31-1)``),
+    given here as an int or an integer tensor on ``x``'s device."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = (bits + hash_noise_u16(x.shape, seed, x.device)) & _int32(0xFFFF0000)
+    return rounded.view(torch.float32).to(torch.bfloat16)
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: ``g`` when the global norm is below
+    ``max_norm``, else ``(g / norm) * max_norm``, selected on the device
+    (no host branch).  Not ``torch.nn.utils.clip_grad_norm_``, which scales
+    by ``max_norm / (norm + 1e-6)`` clamped at 1."""
+    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
+
+
 # ----------------------------------------------------------------- optimizers
+class CastAdam(torch.optim.Optimizer):
+    """Adam with moments stored in reduced dtypes and parameters that may be
+    stored in bfloat16, with ``igm_tpu``'s arithmetic:
+
+    - with ``nu_dtype`` (``_scale_by_adam_cast``, ``core/optim.py:71-111``):
+      ``mu = b1 * f32(mu) + (1 - b1) * f32(g)`` and ``nu = b2 * f32(nu) +
+      (1 - b2) * f32(g)**2`` in float32, stored as ``mu_dtype`` (float32
+      when None) and ``nu_dtype``; the update ``(f32(mu) / bc1) /
+      (sqrt(f32(nu) / bc2) + eps)`` reads the stored moments, with the bias
+      corrections ``1 - b**count`` in float32;
+    - with ``mu_dtype`` alone (``optax.adam(mu_dtype=...)``): the update
+      reads the float32 moments before ``mu`` is stored as ``mu_dtype``,
+      and ``b1 * mu`` is a product in ``mu``'s dtype, as optax computes it.
+
+    Then ``p + (-lr) * update``: float32 parameters exactly so; bfloat16 ones
+    round the float32 sum to nearest, or, with ``sr_seeds`` (one seed per
+    parameter, in the optimizer's order) given to :meth:`step`, by
+    :func:`stochastic_round_bf16` (``igm_tpu``'s ``apply_updates_sr``).
+    The state has ``torch.optim.Adam``'s layout (``step``, ``exp_avg``,
+    ``exp_avg_sq``); ``step`` is a float32 tensor on the parameter's device
+    and ``lr`` may be a device tensor, so the step captures into a CUDA
+    graph."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps: float = 1e-8,
+                 mu_dtype: Optional[torch.dtype] = None,
+                 nu_dtype: Optional[torch.dtype] = None, capturable: bool = False):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      capturable=capturable))
+        self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
+
+    def _dtypes(self, p: torch.Tensor) -> Tuple[torch.dtype, torch.dtype]:
+        if self.nu_dtype is not None:
+            return self.mu_dtype or torch.float32, self.nu_dtype
+        return self.mu_dtype or p.dtype, p.dtype
+
+    def load_state_dict(self, state_dict) -> None:
+        """``Optimizer.load_state_dict`` casts the moments to the parameter's
+        dtype; they go back to their storage dtypes here."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state.get(p)
+                if st:
+                    mu_dt, nu_dt = self._dtypes(p)
+                    st["exp_avg"] = st["exp_avg"].to(mu_dt)
+                    st["exp_avg_sq"] = st["exp_avg_sq"].to(nu_dt)
+
+    @torch.no_grad()
+    def step(self, closure=None, sr_seeds: Optional[torch.Tensor] = None):
+        if closure is not None:
+            raise ValueError("CastAdam takes no closure")
+        params = [p for group in self.param_groups for p in group["params"]]
+        if sr_seeds is not None and len(sr_seeds) != len(params):
+            raise ValueError(f"{len(sr_seeds)} seeds for {len(params)} parameters")
+        i = 0
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            eps, lr = group["eps"], group["lr"]
+            for p in group["params"]:
+                seed = None if sr_seeds is None else sr_seeds[i]
+                i += 1
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    mu_dt, nu_dt = self._dtypes(p)
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=mu_dt)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=nu_dt)
+                count, mu, nu = st["step"], st["exp_avg"], st["exp_avg_sq"]
+                count.add_(1.0)
+                bc1 = 1.0 - torch.pow(b1, count)
+                bc2 = 1.0 - torch.pow(b2, count)
+                g = p.grad.float()
+                if self.nu_dtype is not None:
+                    mu.copy_(b1 * mu.float() + (1.0 - b1) * g)
+                    nu.copy_(b2 * nu.float() + (1.0 - b2) * g.square())
+                    m, v = mu.float(), nu.float()
+                else:
+                    b1_mu = torch.full((), b1, dtype=mu.dtype, device=mu.device)
+                    m = (1.0 - b1) * g + (mu * b1_mu).float()
+                    v = (1.0 - b2) * g.square() + b2 * nu.float()
+                    mu.copy_(m)
+                    nu.copy_(v)
+                update = (m / bc1) / ((v / bc2).sqrt() + eps) * (-lr)
+                if p.dtype == torch.float32:
+                    p.add_(update)
+                elif seed is not None:
+                    p.copy_(stochastic_round_bf16(p.float() + update, seed))
+                else:
+                    p.copy_(p.float() + update.to(p.dtype).float())
+        return None
+
+
+def _env_dtype(name: str, default: Optional[torch.dtype]) -> Optional[torch.dtype]:
+    """``IGM_MU_DTYPE``/``IGM_NU_DTYPE``, read as ``igm_tpu`` reads them:
+    float32 (or f32) means None, another name a torch dtype."""
+    env = os.environ.get(name)
+    if not env:
+        return default
+    return None if env in ("float32", "f32") else getattr(torch, env)
+
+
 @dataclasses.dataclass(frozen=True)
 class Adam:
     """``optax.adam``: eps = 1e-8 added to sqrt of the bias-corrected second
-    moment, the placement ``torch.optim.Adam`` also uses, which runs it.
-    ``lr`` is a float or a schedule of the update count (the count of
-    updates already applied, as optax counts)."""
+    moment, the placement ``torch.optim.Adam`` also uses, which runs it
+    where the moments and parameters are float32; :class:`CastAdam` runs it
+    where a moment dtype is given or a parameter is not float32.  ``lr`` is
+    a float or a schedule of the update count (the count of updates already
+    applied, as optax counts).  ``clip_norm`` clips the gradients by their
+    global norm first (``optax.chain(clip_by_global_norm(clip_norm),
+    adam(...))``)."""
     lr: Union[float, Schedule]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    mu_dtype: Optional[torch.dtype] = None
+    nu_dtype: Optional[torch.dtype] = None
+    clip_norm: Optional[float] = None
 
     def create(self, params: Sequence[torch.Tensor]) -> torch.optim.Optimizer:
         params = list(params)
         device = params[0].device if params else torch.device("cpu")
-        if device.type == "cuda":
-            return torch.optim.Adam(params, lr=torch.tensor(self.lr_at(0), device=device),
-                                    betas=(self.b1, self.b2), eps=self.eps,
+        cuda = device.type == "cuda"
+        lr = torch.tensor(self.lr_at(0), device=device) if cuda else self.lr_at(0)
+        if (self.mu_dtype is not None or self.nu_dtype is not None
+                or any(p.dtype != torch.float32 for p in params)):
+            return CastAdam(params, lr=lr, betas=(self.b1, self.b2), eps=self.eps,
+                            mu_dtype=self.mu_dtype, nu_dtype=self.nu_dtype, capturable=cuda)
+        if cuda:
+            return torch.optim.Adam(params, lr=lr, betas=(self.b1, self.b2), eps=self.eps,
                                     capturable=True)
-        return torch.optim.Adam(params, lr=self.lr_at(0), betas=(self.b1, self.b2),
-                                eps=self.eps)
+        return torch.optim.Adam(params, lr=lr, betas=(self.b1, self.b2), eps=self.eps)
 
     def lr_at(self, count: int) -> float:
         return float(self.lr(count) if callable(self.lr) else self.lr)
 
 
-def adam(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999) -> Adam:
-    return Adam(lr, float(b1), float(b2))
+def adam(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+         mu_dtype: Optional[torch.dtype] = None, nu_dtype: Optional[torch.dtype] = None,
+         clip_norm: Optional[float] = None) -> Adam:
+    """``igm_tpu``'s ``adam`` (``core/optim.py:46-68``): ``IGM_MU_DTYPE`` and
+    ``IGM_NU_DTYPE``, read here, override the moment dtypes."""
+    return Adam(lr, float(b1), float(b2), mu_dtype=_env_dtype("IGM_MU_DTYPE", mu_dtype),
+                nu_dtype=_env_dtype("IGM_NU_DTYPE", nu_dtype),
+                clip_norm=None if clip_norm is None else float(clip_norm))
 
 
 # -------------------------------------------------------------- named updates
@@ -126,7 +306,8 @@ class OptimizerSet:
         self._taken = {name: 0 for name in slots}
 
     def grad_step(self, state: TrainState, opt_name: str,
-                  loss_fn: Callable[[], Tuple[torch.Tensor, Any]]
+                  loss_fn: Callable[[], Tuple[torch.Tensor, Any]],
+                  sr_seeds: Optional[torch.Tensor] = None
                   ) -> Tuple[TrainState, torch.Tensor, Any]:
         """One optimizer step on the modules owned by ``opt_name``.
 
@@ -134,12 +315,14 @@ class OptimizerSet:
         current parameters.  Gradients are taken only with respect to the
         owned parameters (every other module is held fixed, as ``igm_tpu``
         differentiates only the owned subset); a parameter the loss does not
-        reach gets a zero gradient, as JAX would give it."""
+        reach gets a zero gradient, as JAX would give it.  ``sr_seeds``, one
+        per owned parameter (a :class:`CastAdam` optimizer), applies the
+        bfloat16 parameters' updates with stochastic rounding."""
         opt = state.opt_states[opt_name]
         params = _params(opt)
         loss, aux = loss_fn()
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        self._apply(opt_name, opt, params, grads, state.step)
+        self._apply(opt_name, opt, params, grads, state.step, sr_seeds)
         return state, loss.detach(), aux
 
     def apply_grads(self, state: TrainState, opt_name: str,
@@ -155,7 +338,8 @@ class OptimizerSet:
         return state
 
     def _apply(self, opt_name: str, opt: torch.optim.Optimizer,
-               params: List[torch.Tensor], grads, count: Optional[int] = None) -> None:
+               params: List[torch.Tensor], grads, count: Optional[int] = None,
+               sr_seeds: Optional[torch.Tensor] = None) -> None:
         """One update; ``count`` is the updates already applied: the train
         state's step (every model here updates each optimizer once a step),
         or, where it is not given, the optimizer's own step count, read back
@@ -179,8 +363,14 @@ class OptimizerSet:
                                        "a capture needs capture_lr_slots")
                 else:
                     group["lr"].fill_(tx.lr_at(count))
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if tx.clip_norm is not None:
+            grads = clip_by_global_norm(grads, tx.clip_norm)
         for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
-        opt.step()
+            p.grad = g
+        if sr_seeds is None:
+            opt.step()
+        else:
+            opt.step(sr_seeds=sr_seeds)
         for p in params:
             p.grad = None

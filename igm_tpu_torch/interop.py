@@ -36,8 +36,23 @@ onto buffers (:func:`flax_mutables_to_torch`).  Layouts:
   ``block_mode="scan"`` stacks the blocks into one ``blocks/<leaf>`` tree
   of ``(depth, ...)`` leaves: each is split along axis 0 onto
   ``DiTBlock_<i>/<leaf>``.
+- MADE (``igm_tpu/models/made.py``): the port keeps its kernels in Flax's
+  ``(in, out)`` layout (the stochastic rounding's counter is the element's
+  index there), so ``[net/]layers_<i>/kernel`` and ``[net/]out_layer/kernel``
+  carry over untransposed; the bfloat16 output kernel loads into the
+  bfloat16 parameter (``load_state_dict`` casts, exactly).
+- PixelCNN (``igm_tpu/models/pixelcnn.py``): its ``MaskedConv`` and
+  ``Pointwise`` kernels are HWIO conv kernels with no wrapper level:
+  ``conv_layers_<i>/vert_conv/kernel`` -> ``conv_layers_<i>.vert_conv.weight``
+  (OIHW), the unmasked kernel (the mask is applied in the forward).
+- RealNVP (``igm_tpu/models/realnvp.py``): ``Conv_0``/``Conv_1`` are the
+  wrapped ``Conv`` (``net/Conv_0/Conv_0/kernel`` -> ``net.Conv_0.weight``),
+  ``Conv_2`` a bare Flax ``nn.Conv`` (``net/Conv_2/kernel``), ``s_scale``
+  as it is.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -61,6 +76,8 @@ def flax_key_to_torch(path: str) -> str:
 
 
 _QKV = ("query", "key", "value")
+# MADE's kernels, kept in Flax's (in, out) layout by the port
+_FLAX_LAYOUT = re.compile(r"^(net/)?(layers_\d+|out_layer)/kernel$")
 
 
 def _convert(path: str, value: np.ndarray) -> np.ndarray:
@@ -70,7 +87,7 @@ def _convert(path: str, value: np.ndarray) -> np.ndarray:
     if not path.endswith("/kernel"):
         return value
     if value.ndim == 2:                               # Dense
-        return value.T
+        return value if _FLAX_LAYOUT.match(path) else value.T
     if value.ndim == 3 and parent in _QKV:            # (d, H, D) -> (H*D, d)
         return value.reshape(value.shape[0], -1).T
     if value.ndim == 3 and parent == "out":           # (H, D, d) -> (d, H*D)

@@ -94,6 +94,14 @@ def noise_source(shape, generator: Optional[torch.Generator], noises, device):
     return draw
 
 
+def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel draws, -log(-log(U)) with U in [tiny, 1): a
+    categorical draw ``jax.random.categorical(key, logits)`` is
+    ``argmax(logits + gumbel)``."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+
+
 @dataclasses.dataclass
 class ValidationResult:
     others: Dict[str, Any] = dataclasses.field(default_factory=dict)

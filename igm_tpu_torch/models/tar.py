@@ -43,7 +43,7 @@ from ..core.optim import OptimizerSet, adam, step_lr
 from ..core.state import TrainState
 from ..networks.attention import MultiHeadDotProductAttention
 from ..networks.base import Dense, Embed, LayerNorm
-from .base import BaseModel, ValidationResult
+from .base import BaseModel, ValidationResult, gumbel_noise
 
 LOG2 = math.log(2.0)
 FFN = 1024                       # igm_tpu's TARNet hard-codes the FFN width
@@ -256,11 +256,6 @@ class TAR(BaseModel):
         return state, metrics
 
     # -------------------------------------------------------------- sampling
-    def gumbel(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
-        """Standard Gumbel draws, -log(-log(U)) with U in [tiny, 1)."""
-        u = torch.rand(shape, generator=generator, device=self.device)
-        return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
-
     @torch.no_grad()
     def sample_tokens(self, init_tokens: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
@@ -272,7 +267,7 @@ class TAR(BaseModel):
         net = self.net
         tokens = init_tokens.to(self.device).long().clone()
         if gumbels is None:
-            gumbels = self.gumbel((s - 1, n, self.n_tokens), generator)
+            gumbels = gumbel_noise((s - 1, n, self.n_tokens), generator, self.device)
         net.init_cache(n, s)
         try:
             for i in range(s - 1):

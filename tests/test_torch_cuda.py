@@ -986,3 +986,56 @@ def test_graphed_heun_and_ode_equal_eager(gen, numerics, experiment):
     assert torch.equal(out[True][0], out[False][0])
     assert torch.equal(out[True][1], out[False][0])
     assert len(model._graphs) == 1
+
+
+# ------------------------------------------- MADE, PixelCNN, RealNVP (no hand kernel)
+def test_stochastic_rounding_on_the_card_equals_the_cpu(gen):
+    """The counter-hash rounding (int32 products that wrap, masked shifts)
+    gives the CPU's bits on the card, 1-D and 2-D."""
+    from igm_tpu_torch.core.optim import hash_noise_u16, stochastic_round_bf16
+    for shape in ((1 << 20,), (1024, 777)):
+        x = torch.randn(shape, generator=gen, device="cuda") * torch.exp2(
+            torch.randint(-30, 30, shape, generator=gen, device="cuda").float())
+        for seed in (0, 12345, 2 ** 31 - 2):
+            card = stochastic_round_bf16(x, torch.tensor(seed, device="cuda")).cpu()
+            cpu = stochastic_round_bf16(x.cpu(), seed)
+            assert torch.equal(card.view(torch.int16), cpu.view(torch.int16)), (shape, seed)
+            assert torch.equal(hash_noise_u16(shape, torch.tensor(seed, device="cuda")).cpu(),
+                               hash_noise_u16(shape, seed))
+
+
+LIKELIHOOD_TINY = {"made/mnist": ("model.hidden_dim=64",),
+                   "pixelcnn/mnist": ("model.hidden_dim=16",),
+                   "pixelcnn/cifar10": ("model.hidden_dim=16",),
+                   "realnvp/mnist": ("model.hidden_dim=16",),
+                   "realnvp/cifar10": ("model.hidden_dim=16",)}
+
+
+@pytest.mark.parametrize("experiment", list(LIKELIHOOD_TINY))
+def test_graphed_likelihood_train_step_equals_eager(gen, numerics, experiment):
+    """MADE (bf16 weights and moments, its SR seeds drawn on the card inside
+    the graph), PixelCNN and RealNVP (the dequantisation draw, the global-norm
+    clip): graphed equals eager bit for bit, no hand kernel launched."""
+    model = _model(f"experiment={experiment}", *LIKELIHOOD_TINY[experiment])
+    if experiment.startswith("made"):
+        assert model.bf16_weights and model.sr_active()
+    model.steps_per_epoch = 2
+    imgs = torch.randint(0, 256, (3, 8, model.height, model.width, model.channels),
+                         generator=gen, device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 10, (3, 8), generator=gen, device="cuda", dtype=torch.int32)
+    before = [c.launches for c in _counters()]
+    _graphed_against_eager(model, (imgs, labels), 3)
+    assert [c.launches for c in _counters()] == before
+
+
+def test_graphed_realnvp_sample_equals_eager(gen, numerics):
+    model = _model("experiment=realnvp/cifar10", "model.hidden_dim=16")
+    model.init_state(0)
+    z = torch.randn(4, 16, 16, 12, generator=gen, device="cuda")
+    out = {}
+    for graphs in (True, False, True):
+        model.use_graphs = graphs
+        out.setdefault(graphs, []).append(model.sample(4, z=z))
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][0])
+    assert len(model._graphs) == 1

@@ -207,3 +207,152 @@ def test_restore_rejects_a_state_of_another_shape(tmp_path):
     other, _ = _trained_state(0, ema=False)
     with pytest.raises(ValueError):
         mgr.restore(other)
+
+
+# ------------------------------------------ stochastic rounding, cast Adam, clipping
+def _jax_seed(key):
+    """The uint32 seed igm_tpu's stochastic_round_bf16 derives from its key."""
+    import jax
+    return int(jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max, jnp.int32))
+
+
+@pytest.mark.parametrize("shape", [(1000,), (37, 513)], ids=["1d", "2d"])
+@pytest.mark.parametrize("key", [0, 5])
+def test_hash_noise_and_stochastic_rounding_bit_for_bit(shape, key):
+    import jax
+    from igm_tpu_torch.core.optim import hash_noise_u16, stochastic_round_bf16
+    k = jax.random.PRNGKey(key)
+    seed = _jax_seed(k)
+    want = np.asarray(jax_optim._hash_noise_u16(shape, jnp.uint32(seed)))
+    got = hash_noise_u16(shape, seed)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want.astype(np.int64))
+    assert got.shape == shape
+    x = np.random.default_rng(key).normal(size=shape).astype(np.float32) * 10.0 ** (
+        np.random.default_rng(key + 1).integers(-30, 30, size=shape))
+    want_r = np.asarray(jax_optim.stochastic_round_bf16(jnp.asarray(x), k)).view(np.uint16)
+    for s in (seed, torch.tensor(seed)):
+        got_r = stochastic_round_bf16(torch.from_numpy(x), s)
+        assert got_r.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got_r.view(torch.int16).numpy().view(np.uint16), want_r)
+
+
+def _find_mu(opt_state):
+    """The Adam state (the one with ``mu``) inside an optax state."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    return next(s for s in map(_find_mu, opt_state) if s is not None) if isinstance(
+        opt_state, tuple) else None
+
+
+def _ulps(got: np.ndarray, want: np.ndarray, mantissa_bits: int) -> float:
+    """The largest |got - want| in ulps of ``mantissa_bits`` at the larger
+    magnitude (0 where equal)."""
+    big = np.maximum(np.abs(got), np.abs(want)).astype(np.float64)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(big, 1e-38))) - mantissa_bits)
+    return float((np.abs(got.astype(np.float64) - want) / ulp).max())
+
+
+@pytest.mark.parametrize("dtypes", [("bfloat16", "bfloat16"), ("bfloat16", None),
+                                    (None, "bfloat16")],
+                         ids=["mu_nu_bf16", "mu_bf16_optax", "nu_bf16"])
+def test_cast_adam_matches_igm_tpu_over_three_steps(dtypes):
+    """igm_tpu's adam with moment dtypes (``_scale_by_adam_cast``, or
+    optax's mu_dtype alone) against CastAdam on the same gradients: the
+    moments within one ulp of their storage dtype (XLA may contract b*m +
+    (1-b)*g into an FMA), the parameters within 2 float32 ulps of the
+    update (lr * |update| <= lr * ~1)."""
+    from igm_tpu_torch.core.optim import CastAdam
+    mu_dt, nu_dt = dtypes
+    jdt = {None: None, "bfloat16": jnp.bfloat16}
+    tdt = {None: None, "bfloat16": torch.bfloat16}
+    lr = jax_optim.step_lr(1e-3, 0.5, 1)
+    tx = jax_optim.adam(lr, 0.9, 0.999, mu_dtype=jdt[mu_dt], nu_dtype=jdt[nu_dt])
+    params = _tree(0)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    opt_state = tx.init(jparams)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    spec = adam(step_lr(1e-3, 0.5, 1), 0.9, 0.999, mu_dtype=tdt[mu_dt], nu_dtype=tdt[nu_dt])
+    opt = spec.create(list(tparams.values()))
+    assert isinstance(opt, CastAdam)
+    opts = OptimizerSet().add("opt", spec, ["m"])
+    for step in range(3):
+        grads = _tree(10 + step)
+        updates, opt_state = tx.update({k: jnp.asarray(v) for k, v in grads.items()},
+                                       opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opts._apply("opt", opt, list(tparams.values()),
+                    [torch.from_numpy(grads[k]) for k in tparams], count=step)
+        adam_state = _find_mu(opt_state)
+        for k, p in tparams.items():
+            st = opt.state[p]
+            for key, want in (("exp_avg", adam_state.mu[k]), ("exp_avg_sq", adam_state.nu[k])):
+                bits = 7 if st[key].dtype == torch.bfloat16 else 23
+                assert st[key].dtype == {jnp.bfloat16: torch.bfloat16,
+                                         jnp.float32: torch.float32}[want.dtype.type]
+                assert _ulps(st[key].float().numpy(), np.asarray(want, np.float32),
+                             bits) <= 1.0, (step, k, key)
+            step_size = 1e-3 * 0.5 ** step
+            np.testing.assert_allclose(p.numpy(), np.asarray(jparams[k]),
+                                       atol=2 * step_size * 2.0 ** -23 * 2, rtol=0)
+
+
+def test_cast_adam_keeps_moment_dtypes_through_a_checkpoint():
+    """Optimizer.load_state_dict casts moments to the parameter's dtype;
+    CastAdam's stay bfloat16."""
+    from igm_tpu_torch.core.state import load_optimizer_state
+    p = torch.nn.Parameter(torch.randn(4, 3))
+    spec = adam(1e-3, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16)
+    opt = spec.create([p])
+    p.grad = torch.randn(4, 3)
+    opt.step()
+    saved = opt.state_dict()
+    fresh = spec.create([torch.nn.Parameter(p.detach().clone())])
+    assert not load_optimizer_state(fresh, saved)          # built anew
+    st = next(iter(fresh.state.values()))
+    assert st["exp_avg"].dtype == st["exp_avg_sq"].dtype == torch.bfloat16
+    assert torch.equal(st["exp_avg"], saved["state"][0]["exp_avg"])
+
+
+def test_moment_dtypes_from_the_environment(monkeypatch):
+    monkeypatch.setenv("IGM_MU_DTYPE", "bfloat16")
+    monkeypatch.setenv("IGM_NU_DTYPE", "float32")
+    spec = adam(1e-3, nu_dtype=torch.bfloat16)
+    assert spec.mu_dtype == torch.bfloat16 and spec.nu_dtype is None
+    monkeypatch.delenv("IGM_MU_DTYPE")
+    monkeypatch.delenv("IGM_NU_DTYPE")
+    assert adam(1e-3).mu_dtype is None
+    assert isinstance(adam(1e-3).create([torch.nn.Parameter(torch.zeros(2))]),
+                      torch.optim.Adam)
+
+
+@pytest.mark.parametrize("max_norm", [100.0, 0.5], ids=["below", "above"])
+def test_clip_by_global_norm_then_adam_matches_optax(max_norm):
+    """optax.chain(clip_by_global_norm, adam) against Adam(clip_norm=...):
+    the global norm below max_norm leaves the gradients; above, they are
+    scaled to it (not clip_grad_norm_'s max_norm / (norm + 1e-6))."""
+    from igm_tpu_torch.core.optim import clip_by_global_norm
+    tx = optax.chain(optax.clip_by_global_norm(max_norm), jax_optim.adam(1e-2, 0.9, 0.99))
+    params = _tree(0)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    opt_state = tx.init(jparams)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    spec = adam(1e-2, 0.9, 0.99, clip_norm=max_norm)
+    opt = spec.create(list(tparams.values()))
+    opts = OptimizerSet().add("opt", spec, ["m"])
+    for step in range(3):
+        grads = _tree(10 + step)
+        norm = np.sqrt(sum((g.astype(np.float64) ** 2).sum() for g in grads.values()))
+        assert (norm < max_norm) == (max_norm == 100.0)
+        tg = [torch.from_numpy(grads[k]) for k in tparams]
+        clipped = clip_by_global_norm(tg, max_norm)
+        want_c = optax.clip_by_global_norm(max_norm).update(
+            {k: jnp.asarray(v) for k, v in grads.items()}, None)[0]
+        for k, c in zip(tparams, clipped):
+            np.testing.assert_allclose(c.numpy(), np.asarray(want_c[k]), rtol=1e-6, atol=0)
+        updates, opt_state = tx.update({k: jnp.asarray(v) for k, v in grads.items()},
+                                       opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opts._apply("opt", opt, list(tparams.values()), tg, count=step)
+        for k in params:
+            np.testing.assert_allclose(tparams[k].numpy(), np.asarray(jparams[k]),
+                                       atol=ATOL, rtol=RTOL)

@@ -63,6 +63,19 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
             cfg = compose({str(REPO / "configs")!r}, ["experiment=" + exp])
             model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cpu")
             assert type(model) is cls, type(model)
+        from igm_tpu_torch.models.made import MADE
+        from igm_tpu_torch.models.pixelcnn import PixelCNN
+        from igm_tpu_torch.models.realnvp import RealNVP
+        for exp, cls, extra in (("made/mnist", MADE, ["model.hidden_dim=8"]),
+                                ("pixelcnn/mnist", PixelCNN, []),
+                                ("pixelcnn/cifar10", PixelCNN, []),
+                                ("realnvp/mnist", RealNVP, []),
+                                ("realnvp/cifar10", RealNVP, [])):
+            cfg = compose({str(REPO / "configs")!r}, ["experiment=" + exp, *extra])
+            model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cpu")
+            assert type(model) is cls, type(model)
+            assert cfg.callbacks.sample._target_.endswith("SampleImagesCallback")
+        assert model.hparams.hidden_dim == 128 and model.hparams.n_couplings == [3, 3, 3]
         bad = [m for m in sys.modules
                if m.split(".")[0] in {FORBIDDEN!r}]
         assert not bad, bad
@@ -89,6 +102,12 @@ def test_targets_resolve_to_the_port():
     assert resolve_target("igm_tpu.models.consistency.ConsistencyModel") is ConsistencyModel
     assert resolve_target("igm_tpu.models.distill.ProgressiveDistillation") \
         is ProgressiveDistillation
+    from igm_tpu_torch.models.made import MADE
+    from igm_tpu_torch.models.pixelcnn import PixelCNN
+    from igm_tpu_torch.models.realnvp import RealNVP
+    assert resolve_target("igm_tpu.models.made.MADE") is MADE
+    assert resolve_target("igm_tpu.models.pixelcnn.PixelCNN") is PixelCNN
+    assert resolve_target("igm_tpu.models.realnvp.RealNVP") is RealNVP
 
 
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
@@ -106,6 +125,12 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     for cls in (DDPM, ScoreSDE, ConsistencyModel, ProgressiveDistillation):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(datamodule=dm, hidden_dim=8, dim_mults=(1,), timesteps=4, student_steps=1)
+    from igm_tpu_torch.models.made import MADE
+    from igm_tpu_torch.models.pixelcnn import PixelCNN
+    from igm_tpu_torch.models.realnvp import RealNVP
+    for cls in (MADE, PixelCNN, RealNVP):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(datamodule=dm, hidden_dim=4)
     from igm_tpu_torch.cli import sample_main, train_main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample_main(["experiment=ddpm/cifar10", "--n", "1"])
