@@ -147,6 +147,27 @@ and prints no result line):
           pass graphed against eager, bit for bit); the train CLI on each
           experiment (3 steps with the sample grid, a resume for 1) and the
           sampling CLI on realnvp/cifar10.
+  vae     VAE, beta-VAE, cVAE and FactorVAE (vae/celeba, beta_vae/dsprites,
+          factor_vae/dsprites, cvae/mnist, vae/mnist_mlp, composed from
+          their experiment files at full width), counters zeroed just before
+          and read just after (no hand kernel on these paths: every count
+          exactly 0): in f32 (TF32 off), batch 8, from the same weights,
+          batch and injected draws, the loss and every gradient on the card
+          against the CPU, then one train step (both optimizers for
+          FactorVAE): its metrics, parameters and BatchNorm buffers; each
+          train step at batch 128 graphed against eager bit for bit
+          (parameters, buffers, both optimizers) and a-b-b-a (ms, images/s,
+          the graphed step's busy time, idle share and kernels per step; the
+          eager step without cuDNN's deterministic algorithms, in turns);
+          the decoder's sampling at batch 64 graphed against eager, bit for
+          bit; the FID path's uint8 conversion and random features of 16
+          CelebA validation images and a seeded InceptionV3 at batch 16 on
+          the card against the CPU; the train CLI on each experiment (one
+          epoch of 4 steps, 2 validation batches, the experiment's own
+          callbacks: vae/celeba's FID logs metrics/fid_random_torch, the
+          traversal grids are written) and the sampling CLI from its
+          checkpoint; a fit with trainer.profile=true, whose trace must hold
+          CUDA kernels.
   chain   graphed against eager (igm_tpu_torch/core/graphs.py): the train
           steps of the flagship (batch 256, bf16), the VQ-VAE (128, f32),
           the latent DDPM (128), TAR (128, flash_attention=dropout) and the
@@ -711,6 +732,9 @@ PATH_KERNELS = {
     # MADE, PixelCNN and RealNVP launch no hand kernel: phase likelihood
     # holds them to exactly 0
     "likelihood": (),
+    # VAE, beta-VAE, cVAE and FactorVAE launch no hand kernel: phase vae
+    # holds them to exactly 0
+    "vae": (),
 }
 
 
@@ -2997,6 +3021,462 @@ def phase_likelihood() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- vae
+# the VAE slice: (name, experiment, the metric its CLI fit returns)
+VAE_EXPERIMENTS = (("vae_celeba", "vae/celeba", "metrics/fid_random_torch"),
+                   ("beta_vae_dsprites", "beta_vae/dsprites", "train_log/elbo"),
+                   ("factor_vae_dsprites", "factor_vae/dsprites", "train_loss/d_adv_loss"),
+                   ("cvae_mnist", "cvae/mnist", "train_log/elbo"),
+                   ("vae_mnist_mlp", "vae/mnist_mlp", "train_log/elbo"))
+VAE_REF_BATCH = 8                    # card against CPU, f32
+VAE_BATCH = 128                      # the datamodules' batch
+VAE_TIMED_STEPS = 10                 # per turn of the a-b-b-a timing
+VAE_PROFILED_STEPS = 5
+VAE_SAMPLE_BATCH = 64
+VAE_LOSS_RTOL = 1e-5
+# the card's float32 convolutions and GEMMs sum in another order than the
+# CPU's: gradients within 1e-4 of the largest; the parameters after Adam's
+# first step (lr * sign(g) where the sign is certain, see vae_reference)
+# and the BatchNorm buffers within 1e-5
+VAE_GRAD_TOL = 1e-4
+VAE_STATE_TOL = 1e-5
+VAE_FID_IMAGES = 16
+VAE_FID_RTOL = 1e-4
+INCEPTION_BATCH = 16
+INCEPTION_RTOL = 1e-3
+
+
+def _vae_model(experiment: str, device: str = "cuda"):
+    from igm_tpu_torch.config import compose, instantiate
+    cfg = compose(REPO / "configs", [f"experiment={experiment}", "print_config=False"])
+    model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device)
+    model.steps_per_epoch = 1000
+    return model
+
+
+def _vae_batch(model, n: int, gen):
+    """uint8 images (dSprites' {0, 1} for a Bernoulli decoder) and labels."""
+    import torch
+    shape = (n, model.height, model.width, model.channels)
+    imgs = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    if model.hparams.get("decoder_dist") == "bernoulli":
+        imgs = (imgs > 127).to(torch.uint8)
+    return imgs, torch.randint(0, 10, (n,), generator=gen, dtype=torch.int32)
+
+
+def _vae_draws(model, n: int, gen) -> dict:
+    """The train step's draws, given: the noise (and FactorVAE's halves'
+    noise and permutations)."""
+    import torch
+    latent = int(model.hparams.latent_dim)
+    if type(model).__name__ == "FactorVAE":
+        h = n // 2
+        return {"eps1": torch.randn(h, latent, generator=gen),
+                "eps2": torch.randn(h, latent, generator=gen),
+                "perm": torch.argsort(torch.rand(h, latent, generator=gen), dim=0)}
+    return {"eps": torch.randn(n, latent, generator=gen)}
+
+
+def _vae_loss(model, imgs, labels, draws, dtype=None):
+    """The loss the (first) optimizer differentiates and the modules it owns
+    (``dtype``: the images and draws cast to it, for a float64 model)."""
+    import torch
+    x = model.preprocess(imgs).to(dtype or torch.float32)
+    draws = {k: v.to(x.dtype) if v.is_floating_point() else v for k, v in draws.items()}
+    kind = type(model).__name__
+    if kind == "FactorVAE":
+        return model.ae_loss(x[:x.shape[0] // 2], draws["eps1"])[0], ["encoder", "decoder"]
+    if kind == "cVAE":
+        return (model.loss(x, labels, draws["eps"])[0],
+                ["encoder", "decoder", "class_embedding"])
+    return model.loss(x, draws["eps"])[0], ["encoder", "decoder"]
+
+
+def _d_grads(model, state) -> dict:
+    """FactorVAE's critic gradients of the step, read back from the ``d``
+    Adam's first moment (mu = (1 - b1) g after one step)."""
+    opt = state.opt_states["d"]
+    b1 = float(model.hparams.adv_b1)
+    return {f"netD.{k}": (opt.state[p]["exp_avg"] / (1.0 - b1)).detach().cpu()
+            for k, p in model.modules["netD"].named_parameters()}
+
+
+def _after_ae(model, post_ae: dict, own: dict) -> None:
+    """FactorVAE: right after the step's ``ae`` update, keep the encoder's
+    and decoder's parameters in ``post_ae`` (the CPU's run, ``post_ae``
+    empty), or write those into ``model`` and keep its own in ``own`` (the
+    card's run), so that both D phases read the same encoder."""
+    import torch
+    grad_step = model.optimizers.grad_step
+
+    def step(state, opt_name, loss_fn, **kw):
+        out = grad_step(state, opt_name, loss_fn, **kw)
+        if opt_name == "ae":
+            with torch.no_grad():
+                for k, p in model.modules.named_parameters():
+                    if k.split(".")[0] not in ("encoder", "decoder"):
+                        continue
+                    if k in post_ae:
+                        own[k] = p.detach().clone()
+                        p.copy_(post_ae[k])
+                    else:
+                        post_ae[k] = p.detach().cpu().clone()
+        return out
+
+    model.optimizers.grad_step = step
+
+
+def vae_reference(name: str, experiment: str, gen) -> dict:
+    """At full width in f32 (TF32 off), batch 8, from the same weights,
+    batch and injected draws on the card and on the CPU: the loss and every
+    gradient of the (AE) loss, then one train step (both optimizers for
+    FactorVAE): its metrics, the parameters and the BatchNorm buffers.
+
+    Each gradient tensor on the card is held to the same one in float64
+    (the CPU model in double) within 1e-4 of the largest gradient.  The
+    parameters after Adam's first step move by lr * sign(g): held to the
+    CPU's where the two signs are certain to agree, that is where the CPU's
+    |g| is beyond the largest card-CPU gradient difference on that tensor;
+    elsewhere within 2 lr, and counted (vae/celeba's encoder Conv_2, ahead
+    of a BatchNorm over 8 images, loses 5e-4 of the largest gradient to
+    float32 on the CPU).  FactorVAE's D phase on the card reads the CPU's
+    encoder after the AE update (otherwise Adam's sign on a gradient that
+    is 0 up to rounding moves the second half's latents), as the CPU test
+    does; its metrics at 1e-5 relative, netD's gradients within 1e-4 of the
+    largest."""
+    import torch
+    models = [_vae_model(experiment, d) for d in ("cuda", "cpu")]
+    cpu = models[1]
+    models[0].modules.load_state_dict(cpu.modules.state_dict())
+    imgs, labels = _vae_batch(cpu, VAE_REF_BATCH, gen)
+    draws = _vae_draws(cpu, VAE_REF_BATCH, gen)
+    exact = copy.deepcopy(cpu)
+    exact.modules.double()
+    loss64, mods = _vae_loss(exact, imgs, labels, draws, torch.float64)
+    exact_grads = dict(zip(
+        [f"{m}.{k}" for m in mods for k, _ in exact.modules[m].named_parameters()],
+        torch.autograd.grad(loss64, [p for m in mods for p in exact.modules[m].parameters()])))
+    del exact
+    res, post_ae, own = [], {}, {}
+    for model in (cpu, models[0]):                 # the CPU's post-AE encoder first
+        dev = model.device
+        d = {k: v.to(dev) for k, v in draws.items()}
+        state = model.init_state(0)
+        loss, mods = _vae_loss(model, imgs.to(dev), labels.to(dev), d)
+        names = [f"{m}.{k}" for m in mods for k, _ in model.modules[m].named_parameters()]
+        grads = torch.autograd.grad(loss, [p for m in mods for p in model.modules[m].parameters()])
+        factor = "d" in state.opt_states
+        if factor:                                 # the CPU's run fills post_ae
+            given = {k: v.to(dev) for k, v in post_ae.items()}
+            _after_ae(model, given or post_ae, own)
+        state, metrics = model.train_step(state, (imgs.to(dev), labels.to(dev)), **d)
+        if factor:
+            del model.optimizers.grad_step
+            with torch.no_grad():                  # the card's own AE update
+                for k, p in model.modules.named_parameters():
+                    if k in own:
+                        p.copy_(own[k])
+        res.append(dict(loss=loss.item(), grads={k: g.cpu() for k, g in zip(names, grads)},
+                        d_grads=_d_grads(model, state) if factor else {},
+                        metrics={k: float(v) for k, v in metrics.items()},
+                        after={k: v.detach().cpu() for k, v in model.modules.state_dict().items()}))
+    ref, card = res
+    check(not post_ae or len(own) == len(post_ae), f"{name}: the card's D phase read its own encoder")
+    check(math.isfinite(card["loss"]) and abs(card["loss"] - ref["loss"])
+          <= VAE_LOSS_RTOL * abs(ref["loss"]), f"{name}: loss card {card['loss']} vs CPU {ref['loss']}")
+    errs = {}
+    scale = max(g.abs().max().item() for g in exact_grads.values())
+    worst, cpu_worst = (0.0, ""), (0.0, "")
+    for k, g in exact_grads.items():
+        err = (card["grads"][k].double() - g).abs().max().item()
+        check(err <= VAE_GRAD_TOL * scale, f"{name}: {k} gradient {err} from float64 beyond "
+                                           f"{VAE_GRAD_TOL} x the largest gradient {scale}")
+        own_err = (ref["grads"][k].double() - g).abs().max().item()
+        worst, cpu_worst = max(worst, (err / scale, k)), max(cpu_worst, (own_err / scale, k))
+    errs["grads_vs_float64"] = {"max_abs_err_over_max_grad": worst[0], "at": worst[1],
+                                "cpu_max_abs_err_over_max_grad": cpu_worst[0],
+                                "cpu_at": cpu_worst[1]}
+    if ref["d_grads"]:
+        d_scale = max(g.abs().max().item() for g in ref["d_grads"].values())
+        err = max((card["d_grads"][k] - g).abs().max().item() for k, g in ref["d_grads"].items())
+        check(err <= VAE_GRAD_TOL * d_scale,
+              f"{name}: D gradients {err} beyond {VAE_GRAD_TOL} x {d_scale}")
+        errs["d_grads_vs_cpu"] = err / d_scale
+    metric_err = {}
+    for k, v in ref["metrics"].items():
+        metric_err[k] = abs(card["metrics"][k] - v) / max(abs(v), 1e-6)
+        check(metric_err[k] <= VAE_LOSS_RTOL, f"{name}: step metric {k} card {card['metrics'][k]} "
+                                              f"vs CPU {v} beyond {VAE_LOSS_RTOL} relative")
+    named = dict(cpu.modules.named_parameters())
+    lr = {m: float(cpu.hparams.lrD if m == "netD" else cpu.hparams.lr) for m in cpu.modules}
+    param_err, buffer_err, unsure, entries = 0.0, 0.0, {}, {}
+    for k, want in ref["after"].items():
+        diff = (card["after"][k] - want).abs()
+        if k not in named:                                       # a BatchNorm buffer
+            buffer_err = max(buffer_err, (diff.max() / max(want.abs().max(), 1e-30)).item())
+            continue
+        g = ref["grads"].get(k, ref["d_grads"].get(k))
+        sure = g.abs() > ({**card["grads"], **card["d_grads"]}[k] - g).abs().max()
+        if sure.any():
+            param_err = max(param_err, diff[sure].max().item())
+        module = k.split(".")[0]
+        unsure[module] = unsure.get(module, 0) + int((~sure).sum())
+        entries[module] = entries.get(module, 0) + want.numel()
+        check(bool((diff[~sure] <= 2 * lr[module] * (1 + 1e-3)).all()),
+              f"{name}: {k} moved by more than 2 lr where the gradient's sign is unsure")
+    check(param_err <= VAE_STATE_TOL, f"{name}: parameters after the step differ by {param_err}")
+    check(buffer_err <= VAE_STATE_TOL, f"{name}: BatchNorm buffers after the step differ "
+                                       f"by {buffer_err} (relative)")
+    row = dict(batch=VAE_REF_BATCH, dtype="float32", loss_card=card["loss"], loss_cpu=ref["loss"],
+               loss_float64=loss64.item(), max_grad=scale,
+               grad_errors=errs, metric_rel_err=metric_err,
+               parameters_after_step_max_abs_err=param_err,
+               buffers_after_step_max_rel_err=buffer_err,
+               sign_unsure_entries={m: [n, entries[m]] for m, n in unsure.items()},
+               buffers=sum(1 for k in ref["after"] if k not in named),
+               parameter_count=sum(p.numel() for p in named.values()))
+    emit("vae", run="reference", model=name, **row)
+    del models
+    _release()
+    return row
+
+
+def vae_train_timed(name: str, experiment: str) -> dict:
+    """The train step at batch 128: one eager step and the graphed step
+    (its first call eager and captured, then a replay) from the same state,
+    bit for bit (parameters, buffers, both optimizers' states, generator,
+    step, metrics); eager against graphed a-b-b-a (ms, images/s); the eager
+    step with and without cuDNN's deterministic algorithms, in turns; the
+    graphed step's device busy time, idle share and kernels per step; then
+    sampling at batch 64, graphed against eager."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from igm_tpu_torch.tools.profiling import device_summary
+    model = _vae_model(experiment)
+    state = model.init_state(0)
+    imgs, labels = _chain_batches(model, VAE_BATCH, 1, 47)
+    if model.hparams.get("decoder_dist") == "bernoulli":
+        imgs = (imgs > 127).to(torch.uint8)
+    state, _ = model.train_step(state, (imgs[0], labels[0]))      # the Adam state exists
+    start = state.snapshot()
+    _, eager = model.train_step(state, (imgs[0], labels[0]))
+    want = state.snapshot()
+    for stage in ("warm_up", "replay"):
+        state.load_state_dict(start)
+        _, metrics = model.train_step_n(state, (imgs, labels))
+        torch.cuda.synchronize()
+        diff = same_bits(state.snapshot(), want) + same_bits(metrics, eager)
+        check(not diff, f"{name} {stage}: graphed differs from eager at {diff[:8]}")
+
+    def steps(graphed: bool, k: int = VAE_TIMED_STEPS):
+        nonlocal state, metrics
+        for _ in range(k):
+            state, metrics = model.train_step_n(state, (imgs, labels), graph=graphed)
+
+    sec = _abba(steps)
+    ms = {m: [1e3 * s / VAE_TIMED_STEPS for s in v] for m, v in sec.items()}
+    # what cuDNN's deterministic algorithms cost the step (eager: a graph
+    # keeps the algorithms it was captured with), in turns with them on
+    nondet = {"deterministic": [], "nondeterministic": []}
+    for mode in ("deterministic", "nondeterministic", "nondeterministic", "deterministic"):
+        torch.backends.cudnn.deterministic = mode == "deterministic"
+        steps(False, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(False)
+        torch.cuda.synchronize()
+        nondet[mode].append(1e3 * (time.perf_counter() - t0) / VAE_TIMED_STEPS)
+    torch.backends.cudnn.deterministic = True
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(True, VAE_PROFILED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_summary(prof, VAE_PROFILED_STEPS,
+                             1e-3 * min(ms["graphed"]) * VAE_PROFILED_STEPS, wall)
+    summary["top_kernels_ms_per_step"] = top_kernels(prof, VAE_PROFILED_STEPS, 6)
+    values = {k: float(v) for k, v in metrics.items()}
+    check(all(map(math.isfinite, values.values())), f"{name} timed: metrics {values}")
+    row = dict(batch=VAE_BATCH, dtype="float32", bit_equal=True, ms_per_step=ms,
+               images_per_s={m: [VAE_BATCH * 1e3 / t for t in v] for m, v in ms.items()},
+               eager_ms_per_step_by_cudnn_mode=nondet, metrics=values,
+               profile_graphed={k: summary[k] for k in (
+                   "wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+                   "kernels_per_step", "device_ms_per_step_by_group",
+                   "top_kernels_ms_per_step")})
+    row["sample"] = vae_sampler(name, model)
+    emit("vae", run="train_timed", model=name, **row)
+    del model, state
+    _release()
+    return row
+
+
+def vae_sampler(name: str, model) -> dict:
+    """The decoder in eval mode from N(0, I) latents at batch 64 (cVAE: 7
+    a class, 70), graphed against eager a-b-b-a, the same images bit for
+    bit."""
+    import torch
+    cvae = type(model).__name__ == "cVAE"
+    n = 7 if cvae else VAE_SAMPLE_BATCH
+    samples = {}
+
+    def run(graphed: bool):
+        model.use_graphs = graphed
+        samples[graphed] = model.sample(n, torch.Generator("cuda").manual_seed(5))
+
+    run(True)                                           # capture
+    sec = _abba(run, warm=0)
+    model.use_graphs = True
+    check(not same_bits(samples[True], samples[False]), f"{name}: graphed samples differ")
+    x = samples[True]
+    images = n * (model.n_classes if cvae else 1)
+    check(tuple(x.shape) == (images, model.height, model.width, model.channels)
+          and bool(torch.isfinite(x).all()), f"{name} samples: {tuple(x.shape)}")
+    return dict(batch=images, seconds=sec, bit_equal=True,
+                images_per_s={m: [images / s for s in v] for m, v in sec.items()})
+
+
+def vae_fid_features() -> dict:
+    """The FID path's pieces on the card against the CPU: 16 validation
+    images of the CelebA datamodule (synthetic here) converted to uint8 as
+    the callback converts them (equal), the random backend's features
+    (within 1e-4 of the largest), and InceptionV3 with seeded random weights
+    at batch 16 (within 1e-3), with its time."""
+    import torch
+    from igm_tpu_torch.callbacks.evaluation import to_uint8
+    from igm_tpu_torch.callbacks.fid import RandomConvFeatures
+    from igm_tpu_torch.config import compose, instantiate
+    from igm_tpu_torch.networks.inception import InceptionV3
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = compose(REPO / "configs", ["experiment=vae/celeba", "print_config=False",
+                                         f"datamodule.data_dir={tmp}"])
+        dm = instantiate(cfg.datamodule)
+        dm.setup()
+        imgs = dm.val_arrays()[0][:VAE_FID_IMAGES]
+    x = torch.from_numpy(imgs).float() / 127.5 - 1.0                 # model space
+    u8 = {d: to_uint8(x.numpy(), True, d).cpu() for d in ("cuda", "cpu")}
+    check(torch.equal(u8["cuda"], u8["cpu"]), "FID uint8 conversion: card differs from CPU")
+    feats = {d: torch.from_numpy(RandomConvFeatures(device=d)(u8["cpu"].numpy()))
+             for d in ("cuda", "cpu")}
+    scale = feats["cpu"].abs().max().item()
+    fid_err = (feats["cuda"] - feats["cpu"]).abs().max().item()
+    check(fid_err <= VAE_FID_RTOL * scale, f"FID random features: card vs CPU {fid_err} of {scale}")
+    net = InceptionV3()
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(9)
+    xin = torch.rand((INCEPTION_BATCH, 299, 299, 3), generator=gen) * 2 - 1
+    with torch.no_grad():
+        want = net(xin)
+        net.cuda()
+        xc = xin.cuda()
+        got = net(xc).cpu()
+        ms = time_ms(lambda a: net(a), [(xc,)], iters=10)
+    inc_scale = want.abs().max().item()
+    inc_err = (got - want).abs().max().item()
+    check(inc_err <= INCEPTION_RTOL * inc_scale,
+          f"InceptionV3: card vs CPU {inc_err} of {inc_scale}")
+    row = dict(fid_images=VAE_FID_IMAGES, uint8_equal=True,
+               random_features_max_abs_err_over_max=fid_err / scale,
+               inception_batch=INCEPTION_BATCH,
+               inception_max_abs_err_over_max=inc_err / inc_scale, inception_ms=ms)
+    emit("vae", run="fid", **row)
+    del net
+    _release()
+    return row
+
+
+def vae_cli() -> dict:
+    """Through the port's CLI, each experiment: a fit of one epoch (4 steps,
+    2 validation batches) with the experiment's own callbacks (vae/celeba's
+    FID on the random backend: metrics/fid_random_torch finite; the
+    traversal grids handed to the logger, finite), then igm-sample from its
+    checkpoint to a PNG; and one more fit (2 steps) with
+    trainer.profile=true, whose trace must exist and hold CUDA kernels."""
+    import numpy as np
+    from PIL import Image
+    from igm_tpu_torch.cli import sample_main
+    from igm_tpu_torch.core.logging import NoOpLogger
+    out, logged, log_image = {}, {}, NoOpLogger.log_image
+    # logger=null: the images the trainer's logger is handed, by tag
+    NoOpLogger.log_image = lambda self, tag, img, step: logged.setdefault(
+        tag, (list(img.shape), int(step), bool(np.isfinite(img).all())))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, experiment, metric in VAE_EXPERIMENTS:
+            run = tmp / "logs" / "runs" / experiment
+            logged.clear()
+            t0 = time.perf_counter()
+            value = _train_cli(tmp, "trainer.max_epochs=1", "trainer.limit_train_batches=4",
+                               "trainer.limit_val_batches=2", experiment=experiment,
+                               metric=metric)
+            sec = time.perf_counter() - t0
+            check(value is not None and math.isfinite(value),
+                  f"{experiment} fit: {metric} = {value}")
+            ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+            grids = sorted(p.name for p in (run / "results").iterdir())
+            check(ckpts == ["step_4.pt"], f"{experiment} fit: checkpoints {ckpts}")
+            check({"0.jpg", "recon_0.jpg"} <= set(grids), f"{experiment} fit: grids {grids}")
+            traverse = {k: v for k, v in logged.items() if "traverse_latents" in k}
+            want = set() if experiment.startswith("cvae/") else {
+                f"sample/{k}" for k in ("random_traverse_latents", "fixed_traverse_latents_1",
+                                        "fixed_traverse_latents_2")}
+            check(set(traverse) == want and all(v[1:] == (0, True) for v in traverse.values()),
+                  f"{experiment} fit: traversal grids logged {traverse}")
+            png = tmp / f"{name}.png"
+            t1 = time.perf_counter()
+            imgs = sample_main([f"experiment={experiment}", "--ckpt", str(run / "checkpoints"),
+                                "--n", "16", "--out", str(png)])
+            sample_sec = time.perf_counter() - t1
+            with Image.open(png) as img:
+                size = img.size
+            per = 10 if experiment.startswith("cvae/") else 1
+            check(tuple(imgs.shape)[0] == 16 * per and bool(imgs.isfinite().all()),
+                  f"{experiment} sampling CLI: {tuple(imgs.shape)}")
+            out[experiment] = row = dict(fit_seconds=sec, metric=metric, value=value,
+                                         checkpoints=ckpts, grids=grids,
+                                         traversal_grids_logged=traverse,
+                                         sample_seconds=sample_sec, grid_size=list(size))
+            emit("vae", run="cli", experiment=experiment, **row)
+        experiment = "vae/mnist_mlp"
+        run = tmp / "logs" / "runs" / experiment
+        _train_cli(tmp, "trainer.max_epochs=1", "trainer.limit_train_batches=2",
+                   "trainer.limit_val_batches=0", "trainer.profile=true",
+                   "trainer.enable_checkpointing=false", experiment=experiment,
+                   metric="train_log/elbo")
+        traces = sorted((run / "tensorboard").glob("trace_step*.json"))
+        check(len(traces) == 1, f"trainer.profile=true: traces {traces}")
+        text = traces[0].read_text()
+        kernels = text.count('"cat": "kernel"')
+        check(kernels > 0, "trainer.profile=true: the trace holds no CUDA kernel")
+        out["profile"] = row = dict(trace=traces[0].name, bytes=len(text), kernel_events=kernels)
+        emit("vae", run="profile", experiment=experiment, **row)
+    NoOpLogger.log_image = log_image
+    _release()
+    return out
+
+
+def phase_vae() -> dict:
+    """VAE, beta-VAE, cVAE and FactorVAE; the caller zeroes the counters
+    before it.  No hand kernel is on these paths: every count must stay 0."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(37)
+    out = {"reference": {}, "train": {}}
+    for name, experiment, _ in VAE_EXPERIMENTS:
+        out["reference"][name] = vae_reference(name, experiment, gen)
+    for name, experiment, _ in VAE_EXPERIMENTS:
+        out["train"][name] = vae_train_timed(name, experiment)
+    out["fid"] = vae_fid_features()
+    out["cli"] = vae_cli()
+    out["launches"] = counts()
+    check(out["launches"] == expected(),
+          f"vae phase launched {dict(zip(KERNELS, out['launches']))}")
+    emit("vae", run="path", seconds=time.perf_counter() - t0,
+         launches=dict(zip(KERNELS, out["launches"])))
+    return out
+
+
 # ---------------------------------------------------------------- chain
 # the train steps the chain phase holds graphed against eager:
 # (name, overrides, batch, launches per step)
@@ -3329,7 +3809,8 @@ ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
          "tar_reference": lambda: phase_tar_reference(), "tar": lambda: phase_tar(),
          "fused_block": lambda: phase_fused_block(), "chain": lambda: phase_chain(),
          "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit(),
-         "families": lambda: phase_families(), "likelihood": lambda: phase_likelihood()}
+         "families": lambda: phase_families(), "likelihood": lambda: phase_likelihood(),
+         "vae": lambda: phase_vae()}
 
 
 def main(argv=None) -> int:
@@ -3415,6 +3896,10 @@ def main(argv=None) -> int:
     lik = phase_likelihood()
     check_path("likelihood", lik["launches"])
     path_launches["likelihood"] = lik["launches"]
+    reset_counts()                      # VAE, beta-VAE, cVAE and FactorVAE
+    vae = phase_vae()
+    check_path("vae", vae["launches"])
+    path_launches["vae"] = vae["launches"]
     chain = phase_chain()               # graphed against eager
 
     def by_path(i: int) -> dict:
@@ -3556,6 +4041,10 @@ def main(argv=None) -> int:
                                         for k, v in lik["train"].items()},
          likelihood_sampling_images_per_s={k: v["sample"]["images_per_s"]
                                            for k, v in lik["train"].items()},
+         vae_train_ms_per_step={k: v["ms_per_step"] for k, v in vae["train"].items()},
+         vae_train_images_per_s={k: v["images_per_s"] for k, v in vae["train"].items()},
+         vae_sampling_images_per_s={k: v["sample"]["images_per_s"]
+                                    for k, v in vae["train"].items()},
          made_update_ms=lik["train"]["made"]["update"]["update_ms"],
          made_update_bound_ms=lik["train"]["made"]["update"]["update_bound_ms"],
          seconds=time.perf_counter() - T_START)

@@ -213,7 +213,7 @@ def sample_main(argv=None) -> torch.Tensor:
                            -1.0, 1.0)
         n_show = args.n
     else:
-        if not hasattr(model, "sample"):
+        if not model.has_sampler():
             raise SystemExit(f"{type(model).__name__} has no sampler here: its sample grids "
                              "come from validation (python -m igm_tpu_torch.train)")
         imgs = model.sample(args.n, generator, **kwargs)

@@ -14,10 +14,17 @@
   with ``DISPATCH_S``, the H100's host cost of one execution.  Chunks come
   through a prefetcher that copies the next uint8 chunks to the card while
   the current one runs;
-- metrics are read back only when a chunk holds a step that is a multiple
-  of ``log_every_n_steps`` (logged at that step), one execution late, so
-  the host does not wait for the card on every step; a chunk's metrics
-  are its steps' nan-mean;
+- metrics are read back by ``igm_tpu``'s rule (``core/trainer.py:
+  270-281``): an execution whose first step s has ``s % log_every_n_steps
+  < max(2, k)`` is logged at s (two consecutive steps a window at K = 1,
+  so a phase that runs on odd steps is seen too), one execution late, so
+  the host does not wait for the card on every step; a chunk's metrics are
+  its steps' nan-mean; an epoch that logged nothing logs its last
+  execution at its last step;
+- ``profile=True``: a ``torch.profiler`` trace (the CPU, and CUDA activity
+  on the card) over the epochs, the span ``igm_tpu`` traces with
+  ``jax.profiler``, written as a Chrome trace into the logger's
+  ``save_dir`` (``profile/`` without one);
 - per epoch: ``perf/imgs_per_sec``, ``perf/epoch_time_sec`` and, on a CUDA
   card, ``perf/achieved_tflops`` and ``perf/mfu`` against the H100 SXM
   dense bf16 peak (989 TFLOP/s).  The FLOPs of a step come from
@@ -40,6 +47,7 @@ default ({data: -1, model: 1}); anything else raises.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -121,9 +129,7 @@ class Trainer:
             self.steps_per_execution = "auto"        # resolved in fit
         else:
             self.steps_per_execution = max(1, int(steps_per_execution))
-        if profile:
-            raise NotImplementedError("trainer.profile: use "
-                                      "python -m igm_tpu_torch.tools.profile_training")
+        self.profile = bool(profile)
         self.max_epochs = int(max_epochs)
         self.check_val_every_n_epoch = int(check_val_every_n_epoch)
         self.log_every_n_steps = max(1, int(log_every_n_steps))
@@ -151,6 +157,7 @@ class Trainer:
         self.callback_metrics: Dict[str, float] = {}
         self.ckpt_manager = None
         self.step_flops: Optional[float] = None
+        self.profile_path: Optional[str] = None
 
     # -------------------------------------------------------------------- fit
     def fit(self, model, datamodule) -> None:
@@ -199,6 +206,7 @@ class Trainer:
         self.global_step = state.step
         last_saved = None
         acc = MetricAccumulator()
+        profiler = self._start_profile(device) if self.profile else None
         t_train = time.perf_counter()
         for epoch in range(start_epoch, self.max_epochs):
             self.current_epoch = epoch
@@ -219,15 +227,13 @@ class Trainer:
                 if pending is not None:
                     self._log_metrics(acc, *pending)
                     pending = None
-                # the chunk's first step that is a multiple of the stride
-                log_step = -(-self.global_step // self.log_every_n_steps) * self.log_every_n_steps
-                if log_step < self.global_step + k:
-                    pending = (log_step, metrics)
-                last = (self.global_step, metrics)
+                if self.global_step % self.log_every_n_steps < max(2, k):
+                    pending = (self.global_step, metrics)
+                last = metrics
                 self.global_step += k
                 n_batches += k
             if pending is None and n_batches and not acc.compute():
-                pending = last           # a short epoch still reports a sample
+                pending = (self.global_step - 1, last)   # a short epoch still reports
             if pending is not None:
                 self._log_metrics(acc, *pending)
             if device.type == "cuda":
@@ -258,6 +264,8 @@ class Trainer:
                 self.ckpt_manager.save(state.step, state)
                 last_saved = state.step
 
+        if profiler is not None:
+            self._stop_profile(profiler, device)
         self.state = state
         if self.ckpt_manager is not None:
             if last_saved != state.step:
@@ -321,6 +329,32 @@ class Trainer:
         host = {k: float(v) for k, v in metrics.items()}
         acc.update(host)
         self.logger.log_scalars(host, step)
+
+    def log(self, tag: str, value: float) -> None:
+        """A callback's scalar: into ``callback_metrics`` and the logger, at
+        the current step (the FID callback's)."""
+        self.callback_metrics[tag] = float(value)
+        self.logger.log_scalar(tag, value, self.global_step)
+
+    # ---------------------------------------------------------------- profile
+    def _start_profile(self, device: torch.device):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler, device: torch.device) -> None:
+        """Stop the trace and write it as ``trace_step<N>.json``."""
+        self._sync(device)
+        profiler.stop()
+        save_dir = getattr(self.logger, "save_dir", "") or "profile"
+        os.makedirs(save_dir, exist_ok=True)
+        self.profile_path = os.path.join(save_dir, f"trace_step{self.global_step}.json")
+        profiler.export_chrome_trace(self.profile_path)
+        log.info("profile trace written to %s", self.profile_path)
 
     # ------------------------------------------------------------- validation
     def _run_validation(self, val_arrays, batch_size: int, epoch: int) -> None:

@@ -1,8 +1,9 @@
-"""Data layer: the CIFAR-10 and MNIST datamodules and the host input pipeline.
+"""Data layer: the datamodules and the host input pipeline.
 
 Own copies of ``igm_tpu/data``'s JAX-free parts (``base``, ``cifar10``,
-``mnist``) and a torch prefetcher (``loader``).  The other datamodules wait
-for their slices.
+``mnist``, ``celeba``, ``dsprite``, ``packaged``) and a torch prefetcher
+(``loader``).  ``native`` (the C++ batcher) is not ported: the port's
+loader is numpy.
 """
 from .base import BaseDatamodule  # noqa: F401
 from .cifar10 import CIFAR10DataModule  # noqa: F401

@@ -6,7 +6,9 @@ in the model's ``preprocess``, so host->device traffic stays uint8.  The
 arrays are byte-identical to ``igm_tpu``'s for the same files and config.
 
 Contract consumed by the Trainer:
-    prepare_data()            nothing to do: the port packages no dataset
+    prepare_data()            with IGM_SYNTHETIC_DATA=0 and the files absent,
+                              package the bundled digit scans into this
+                              dataset's format (``data.packaged.ensure``)
     setup()                   parse the dataset files -> uint8 arrays
     train_arrays()/val_arrays() -> (imgs uint8 NHWC, labels int32)
 
@@ -64,9 +66,18 @@ class BaseDatamodule:
 
     # ------------------------------------------------------------- data files
     def prepare_data(self) -> None:
-        """Nothing to do: ``igm_tpu`` packages bundled digit scans here when
-        real bytes are required and absent; the port reads only files that
-        are there."""
+        """``igm_tpu``'s (``data/base.py:70-81``): where real bytes are
+        required (IGM_SYNTHETIC_DATA=0) and this dataset's files are absent,
+        package scikit-learn's bundled digit scans into every dataset's
+        official container under ``data_dir``; otherwise nothing (the
+        synthetic set stands in for absent files)."""
+        if synthetic_allowed():
+            return
+        try:
+            self._load()
+        except FileNotFoundError:
+            from . import packaged
+            packaged.ensure(self.data_dir)
 
     def setup(self) -> None:
         try:

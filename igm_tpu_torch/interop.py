@@ -49,6 +49,12 @@ onto buffers (:func:`flax_mutables_to_torch`).  Layouts:
   wrapped ``Conv`` (``net/Conv_0/Conv_0/kernel`` -> ``net.Conv_0.weight``),
   ``Conv_2`` a bare Flax ``nn.Conv`` (``net/Conv_2/kernel``), ``s_scale``
   as it is.
+- The VAE/GAN zoo (``igm_tpu/networks/{basic,conv32,conv64}.py``):
+  ``Norm``'s Flax ``BatchNorm`` and ``GroupNorm`` (one group) keep their
+  level (``Norm_1/BatchNorm_0/scale`` -> ``Norm_1.BatchNorm_0.scale``);
+  ``scale`` and ``bias`` carry over as they are.  Their ``batch_stats``
+  collection (``encoder/batch_stats/Norm_1/BatchNorm_0/{mean,var}``) maps
+  onto the ``mean`` and ``var`` buffers (:func:`flax_mutables_to_torch`).
 """
 from __future__ import annotations
 
@@ -130,10 +136,13 @@ def flax_mutables_to_torch(mutables: dict[str, np.ndarray]) -> dict[str, torch.T
     """``igm_tpu`` mutable collections by ``/``-joined path -> the buffers of
     the port's ``modules``: the EMA ``codebook`` collection
     (``vq/codebook/{embedding,cluster_size,cluster_sum}``) onto ``vq``'s
-    buffers, and ``latent/scale`` onto the latent scale."""
+    buffers, ``latent/scale`` onto the latent scale, and a ``batch_stats``
+    collection (a whole model's, ``encoder/batch_stats/...``, or a
+    network's, ``batch_stats/...``) onto the BatchNorms' ``mean`` and
+    ``var``."""
     out = {}
     for path, value in mutables.items():
-        parts = path.split("/")
+        parts = [p for p in path.split("/") if p != "batch_stats"]
         if len(parts) == 3 and parts[1] == "codebook":
             del parts[1]
         out[".".join(parts)] = torch.from_numpy(np.array(value, np.float32, order="C"))

@@ -28,6 +28,14 @@ copied into the graph's static buffers and it is replayed.  The graph
 reads the weights where they lie, so it follows the parameters and the
 shadow, both updated in place.
 
+The zoo's defaults (``igm_tpu/models/base.py:81-110``): ``forward(state,
+z)`` decodes latents with ``modules[decoder_module_name]`` in eval mode
+(on the card outside autograd, a CUDA graph per batch), ``sample(n,
+generator)`` decodes N(0, I) latents of ``latent_dim``, and
+``dummy_image_batch`` is a zero image batch; the traversal callbacks and
+the sampling CLI call them.  A model without a decoder module or a
+``latent_dim`` has no default sampler (:meth:`BaseModel.has_sampler`).
+
 ``train_step_n`` is the counterpart of ``igm_tpu``'s (``base.py:111-128``,
 K steps in one ``lax.scan``): K train steps on ``[k, ...]`` batches, the
 metrics the per-key nan-mean over the chunk.  On a CUDA device with
@@ -123,6 +131,7 @@ class BaseModel:
         transforms = datamodule.get("transforms") or {}
         self.input_normalize = bool(transforms.get("normalize", False))
         self.input_convert = bool(transforms.get("convert", False))
+        self.output_act = "tanh" if self.input_normalize else "sigmoid"
         self.device = resolve_device(device)
         self.hparams = ConfigNode()
         self.modules = nn.ModuleDict()
@@ -170,6 +179,52 @@ class BaseModel:
         if self.input_normalize:
             x = x * 2.0 - 1.0
         return x
+
+    def dummy_image_batch(self, n: int = 2) -> torch.Tensor:
+        return torch.zeros((n, self.height, self.width, self.channels), device=self.device)
+
+    # ------------------------------------------------------- default sampling
+    #: the module that decodes latents (``forward``, the default ``sample``)
+    decoder_module_name: str = "decoder"
+
+    def has_sampler(self) -> bool:
+        """Whether ``sample`` draws images: a model's own sampler, or the
+        default one where there is a decoder of ``latent_dim`` latents."""
+        return (type(self).sample is not BaseModel.sample
+                or (self.decoder_module_name in self.modules
+                    and "latent_dim" in self.hparams))
+
+    def graphed(self, key, fn, *inputs: torch.Tensor) -> torch.Tensor:
+        """``fn(*inputs)``, called outside autograd; on the card (with
+        ``use_graphs``) as a CUDA graph kept under ``key`` and the inputs'
+        shapes."""
+        if not (self.use_graphs and inputs[0].is_cuda):
+            return fn(*inputs)
+        key = (key, tuple((tuple(t.shape), t.dtype) for t in inputs))
+        if key not in self._graphs:
+            self._graphs[key] = StepGraph(fn)
+        return self._graphs[key](*inputs)
+
+    @torch.no_grad()
+    def forward(self, state: Optional[TrainState], z: torch.Tensor) -> torch.Tensor:
+        """Latents (n, ...) -> images (n, H, W, C): the decoder in eval mode
+        (the parameters and buffers where they lie; ``state`` is accepted
+        as ``igm_tpu``'s)."""
+        net = self.modules[self.decoder_module_name]
+        shape = (z.shape[0], self.height, self.width, self.channels)
+        return self.graphed("forward", lambda z: net(z, train=False).reshape(shape), z)
+
+    def latent_noise(self, n: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """(n, latent_dim) N(0, I) draws on the model's device."""
+        return torch.randn((n, int(self.hparams["latent_dim"])), generator=generator,
+                           device=self.device)
+
+    @torch.no_grad()
+    def sample(self, n: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """n images decoded from N(0, I) latents of ``latent_dim``."""
+        if not self.has_sampler():
+            raise NotImplementedError(f"{type(self).__name__} has no default sampler")
+        return self.forward(self.state, self.latent_noise(n, generator))
 
     # ------------------------------------------------------------------ hooks
     def init_state(self, seed: int) -> TrainState:  # pragma: no cover

@@ -28,7 +28,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.graphs import StepGraph
 from ..core.optim import OptimizerSet, adam
 from ..core.state import TrainState
 from ..networks.base import Conv
@@ -241,12 +240,7 @@ class RealNVP(BaseModel):
         if z is None:
             z = torch.randn((n, self.height // 2, self.width // 2, 4 * self.channels),
                             generator=generator, device=self.device)
-        if not (self.use_graphs and z.is_cuda):
-            return self._decode(z)
-        key = ("sample", tuple(z.shape))
-        if key not in self._graphs:
-            self._graphs[key] = StepGraph(self._decode)
-        return self._graphs[key](z)
+        return self.graphed("sample", self._decode, z)
 
     def _decode(self, z: torch.Tensor) -> torch.Tensor:
         y = self._logit_inverse(self.flow.inverse(z))

@@ -1,7 +1,8 @@
 """NHWC building blocks with torch-parity init.
 
-Counterparts of ``igm_tpu/networks/base.py`` ``Conv``, ``ConvTranspose`` and
-``Dense``, and of Flax's ``nn.Embed`` and ``nn.LayerNorm`` (TAR's).  Activations are NHWC at every module boundary, as in the JAX
+Counterparts of ``igm_tpu/networks/base.py`` ``Conv``, ``ConvTranspose``,
+``Dense``, ``Norm``, ``get_act_function`` and ``BaseNetwork``, and of Flax's
+``nn.Embed`` and ``nn.LayerNorm`` (TAR's).  Activations are NHWC at every module boundary, as in the JAX
 package; inside, a conv runs on ``x.permute(0, 3, 1, 2)``, an NCHW view with
 channels-last strides that cuDNN takes without a copy.
 
@@ -18,7 +19,9 @@ takes an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Callable, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -200,3 +203,159 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias, self.epsilon)
         return y.to(self.dtype or x.dtype)
+
+
+# ------------------------------------------------------------ the VAE/GAN zoo
+def get_act_function(act: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``igm_tpu``'s activation factory (``networks/base.py:41-57``)."""
+    acts = {"relu": F.relu, "leaky_relu": lambda x: F.leaky_relu(x, 0.2),
+            "identity": lambda x: x, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+            "elu": F.elu, "mish": lambda x: x * torch.tanh(F.softplus(x))}
+    if act not in acts:
+        raise NotImplementedError(f"act={act!r}")
+    return acts[act]
+
+
+def _canon_norm(norm_type) -> Optional[str]:
+    """The configs write batch / instance / layer / null / False / "None"."""
+    if norm_type in (None, "None", "none", False, "null"):
+        return None
+    return str(norm_type)
+
+
+def _fast_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flax's ``_compute_stats`` (``use_fast_variance``): the mean and
+    E[x^2] - E[x]^2 clipped at 0, in float32."""
+    x = x.float()
+    mean = x.mean(dim=dims)
+    var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+    return mean, var
+
+
+def _normalize(x, mean, var, eps: float, scale=None, bias=None) -> torch.Tensor:
+    """Flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    mul = torch.rsqrt(var + eps)
+    if scale is not None:
+        mul = mul * scale
+    y = (x - mean) * mul
+    return y if bias is None else y + bias
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis,
+    not ``nn.BatchNorm2d``: in train mode it normalises with the batch's
+    statistics over every axis but the channel axis (the variance the biased
+    E[x^2] - E[x]^2, clipped at 0) and moves the ``mean`` and ``var`` buffers
+    (Flax's ``batch_stats``) to ``0.9 * old + 0.1 * batch``, the biased
+    variance where torch would take the unbiased one; in eval mode it reads
+    the buffers.  ``update_stats = False`` keeps the train-mode output and
+    leaves the buffers as they are."""
+
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.update_stats = True
+        self.scale = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if not train:
+            return _normalize(x, self.mean, self.var, self.epsilon, self.scale, self.bias)
+        mean, var = _fast_stats(x, tuple(range(x.ndim - 1)))
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        return _normalize(x, mean, var, self.epsilon, self.scale, self.bias)
+
+
+class GroupNorm(nn.Module):
+    """Flax's ``nn.GroupNorm(num_groups=1, epsilon=1e-5)``: per sample, the
+    statistics over every non-batch axis ((C,) or (H, W, C)), a per-channel
+    ``scale`` and ``bias``.  Not ``nn.LayerNorm`` over the last axis."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mean, var = _fast_stats(x, tuple(range(1, x.ndim)))
+        return _normalize(x, mean.reshape(shape), var.reshape(shape), self.epsilon,
+                          self.scale, self.bias)
+
+
+class Norm(nn.Module):
+    """``igm_tpu``'s config-selected normalisation over the channel axis
+    (``networks/base.py:67-96``): ``batch`` (:class:`BatchNorm`, held as
+    ``BatchNorm_0``), ``layer`` (:class:`GroupNorm` with one group, held as
+    ``GroupNorm_0``), ``instance`` (per sample and channel over the spatial
+    axes, no affine) or None (the identity).  The submodule names are
+    Flax's, so ``interop`` maps a path onto the ``state_dict``."""
+
+    def __init__(self, norm_type, features: int):
+        super().__init__()
+        self.norm_type = _canon_norm(norm_type)
+        if self.norm_type == "batch":
+            self.BatchNorm_0 = BatchNorm(features)
+        elif self.norm_type == "layer":
+            self.GroupNorm_0 = GroupNorm(features)
+        elif self.norm_type not in (None, "instance"):
+            raise NotImplementedError(f"norm_type={self.norm_type!r}")
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if self.norm_type is None:
+            return x
+        if self.norm_type == "batch":
+            return self.BatchNorm_0(x, train)
+        if self.norm_type == "layer":
+            return self.GroupNorm_0(x, train)
+        if x.ndim < 3:
+            raise ValueError("instance norm needs spatial dims (NHWC)")
+        axes = tuple(range(1, x.ndim - 1))
+        mean = x.mean(dim=axes, keepdim=True)
+        var = x.var(dim=axes, keepdim=True, unbiased=False)
+        return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module) -> Iterator[None]:
+    """Within: ``module``'s BatchNorms normalise as their mode says but move
+    no running statistic (``igm_tpu`` applies a module and drops the
+    ``batch_stats`` it returns: FactorVAE's critic)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, s in zip(norms, saved):
+            m.update_stats = s
+
+
+class BaseNetwork(nn.Module):
+    """The zoo's networks: ``input_channel`` and ``output_channel`` are
+    given by the model, as ``igm_tpu``'s models inject them
+    (``networks/base.py:170-179``)."""
+
+    def __init__(self, input_channel: int, output_channel: int):
+        super().__init__()
+        self.input_channel, self.output_channel = int(input_channel), int(output_channel)

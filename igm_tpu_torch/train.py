@@ -18,6 +18,7 @@ from typing import Any, List
 import torch
 
 from .config import instantiate
+from .utils.utils import count_params
 
 log = logging.getLogger(__name__)
 
@@ -46,8 +47,7 @@ def train(config: Any, device: str | torch.device | None = None):
     if config.get("seed") is not None:
         trainer.seed = int(config["seed"])
     trainer.fit(model=model, datamodule=datamodule)
-    log.info("trained params: %d",
-             sum(p.numel() for p in model.modules.parameters()))
+    log.info("trained params: %d", count_params(model.modules))
 
     if config.get("test_after_training") and not trainer.fast_dev_run:
         trainer.test()

@@ -179,9 +179,10 @@ def _fit(tmp_path, monkeypatch, name, *overrides):
 
 def test_fit_at_k3_equals_fit_at_k1_and_resumes(tmp_path, monkeypatch):
     """Two epochs of 3 steps at steps_per_execution=3 and at 1: the same
-    checkpoints bit for bit and metrics logged at the same steps; then a
-    third epoch at K = 3 resumed from the K = 3 run's checkpoint equals
-    three epochs straight at K = 1."""
+    checkpoints bit for bit, and metrics logged at igm_tpu's steps for
+    log_every_n_steps=3 (K = 1: s % 3 < 2, so 0, 1, 3, 4; K = 3: every
+    chunk, 0 and 3); then a third epoch at K = 3 resumed from the K = 3
+    run's checkpoint equals three epochs straight at K = 1."""
     t1, logged1, saved1 = _fit(tmp_path, monkeypatch, "k1", "trainer.max_epochs=2",
                                "trainer.steps_per_execution=1")
     t3, logged3, saved3 = _fit(tmp_path, monkeypatch, "k3", "trainer.max_epochs=2",
@@ -190,7 +191,8 @@ def test_fit_at_k3_equals_fit_at_k1_and_resumes(tmp_path, monkeypatch):
     assert list(saved1) == list(saved3) == ["step_3.pt", "step_6.pt"]
     for name in saved1:
         assert not _differ(saved3[name], saved1[name]), name
-    assert [s for s, _ in logged3] == [s for s, _ in logged1] == [0, 3]
+    assert [s for s, _ in logged1] == [0, 1, 3, 4]
+    assert [s for s, _ in logged3] == [0, 3]
     assert t3.global_step == t1.global_step == 6
 
     _, _, straight = _fit(tmp_path, monkeypatch, "k1_long", "trainer.max_epochs=3",
@@ -203,14 +205,16 @@ def test_fit_at_k3_equals_fit_at_k1_and_resumes(tmp_path, monkeypatch):
 
 
 def test_fit_logs_a_chunk_at_its_stride_step(tmp_path, monkeypatch):
-    """log_every_n_steps=2 at K = 3: a chunk is logged at its first step that
-    is a multiple of 2 (0, 4), as the one-step run logs 0, 2, 4."""
+    """log_every_n_steps=2, igm_tpu's rule: an execution whose first step s
+    has s % 2 < max(2, K) is logged at s.  At K = 1 that is every step
+    (0-5), at K = 3 both chunks (0, 3).  tests/test_torch_trainer_log.py
+    holds the rule to igm_tpu's Trainer."""
     _, logged3, _ = _fit(tmp_path, monkeypatch, "k3", "trainer.max_epochs=2",
                          "trainer.steps_per_execution=3", "trainer.log_every_n_steps=2")
     _, logged1, _ = _fit(tmp_path, monkeypatch, "k1", "trainer.max_epochs=2",
                          "trainer.steps_per_execution=1", "trainer.log_every_n_steps=2")
-    assert [s for s, _ in logged1] == [0, 2, 4]
-    assert [s for s, _ in logged3] == [0, 4]
+    assert [s for s, _ in logged1] == [0, 1, 2, 3, 4, 5]
+    assert [s for s, _ in logged3] == [0, 3]
 
 
 def test_auto_leaves_the_trajectory_unperturbed(tmp_path, monkeypatch):

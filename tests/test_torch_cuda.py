@@ -1039,3 +1039,61 @@ def test_graphed_realnvp_sample_equals_eager(gen, numerics):
     assert torch.equal(out[True][0], out[False][0])
     assert torch.equal(out[True][1], out[False][0])
     assert len(model._graphs) == 1
+
+
+VAE_TINY = {"vae/celeba": ("networks.encoder.ndf=8", "networks.decoder.ngf=8"),
+            "beta_vae/dsprites": ("networks.encoder.ndf=8", "networks.decoder.ngf=8"),
+            "factor_vae/dsprites": ("networks.encoder.ndf=8", "networks.decoder.ngf=8"),
+            "cvae/mnist": ("networks.encoder.ndf=8", "networks.decoder.ngf=8"),
+            "vae/mnist_mlp": ("networks.encoder.hidden_dims=[64]",
+                              "networks.decoder.hidden_dims=[64]")}
+
+
+@pytest.mark.parametrize("experiment", list(VAE_TINY))
+def test_graphed_vae_train_step_equals_eager(gen, numerics, experiment):
+    """The VAE family's steps (BatchNorm buffers moved in place, FactorVAE's
+    two optimizers and its permutations drawn on the card): graphed equals
+    eager bit for bit, no hand kernel launched."""
+    model = _model(f"experiment={experiment}", *VAE_TINY[experiment])
+    model.steps_per_epoch = 2
+    imgs = torch.randint(0, 256, (3, 8, model.height, model.width, model.channels),
+                         generator=gen, device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 10, (3, 8), generator=gen, device="cuda", dtype=torch.int32)
+    before = [c.launches for c in _counters()]
+    _graphed_against_eager(model, (imgs, labels), 3)
+    assert [c.launches for c in _counters()] == before
+
+
+def test_batchnorm_on_the_card_equals_the_cpu(gen, numerics):
+    """Flax's BatchNorm (networks/base.py): the train-mode output and the
+    moved statistics, f32, within 1e-5 of the CPU's."""
+    from igm_tpu_torch.networks.base import Norm
+    x = (torch.randn(64, 8, 8, 32, generator=gen, device="cuda") * 3 + 1).cpu()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        norm = Norm("batch", 32).to(dev)
+        norm.BatchNorm_0.reset_parameters(torch.Generator())
+        y = norm(x.to(dev), train=True)
+        out[dev] = (y.cpu(), norm.BatchNorm_0.mean.cpu(), norm.BatchNorm_0.var.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_fid_features_on_the_card_equal_the_cpu(gen, numerics):
+    from igm_tpu_torch.callbacks.evaluation import to_uint8
+    from igm_tpu_torch.callbacks.fid import RandomConvFeatures
+    x = (torch.rand(16, 64, 64, 3, generator=gen, device="cuda") * 2 - 1).cpu()
+    u8 = [to_uint8(x.numpy(), True, d).cpu() for d in ("cuda", "cpu")]
+    assert torch.equal(u8[0], u8[1])
+    card, cpu = (RandomConvFeatures(device=d)(u8[1].numpy()) for d in ("cuda", "cpu"))
+    assert abs(card - cpu).max() <= 1e-4 * abs(cpu).max()
+
+
+def test_graphed_vae_sample_equals_eager(gen, numerics):
+    model = _model("experiment=vae/celeba", *VAE_TINY["vae/celeba"])
+    model.init_state(0)
+    out = {}
+    for graphs in (True, False, True):
+        model.use_graphs = graphs
+        out.setdefault(graphs, []).append(model.sample(4, torch.Generator("cuda").manual_seed(1)))
+    assert torch.equal(out[True][0], out[False][0]) and torch.equal(out[True][1], out[False][0])

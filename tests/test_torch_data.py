@@ -39,9 +39,19 @@ def test_synthetic_arrays_are_byte_identical(tmp_path, monkeypatch, split):
 
 
 def test_missing_files_raise_without_synthetic(tmp_path, monkeypatch):
+    """IGM_SYNTHETIC_DATA=0 and no files: ``setup`` raises (no synthetic
+    stand-in); ``prepare_data`` packages the bundled digit scans first, as
+    igm_tpu's does (data/base.py:70-81), and both then read the same
+    arrays."""
     monkeypatch.setenv("IGM_SYNTHETIC_DATA", "0")
+    dm = CIFAR10DataModule(data_dir=str(tmp_path), channels=3, width=32, height=32,
+                           batch_size=32)
     with pytest.raises(FileNotFoundError):
-        _setup(CIFAR10DataModule, tmp_path)
+        dm.setup()
+    ours = _setup(CIFAR10DataModule, tmp_path)
+    theirs = _setup(JaxCIFAR, tmp_path / "jax")
+    for a, b in zip(ours.train_arrays(), theirs.train_arrays()):
+        np.testing.assert_array_equal(a, b)
 
 
 def _write_cifar(root: Path, seed: int):

@@ -76,8 +76,26 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
             assert type(model) is cls, type(model)
             assert cfg.callbacks.sample._target_.endswith("SampleImagesCallback")
         assert model.hparams.hidden_dim == 128 and model.hparams.n_couplings == [3, 3, 3]
+        from igm_tpu_torch.models.cvae import cVAE
+        from igm_tpu_torch.models.factor_vae import FactorVAE
+        from igm_tpu_torch.models.vae import VAE
+        import igm_tpu_torch.callbacks.evaluation, igm_tpu_torch.callbacks.fid  # noqa: F401
+        import igm_tpu_torch.callbacks.visualization  # noqa: F401
+        import igm_tpu_torch.data.celeba, igm_tpu_torch.data.dsprite  # noqa: F401
+        import igm_tpu_torch.data.packaged, igm_tpu_torch.networks.inception  # noqa: F401
+        import igm_tpu_torch.networks.conv32, igm_tpu_torch.networks.conv64  # noqa: F401
+        import igm_tpu_torch.utils.losses, igm_tpu_torch.utils.utils  # noqa: F401
+        for exp, cls in (("vae/celeba", VAE), ("beta_vae/dsprites", VAE),
+                         ("vae/mnist_mlp", VAE), ("cvae/mnist", cVAE),
+                         ("factor_vae/dsprites", FactorVAE)):
+            cfg = compose({str(REPO / "configs")!r}, ["experiment=" + exp])
+            model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cpu")
+            assert type(model) is cls, type(model)
+            dm = instantiate(cfg.datamodule)
+            callbacks = [instantiate(c) for c in cfg.callbacks.values()]
+        assert sum(p.numel() for p in model.modules.parameters()) > 0
         bad = [m for m in sys.modules
-               if m.split(".")[0] in {FORBIDDEN!r}]
+               if m.split(".")[0] in {FORBIDDEN!r} + ("sklearn", "matplotlib")]
         assert not bad, bad
         print("ok")
     """)
@@ -108,6 +126,24 @@ def test_targets_resolve_to_the_port():
     assert resolve_target("igm_tpu.models.made.MADE") is MADE
     assert resolve_target("igm_tpu.models.pixelcnn.PixelCNN") is PixelCNN
     assert resolve_target("igm_tpu.models.realnvp.RealNVP") is RealNVP
+    from igm_tpu_torch.callbacks.evaluation import FIDEvaluationCallback
+    from igm_tpu_torch.callbacks.visualization import TraverseLatentCallback
+    from igm_tpu_torch.data.celeba import CelebADataModule
+    from igm_tpu_torch.data.dsprite import DataModule
+    from igm_tpu_torch.models.cvae import cVAE
+    from igm_tpu_torch.models.factor_vae import FactorVAE
+    from igm_tpu_torch.models.vae import VAE
+    from igm_tpu_torch.networks.conv64 import Encoder
+    assert resolve_target("igm_tpu.models.vae.VAE") is VAE
+    assert resolve_target("igm_tpu.models.cvae.cVAE") is cVAE
+    assert resolve_target("igm_tpu.models.factor_vae.FactorVAE") is FactorVAE
+    assert resolve_target("igm_tpu.networks.conv64.Encoder") is Encoder
+    assert resolve_target("igm_tpu.data.celeba.CelebADataModule") is CelebADataModule
+    assert resolve_target("igm_tpu.data.dsprite.DataModule") is DataModule
+    assert resolve_target("igm_tpu.callbacks.evaluation.FIDEvaluationCallback") \
+        is FIDEvaluationCallback
+    assert resolve_target("igm_tpu.callbacks.visualization.TraverseLatentCallback") \
+        is TraverseLatentCallback
 
 
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
@@ -131,6 +167,14 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     for cls in (MADE, PixelCNN, RealNVP):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(datamodule=dm, hidden_dim=4)
+    from igm_tpu_torch.models.cvae import cVAE
+    from igm_tpu_torch.models.factor_vae import FactorVAE
+    from igm_tpu_torch.models.vae import VAE
+    mlp = {"_target_": "igm_tpu.networks.basic.MLPEncoder", "hidden_dims": [4]}
+    dec = {"_target_": "igm_tpu.networks.basic.MLPDecoder", "hidden_dims": [4]}
+    for cls, kw in ((VAE, {}), (cVAE, {"n_classes": 2}), (FactorVAE, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(datamodule=dm, encoder=mlp, decoder=dec, latent_dim=2, **kw)
     from igm_tpu_torch.cli import sample_main, train_main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample_main(["experiment=ddpm/cifar10", "--n", "1"])
