@@ -168,6 +168,32 @@ and prints no result line):
           traversal grids are written) and the sampling CLI from its
           checkpoint; a fit with trainer.profile=true, whose trace must hold
           CUDA kernels.
+  gan     the adversarial zoo, counters zeroed just before and read just
+          after (no hand kernel on these paths: every count exactly 0): all
+          33 zoo experiments and speed_gan composed at full width on the
+          card, their parameters counted against a count from their
+          configs; one experiment of each of the ten models and speed_gan
+          (vanilla_gan/cifar10, lsgan/mlp_mnist, ggan/celeba, wgan/cifar10,
+          wgan_gp/celeba, infogan/mnist, bigan/cifar10, vaegan/celeba,
+          aae/mnist, age/celeba), batch 8, f32, one train step of each
+          branch on the card against float64 on the CPU from the same
+          weights, batch and injected draws (float64 on the card's side of
+          any ReLU kink the two disagree on): the metrics (NaN where the
+          branch did not run), every gradient of each update, the
+          parameters each update leaves, the BatchNorm buffers; graphed
+          against eager, bit for bit, over two periods and more at K = 1
+          and at a K that is not a multiple of the period (parameters,
+          buffers, optimizer
+          states, generator, step, update counts, metrics with their NaNs;
+          one graph per starting phase); the train step at the datamodule's
+          batch over whole periods, graphed against eager a-b-b-a (ms,
+          images/s, GFLOP a step, the graphed steps' busy time and idle
+          share), sampling at batch 64 graphed against eager; the train CLI
+          on each model's experiment (4 steps at K = 1, the experiment's own
+          callbacks; infogan/mnist's epoch end logs its traversal grids) and
+          the sampling CLI from its checkpoint; wgan/cifar10 resumed at
+          step 4 (mid-period) ends where an uninterrupted run does, bit for
+          bit.
   chain   graphed against eager (igm_tpu_torch/core/graphs.py): the train
           steps of the flagship (batch 256, bf16), the VQ-VAE (128, f32),
           the latent DDPM (128), TAR (128, flash_attention=dropout) and the
@@ -735,6 +761,8 @@ PATH_KERNELS = {
     # VAE, beta-VAE, cVAE and FactorVAE launch no hand kernel: phase vae
     # holds them to exactly 0
     "vae": (),
+    # the adversarial zoo launches no hand kernel: phase gan holds it to 0
+    "gan": (),
 }
 
 
@@ -2940,7 +2968,8 @@ def lik_sampler(name: str, model) -> dict:
     else:
         method = model.sample_images
         sec = {"eager": []}
-        for i in range(2):
+        # PixelCNN's row sampler (3.8-4.9 s a batch) once, MADE's twice
+        for i in range(1 if name.startswith("pixelcnn") else 2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             x = method(n, torch.Generator("cuda").manual_seed(5 + i))
@@ -3477,6 +3506,657 @@ def phase_vae() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- gan
+# the adversarial zoo: (name, experiment, extra overrides) -- one experiment
+# of each of the ten models, and speed_gan on vanilla_gan/cifar10
+GAN_EXPERIMENTS = (("vanilla_gan", "vanilla_gan/cifar10", ()),
+                   ("lsgan", "lsgan/mlp_mnist", ()),
+                   ("ggan", "ggan/celeba", ()),
+                   ("wgan", "wgan/cifar10", ()),
+                   ("wgan_gp", "wgan_gp/celeba", ()),
+                   ("infogan", "infogan/mnist", ()),
+                   ("bigan", "bigan/cifar10", ()),
+                   ("vaegan", "vaegan/celeba", ()),
+                   ("aae", "aae/mnist", ()),
+                   ("age", "age/celeba", ()),
+                   ("speed_gan", "vanilla_gan/cifar10", ("model=speed_gan",)))
+GAN_ZOO = ("vanilla_gan", "lsgan", "ggan", "wgan", "wgan_gp", "infogan", "bigan", "vaegan",
+           "aae", "age")
+GAN_REF_BATCH = 8                    # card against CPU
+GAN_SAMPLE_BATCH = 64
+GAN_TIMED_STEPS = 6                  # per turn of the a-b-b-a timing (whole periods)
+# the steps profiled for their busy time and idle share (PERF.md's rows)
+GAN_PROFILED = ("vanilla_gan", "wgan_gp", "vaegan", "infogan")
+# float32 on the card against float64 on the CPU: the metrics within 1e-5
+# relative or 1e-5 absolute (means of logits of order 1 that nearly
+# cancel); every gradient within 1e-4 of the largest of its update (on the
+# same side of every ReLU kink: gan_reference); the parameters each update
+# leaves where the gradient's sign is certain, and the buffers, within 1e-5
+GAN_METRIC_RTOL, GAN_METRIC_ATOL = 1e-5, 1e-5
+GAN_GRAD_TOL = 1e-4
+GAN_STATE_TOL = 1e-5
+# Adam's first step moves a parameter by lr g / (|g| + 1e-8): lr sign(g) up
+# to 1% where |g| > 1e-6 (tests/_torch_parity.py's G_FLOOR)
+GAN_G_FLOOR = 1e-6
+# float64 put on the card's side of a ReLU kink: at most 16 inputs a step,
+# each within 1e-5 of the largest |x| of its activation's input (rounding)
+GAN_KINK_MAX, GAN_KINK_RTOL = 16, 1e-5
+
+
+def _gan_model(experiment: str, overrides=(), device: str = "cuda"):
+    from igm_tpu_torch.config import compose, instantiate
+    cfg = compose(REPO / "configs", [f"experiment={experiment}", *overrides,
+                                     "print_config=False"])
+    model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device)
+    model.steps_per_epoch = 1000
+    return model, cfg
+
+
+def _net_params(cfg, cin: int, cout: int, **kw) -> int:
+    """The parameters of a zoo network, counted from its config alone."""
+    kind = str(cfg["_target_"]).rsplit(".", 2)
+    kind = f"{kind[-2]}.{kind[-1]}"
+    kw = {**cfg, **kw}
+    norm = kw.get("norm_type", "batch")
+    norm = 0 if norm in (None, "None", "none", False, "null", "instance") else 2
+
+    def conv(a, b, k):
+        return a * b * k * k + b
+
+    if kind in ("conv32.Encoder", "conv64.Encoder"):
+        ndf, last = int(kw["ndf"]), 2 if kind.startswith("conv32") else 4
+        return (conv(cin, ndf, 4) + sum(conv(ndf * m // 2, ndf * m, 4) + norm * ndf * m
+                                        for m in (2, 4, 8)) + conv(ndf * 8, cout, last))
+    if kind in ("conv32.Decoder", "conv64.Decoder", "basic.ConvDecoder"):
+        ngf = int(kw["ngf"])
+        layers = {"conv32.Decoder": ((8, 2), (4, 4), (2, 4), (1, 4)),
+                  "conv64.Decoder": ((8, 4), (4, 4), (2, 4), (1, 4)),
+                  "basic.ConvDecoder": ((4, 4), (2, 3), (1, 4))}[kind]
+        total, c = 0, cin
+        for mult, k in layers:
+            total += conv(c, ngf * mult, k) + norm * ngf * mult
+            c = ngf * mult
+        return total + conv(c, cout, 4)
+    if kind == "basic.ConvEncoder":
+        ndf = int(kw["ndf"])
+        return (conv(cin, ndf, 4) + conv(ndf, 2 * ndf, 4) + norm * 2 * ndf
+                + conv(2 * ndf, 4 * ndf, 3) + norm * 4 * ndf + conv(4 * ndf, cout, 4))
+    size = int(kw.get("width", 1)) * int(kw.get("height", 1))
+    hidden = [int(h) for h in kw["hidden_dims"]]
+    if kind == "basic.MLPEncoder":
+        dims = [cin * size, *hidden]
+        return (sum(a * b + b + (2 if i == 0 else norm) * b
+                    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])))
+                + dims[-1] * cout + cout)
+    if kind == "basic.MLPDecoder":
+        dims = [cin, *hidden]
+        return (sum(a * b + b + norm * b for a, b in zip(dims[:-1], dims[1:]))
+                + dims[-1] * cout * size + cout * size)
+    raise ValueError(f"no count for {kind}")
+
+
+def gan_config_params(cfg) -> int:
+    """A zoo model's parameters, counted from the config's networks and
+    hyperparameters as igm_tpu builds the model."""
+    m, enc, dec = cfg.model, cfg.networks.encoder, cfg.networks.decoder
+    c = int(cfg.datamodule.channels)
+    kind = str(m["_target_"]).rsplit(".", 1)[-1]
+    module = str(m["_target_"]).rsplit(".", 2)[-2]
+    mlp = {"_target_": "igm_tpu.networks.basic.MLPEncoder"}
+    if module == "wgan_gp":
+        return (_net_params(dec, int(m.latent_dim), c, norm_type="layer")
+                + _net_params(enc, c, 1, norm_type="layer"))
+    if kind in ("GAN", "WGAN"):
+        return _net_params(dec, int(m.latent_dim), c) + _net_params(enc, c, 1)
+    if kind == "InfoGAN":
+        codes = int(m.discrete_dim) * int(m.discrete_value) + int(m.continuous_dim)
+        e = int(m.encode_dim)
+        return (_net_params(dec, codes + int(m.noise_dim), c) + _net_params(enc, c, e)
+                + e + 1 + e * 128 + 128 + 128 * codes + codes)
+    lat = int(m.latent_dim)
+    if kind == "BiGAN":
+        h = int(m.hidden_dim)
+        return (_net_params(dec, lat, c) + _net_params(enc, c, lat)
+                + _net_params({**mlp, "hidden_dims": [h, h]}, lat, h)
+                + _net_params(enc, c, h) + _net_params({**mlp, "hidden_dims": [h]}, 2 * h, 1))
+    if kind == "VAEGAN":
+        return _net_params(dec, lat, c) + _net_params(enc, c, 2 * lat) + _net_params(enc, c, 1)
+    if kind == "AAE":
+        return (_net_params(dec, lat, c) + _net_params(enc, c, lat)
+                + _net_params({**mlp, "hidden_dims": [256, 256], "norm_type": "layer"}, lat, 1))
+    if kind == "AGE":
+        return _net_params(dec, lat, c) + _net_params(enc, c, lat)
+    raise ValueError(f"no count for {kind}")
+
+
+def gan_instantiate_all() -> dict:
+    """Every zoo experiment (and speed_gan) composed and instantiated at
+    full width on the card: its class, and its parameter count against the
+    count from its config."""
+    out = {}
+    experiments = sorted(str(p.relative_to(REPO / "configs" / "experiment"))[:-5]
+                         for p in (REPO / "configs" / "experiment").rglob("*.yaml")
+                         if p.parent.name in GAN_ZOO)
+    check(len(experiments) == 33, f"gan: {len(experiments)} zoo experiments")
+    for experiment, extra in [(e, ()) for e in experiments] + [("vanilla_gan/cifar10",
+                                                                ("model=speed_gan",))]:
+        model, cfg = _gan_model(experiment, extra)
+        got = sum(p.numel() for p in model.modules.parameters())
+        want = gan_config_params(cfg)
+        check(got == want, f"{experiment} {extra}: {got} parameters, the config counts {want}")
+        check(all(p.is_cuda for p in model.modules.parameters()), f"{experiment}: not on the card")
+        out[" ".join((experiment, *extra))] = dict(model=type(model).__name__, parameters=got)
+        del model
+    emit("gan", run="instantiate", experiments=len(out), parameters=out)
+    _release()
+    return out
+
+
+def gan_draws(model, n: int, gen) -> dict:
+    """A train step's draws, given (on the CPU, from ``gen``)."""
+    import torch
+    kind = type(model).__name__
+    latent = int(model.hparams.get("latent_dim", 0))
+    if kind == "InfoGAN":
+        hp = model.hparams
+        return {"dis": torch.randint(0, hp.discrete_value, (n, hp.discrete_dim), generator=gen),
+                "cont": torch.rand((n, hp.continuous_dim), generator=gen) * 2 - 1,
+                "z": torch.randn((n, hp.noise_dim), generator=gen)}
+    if kind == "VAEGAN":
+        return {"eps": torch.randn((n, latent), generator=gen),
+                "prior_z": torch.randn((n, latent), generator=gen)}
+    if kind == "AAE":
+        return {"real_prior": torch.randn((n, latent), generator=gen)}
+    draws = {"z": torch.randn((n, latent), generator=gen)}
+    if type(model).__module__.endswith("wgan_gp"):
+        draws["lerp"] = torch.rand((n, 1, 1, 1), generator=gen)
+    return draws
+
+
+def gan_phase_steps(model) -> tuple:
+    """A step of each branch: the G and D (E) steps of the alternating
+    models, step 0 of the others."""
+    kind = type(model).__module__.rsplit(".", 1)[-1]
+    if kind == "wgan_gp":
+        return (0, int(model.hparams.n_critic))
+    return (0, 1) if model.phase_period > 1 else (0,)
+
+
+def _record_updates(model, targets=None):
+    """Wrap the model's updates: per optimizer, the gradients and the
+    parameters each update leaves (on the CPU, by name); after update i of
+    optimizer n, the parameters are set to ``targets[n][i]`` when given."""
+    import torch
+    names = {id(p): k for k, p in model.modules.named_parameters()}
+    rec = {"grads": {}, "after": {}, "order": []}
+    inner = model.optimizers._apply
+
+    def apply(opt_name, opt, params, grads, count=None, sr_seeds=None):
+        rec["grads"].setdefault(opt_name, []).append(
+            {names[id(p)]: (torch.zeros_like(p) if g is None else g).detach().double().cpu().clone()
+             for p, g in zip(params, grads)})
+        inner(opt_name, opt, params, grads, count, sr_seeds)
+        after = rec["after"].setdefault(opt_name, [])
+        after.append({names[id(p)]: p.detach().double().cpu().clone() for p in params})
+        rec["order"].append(opt_name)
+        if targets is not None:
+            with torch.no_grad():
+                for p in params:
+                    p.copy_(targets[opt_name][len(after) - 1][names[id(p)]])
+
+    model.optimizers._apply = apply
+    return rec
+
+
+class _KinkSigns:
+    """Within: the side (x > 0) of every ReLU and leaky-ReLU input, in call
+    order, kept on the CPU; with ``forced`` (another run's sides, in its
+    order), each activation takes that side instead of its own: the same
+    linear piece of the function, so the same gradient up to rounding.
+    Where two runs of one step disagree on a side (an input within rounding
+    of 0), they differentiate other pieces: float32 against float64 may.
+    A forced run counts the inputs it put on the other side of their kink
+    (``moved``) and keeps the largest of them, |x| over the largest |x| of
+    that activation's input (``moved_rel``): how far from 0 they were."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+        self.moved, self.moved_rel = 0, 0.0
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        self.signs, self.saved = [], (F.relu, F.leaky_relu)
+        relu, leaky = self.saved
+
+        def side(x):
+            own = x.detach() > 0
+            if self.forced is None:
+                self.signs.append(own.cpu())
+                return None
+            mask = self.forced[len(self.signs)].to(x.device)
+            check(mask.shape == x.shape, "the forced run took other activations")
+            self.signs.append(mask.cpu())
+            moved = mask != own
+            if bool(moved.any()):
+                size = x.detach().abs()
+                self.moved += int(moved.sum())
+                self.moved_rel = max(self.moved_rel,
+                                     (size[moved].max() / size.max().clamp_min(1e-30)).item())
+            return mask
+
+        def relu_at(x, *a, **k):
+            mask = side(x)
+            return relu(x, *a, **k) if mask is None else torch.where(mask, x, 0.0)
+
+        def leaky_at(x, negative_slope=0.01, *a, **k):
+            mask = side(x)
+            if mask is None:
+                return leaky(x, negative_slope, *a, **k)
+            return torch.where(mask, x, x * negative_slope)
+
+        F.relu, F.leaky_relu = relu_at, leaky_at
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+        F.relu, F.leaky_relu = self.saved
+
+    def flips(self, other: "_KinkSigns") -> int:
+        check(len(self.signs) == len(other.signs), "the two runs took other activations")
+        return sum(int((a != b).sum()) for a, b in zip(self.signs, other.signs))
+
+
+def _update_bound(model, opt_name: str) -> float:
+    """The largest move of a parameter by one update of ``opt_name``."""
+    tx = model.optimizers.tx(opt_name)
+    lr = max([float(tx.lr_at(0))] + [float(lr) for _, lr in getattr(tx, "lrs", ())])
+    alpha = getattr(tx, "alpha", None)
+    return lr / math.sqrt(1.0 - alpha) if alpha is not None else 1.1 * lr
+
+
+def gan_reference(name: str, experiment: str, extra, gen, device: str = "cuda") -> dict:
+    """At full width, batch 8, from the same weights, batch and injected
+    draws: one train step of each branch on the card (f32, TF32 off) and
+    on the CPU in float64.  The float64 run's updates come first; the
+    card's run is put onto the float64 parameters after each of its
+    updates, so that a later phase reads the same parameters (Adam's first
+    step moves a parameter whose gradient is 0 up to rounding by lr times a
+    sign that rounding decides).  Held: the metrics (NaN where the branch
+    did not run), the optimizers updated and their order, every gradient
+    of each update, the parameters each update left where the gradient's
+    sign is certain (beyond the largest card-float64 gradient difference
+    on that tensor and 1e-6, on every update of that optimizer so far;
+    elsewhere within twice the update's bound), every buffer after the
+    step; for WGAN-GP the penalty with the metrics.
+
+    Every gradient is held within 1e-4 of the largest of its update.
+    Where the card and float64 disagree on the side of a ReLU or leaky-ReLU
+    kink (an input within rounding of 0), they differentiate other linear
+    pieces of the function, and a single such element moved the gradients
+    by up to 1.3e-2 of the largest on the CPU's float32 (AGE's E branch):
+    those steps are counted (``kink_flips``) and float64 runs again with
+    every activation on the card's side of its kink (``_KinkSigns``), from
+    the same parameters after each update.  That rerun holds what it moved:
+    at most GAN_KINK_MAX inputs a step, each within GAN_KINK_RTOL of the
+    largest |x| of its activation's input in float64."""
+    import torch
+    card, _ = _gan_model(experiment, extra, device)
+    exact, _ = _gan_model(experiment, extra, "cpu")
+    exact.init_state(0)
+    exact.modules.double()
+    start = {k: v.detach().cpu().clone() for k, v in card.modules.state_dict().items()}
+    out, fails = {}, []
+    for step in gan_phase_steps(card):
+        imgs = torch.randint(0, 256, (GAN_REF_BATCH, card.height, card.width, card.channels),
+                             generator=gen, dtype=torch.uint8)
+        labels = torch.zeros(GAN_REF_BATCH, dtype=torch.int32)
+        draws = gan_draws(exact, GAN_REF_BATCH, gen)
+        res = {}
+
+        def run(model, dev, targets=None, forced=None):
+            state = model.init_state(0)
+            model.modules.load_state_dict(start)
+            state.step = step
+            rec = _record_updates(model, targets)
+            with _KinkSigns(forced) as kinks:
+                state, metrics = model.train_step(
+                    state, (imgs.to(dev), labels.to(dev)),
+                    **{k: v.to(dev) for k, v in draws.items()})
+            del model.optimizers._apply
+            return dict(rec=rec, kinks=kinks, metrics={k: float(v) for k, v in metrics.items()},
+                        buffers={k: v.detach().double().cpu()
+                                 for k, v in model.modules.named_buffers()},
+                        counts=dict(state.counts))
+
+        want = run(exact, "cpu")
+        targets = want["rec"]["after"]
+        got = run(card, device, {n: [{k: v.float().to(device) for k, v in a.items()} for a in lst]
+                                 for n, lst in targets.items()})
+        flips = got["kinks"].flips(want["kinks"])
+        if flips:          # float64 again, on the card's side of every kink
+            want = run(exact, "cpu", {n: [{k: v.clone() for k, v in a.items()} for a in lst]
+                                      for n, lst in targets.items()}, got["kinks"].signs)
+        kinks = want["kinks"]
+        if kinks.moved > GAN_KINK_MAX or kinks.moved_rel > GAN_KINK_RTOL:
+            fails.append(f"step {step}: float64 put {kinks.moved} inputs on the card's side "
+                         f"of their kink, the largest {kinks.moved_rel} of its activation's "
+                         f"largest input (at most {GAN_KINK_MAX}, {GAN_KINK_RTOL})")
+        if got["rec"]["order"] != want["rec"]["order"] or got["counts"] != want["counts"]:
+            fails.append(f"step {step}: updates {got['rec']['order']} vs {want['rec']['order']}")
+        metric_err = {}
+        for k, v in want["metrics"].items():
+            g = got["metrics"][k]
+            if math.isnan(v) != math.isnan(g):
+                fails.append(f"step {step}: {k} {g} vs {v}")
+            elif not math.isnan(v):
+                metric_err[k] = abs(g - v)
+                tol = GAN_METRIC_RTOL * abs(v) + GAN_METRIC_ATOL
+                if abs(g - v) > tol:
+                    fails.append(f"step {step}: metric {k} card {g} vs float64 {v} beyond {tol}")
+        grad_err, param_err, unsure = {}, 0.0, 0
+        for opt_name, updates in want["rec"]["grads"].items():
+            sure = {}
+            for i, g64 in enumerate(updates):
+                gc = got["rec"]["grads"][opt_name][i]
+                scale = max(g.abs().max().item() for g in g64.values())
+                diff = {k: (gc[k] - g).abs() for k, g in g64.items()}
+                err, at = max((d.max().item(), k) for k, d in diff.items())
+                if err > GAN_GRAD_TOL * scale:
+                    fails.append(f"step {step}: {opt_name} update {i} gradients {err} from "
+                                 f"float64 at {at} beyond {GAN_GRAD_TOL} x the largest {scale} "
+                                 f"({flips} kink flips)")
+                grad_err[f"{opt_name}{i}"] = dict(
+                    max_abs_err_over_max_grad=err / max(scale, 1e-30), at=at, max_grad=scale)
+                bound = 2 * _update_bound(card, opt_name) * (1 + 1e-3)
+                for k, g in g64.items():
+                    sure[k] = ((g.abs() > max(diff[k].max().item(), GAN_G_FLOOR))
+                               & sure.get(k, True))
+                    moved = (got["rec"]["after"][opt_name][i][k]
+                             - want["rec"]["after"][opt_name][i][k]).abs()
+                    if sure[k].any():
+                        param_err = max(param_err, moved[sure[k]].max().item())
+                    unsure += int((~sure[k]).sum())
+                    if not bool((moved[~sure[k]] <= bound).all()):
+                        fails.append(f"step {step}: {k} moved beyond 2 x the update's bound")
+        if param_err > GAN_STATE_TOL:
+            fails.append(f"step {step}: parameters after the updates differ by {param_err}")
+        buffer_err = 0.0
+        for k, v in want["buffers"].items():
+            buffer_err = max(buffer_err, ((got["buffers"][k] - v).abs().max()
+                                          / max(v.abs().max().item(), 1e-30)).item())
+        if buffer_err > GAN_STATE_TOL:
+            fails.append(f"step {step}: buffers differ by {buffer_err} (relative)")
+        out[step] = dict(updates=got["rec"]["order"], metrics=got["metrics"],
+                         kink_flips=flips, kink_moved=kinks.moved,
+                         kink_moved_max_rel=kinks.moved_rel,
+                         metric_abs_err=metric_err, grad_errors=grad_err,
+                         parameters_after_max_abs_err=param_err, sign_unsure_entries=unsure,
+                         buffers_max_rel_err=buffer_err, buffers=len(want["buffers"]))
+    emit("gan", run="reference", model=name, batch=GAN_REF_BATCH, dtype="float32",
+         reference="float64 on the CPU", steps=out, fails=fails)
+    check(not fails, f"gan {name}: {fails}")
+    del card, exact
+    _release()
+    return out
+
+
+def _alt_k(period: int) -> int:
+    """A chunk length that is not a multiple of the period (3, or 4 for
+    periods 3 and 6)."""
+    return 4 if period % 3 == 0 else 3
+
+
+def gan_chain(name: str, model, batch: int):
+    """Graphed against eager at full width and the datamodule's batch, from
+    step 0 and the same state: more than two periods of train_step_n at
+    the K of _alt_k where the branch alternates (a K that is not a
+    multiple of the period), then two periods at K = 1 (each starting
+    phase's first chunk eager, then captured; the rest replayed).  Bit for
+    bit: the parameters, buffers, optimizer states, generator, step,
+    update counts, and each chunk's metrics (a NaN where the other run has
+    a NaN: a branch that did not run); one graph per starting phase that
+    occurs.  Returns the record and the state after the graphed K = 1
+    run, which holds a graph of each phase."""
+    import torch
+    state = model.init_state(0)
+    period = model.phase_period
+    start = state.snapshot()
+    out = {"period": period, "batch": batch}
+    for k in (_alt_k(period), 1) if period > 1 else (1,):
+        # every starting phase captured, then replayed at least once
+        n_exec = 2 * period if k == 1 else -(-2 * period // k) + 1
+        imgs, labels = _chain_batches(model, batch, n_exec * k, 13)
+        imgs = imgs.reshape(n_exec, k, *imgs.shape[1:])
+        labels = labels.reshape(n_exec, k, -1)
+        runs = {}
+        for graphed in (False, True):
+            state.load_state_dict(start)
+            state.graphs.clear()
+            metrics = [model.train_step_n(state, (imgs[i], labels[i]), graph=graphed)[1]
+                       for i in range(n_exec)]
+            torch.cuda.synchronize()
+            runs[graphed] = (state.snapshot(), metrics, dict(state.counts), len(state.graphs))
+        diff = (same_bits(runs[True][0], runs[False][0])
+                + same_bits(runs[True][1], runs[False][1], nan_equal=True))
+        check(not diff, f"gan {name} K={k}: graphed differs from eager at {diff[:8]}")
+        phases = {(i * k) % period for i in range(n_exec)}
+        check(runs[True][2] == runs[False][2] and runs[True][3] == len(phases),
+              f"gan {name} K={k}: counts {runs[True][2]} vs {runs[False][2]}, "
+              f"{runs[True][3]} graphs for {len(phases)} phases")
+        nan_keys = [sorted(kk for kk, v in m.items() if torch.isnan(v)) for m in runs[True][1]]
+        out[f"k{k}"] = dict(steps=n_exec * k, bit_equal=True, graphs=runs[True][3],
+                            counts=runs[True][2], nan_metrics_by_chunk=nan_keys)
+    emit("gan", run="chain", model=name, **out)
+    return out, state
+
+
+def gan_train_timed(name: str, model, state, batch: int) -> dict:
+    """The train step at the datamodule's batch (128; age/celeba 64), from
+    ``state`` (gan_chain's: a graph of each phase at K = 1 captured on
+    this batch's shapes), over whole periods: graphed against eager
+    a-b-b-a (ms a step, images/s; the graphed steps replay, nothing is
+    captured), the FLOPs of a period's steps (FlopCounterMode, as the
+    trainer counts them), for the models of GAN_PROFILED the graphed
+    steps' device busy time and idle share (one period profiled); then
+    sampling at batch 64, graphed against eager (the same images bit for
+    bit)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from igm_tpu_torch.core.trainer import step_flop_counter
+    from igm_tpu_torch.tools.profiling import device_summary
+    period = model.phase_period
+    check(state.step % period == 0 and len(state.graphs) == period,
+          f"gan {name} timed: step {state.step}, {len(state.graphs)} graphs")
+    steps = period * -(-GAN_TIMED_STEPS // period)
+    imgs, labels = _chain_batches(model, batch, 1, 47)
+    with step_flop_counter() as counter:
+        for _ in range(period):
+            state, _ = model.train_step_n(state, (imgs, labels), graph=False)
+    flops = float(counter.get_total_flops()) / period
+
+    def run(graphed: bool, n: int = steps):
+        nonlocal state
+        for _ in range(n):
+            state, metrics = model.train_step_n(state, (imgs, labels), graph=graphed)
+        return metrics
+
+    sec = _abba(run, warm=0)                 # the chain and the FLOP count warmed both
+    check(len(state.graphs) == period, f"gan {name} timed: captured again")
+    ms = {m: [1e3 * s / steps for s in v] for m, v in sec.items()}
+    row = dict(batch=batch, dtype="float32", period=period, steps_per_turn=steps,
+               ms_per_step=ms, images_per_s={m: [batch * 1e3 / t for t in v]
+                                             for m, v in ms.items()},
+               gflop_per_step=flops / 1e9,
+               achieved_tflops_graphed=flops / (1e-3 * min(ms["graphed"])) / 1e12)
+    if name in GAN_PROFILED:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(True, period)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        summary = device_summary(prof, period, 1e-3 * min(ms["graphed"]) * period, wall)
+        row["profile_graphed"] = {k: summary[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step", "idle_share", "kernels_per_step",
+            "device_ms_per_step_by_group")}
+    values = row["metrics"] = {k: float(v) for k, v in run(True, period).items()}
+    check(any(math.isfinite(v) for v in values.values()), f"gan {name} timed: metrics {values}")
+    samples = {}
+
+    def sample(graphed: bool):
+        model.use_graphs = graphed
+        samples[graphed] = model.sample(GAN_SAMPLE_BATCH,
+                                        torch.Generator(model.device).manual_seed(5))
+
+    sample(True)                                          # capture
+    sample_sec = _abba(sample, warm=0)
+    model.use_graphs = True
+    x = samples[True]
+    check(not same_bits(samples[True], samples[False]), f"gan {name}: graphed samples differ")
+    check(tuple(x.shape) == (GAN_SAMPLE_BATCH, model.height, model.width, model.channels)
+          and bool(torch.isfinite(x).all()), f"gan {name} samples: {tuple(x.shape)}")
+    row["sample"] = dict(batch=GAN_SAMPLE_BATCH, seconds=sample_sec, bit_equal=True,
+                         images_per_s={m: [GAN_SAMPLE_BATCH / s for s in v]
+                                       for m, v in sample_sec.items()})
+    emit("gan", run="train_timed", model=name, **row)
+    return row
+
+
+# the CLI fits: one experiment of each network family and each period of
+# the branch (MLP 2, conv_mnist 1, conv64 4; conv32 with period 6 is
+# wgan/cifar10, fitted for the resume), each with the metric it returns
+GAN_CLI = (("lsgan/mlp_mnist", "train_loss/d_loss"), ("infogan/mnist", "train_loss/d_loss"),
+           ("age/celeba", "train_loss/g_loss"))
+GAN_CLI_FOUR = ("trainer.limit_train_batches=4", "trainer.limit_val_batches=1")
+
+
+def _gan_fit(root: Path, experiment: str, metric: str, *overrides: str) -> dict:
+    """python -m igm_tpu_torch.train of ``experiment`` for one epoch of 4
+    steps (K = 1) in ``root``, with its own callbacks (FID on the random
+    backend, the sample and traversal grids), then igm-sample from its
+    checkpoint to a PNG of 16 images: seconds, the checkpoints, the grids."""
+    import numpy as np
+    from PIL import Image
+    from igm_tpu_torch.cli import sample_main
+    from igm_tpu_torch.core.logging import NoOpLogger
+    logged, log_image = {}, NoOpLogger.log_image
+    NoOpLogger.log_image = lambda self, tag, img, step: logged.setdefault(
+        tag, (list(img.shape), int(step), bool(np.isfinite(img).all())))
+    try:
+        t0 = time.perf_counter()
+        value = _train_cli(root, "trainer.max_epochs=1", *GAN_CLI_FOUR,
+                           "trainer.steps_per_execution=1", *overrides,
+                           experiment=experiment, metric=metric)
+        sec = time.perf_counter() - t0
+    finally:
+        NoOpLogger.log_image = log_image
+    # the newest run directory (hydra.run.dir, named by exp_name)
+    run = max((q.parent for q in (root / "logs" / "runs").rglob("checkpoints")),
+              key=lambda q: q.stat().st_mtime)
+    check(value is not None and math.isfinite(value), f"{experiment} fit: {metric} = {value}")
+    ckpts = sorted(q.name for q in (run / "checkpoints").iterdir())
+    grids = sorted(q.name for q in (run / "results").iterdir())
+    check(ckpts == ["step_4.pt"] and "0.jpg" in grids,
+          f"{experiment} fit: checkpoints {ckpts}, grids {grids}")
+    if experiment.startswith("infogan/"):
+        tags = {"visual/traverse over discrete values",
+                "visual/traverse over first continuous values",
+                "visual/traverse over second continuous values"}
+        check(tags <= set(logged) and all(logged[t][1:] == (0, True) for t in tags),
+              f"{experiment}: traversal grids logged {sorted(logged)}")
+    png = root / "samples.png"
+    t1 = time.perf_counter()
+    imgs = sample_main([f"experiment={experiment}", "--ckpt", str(run / "checkpoints"),
+                        "--n", "16", "--out", str(png)])
+    sample_sec = time.perf_counter() - t1
+    with Image.open(png) as img:
+        size = img.size
+    check(tuple(imgs.shape)[0] == 16 and bool(imgs.isfinite().all()),
+          f"{experiment} sampling CLI: {tuple(imgs.shape)}")
+    row = dict(fit_seconds=sec, metric=metric, value=value, checkpoints=ckpts, grids=grids,
+               images_logged=sorted(logged), sample_seconds=sample_sec, grid_size=list(size))
+    emit("gan", run="cli", experiment=experiment, **row)
+    return row
+
+
+def gan_cli() -> dict:
+    """Through the port's CLI: the fits of GAN_CLI and igm-sample from
+    their checkpoints (_gan_fit); wgan/cifar10 fitted and sampled so too,
+    then resumed for a second epoch (step 4 is mid-period: its period is
+    6) at the K that steps_per_execution=auto resolves (its probe warms,
+    captures and times each of the six phases, then restores the state),
+    ends where two epochs in one run at K = 1 do, bit for bit."""
+    import torch
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for i, (experiment, metric) in enumerate(GAN_CLI):
+            root = tmp / str(i)
+            root.mkdir()
+            out[experiment] = _gan_fit(root, experiment, metric)
+        saved = {}
+        for kind in ("resumed", "whole"):
+            root = tmp / kind
+            root.mkdir()
+            ckpt = root / "logs" / "runs" / "wgan" / "cifar10_lr_0.0002" / "checkpoints"
+            if kind == "resumed":
+                out["wgan/cifar10"] = _gan_fit(root, "wgan/cifar10", "train_loss/d_loss")
+                _train_cli(root, "trainer.max_epochs=2", *GAN_CLI_FOUR,
+                           f"trainer.resume={ckpt}", experiment="wgan/cifar10",
+                           metric="train_loss/d_loss")
+            else:
+                _train_cli(root, "trainer.max_epochs=2", *GAN_CLI_FOUR,
+                           "trainer.steps_per_execution=1", experiment="wgan/cifar10",
+                           metric="train_loss/d_loss")
+            saved[kind] = torch.load(ckpt / "step_8.pt", weights_only=True)
+        diff = same_bits(saved["resumed"], saved["whole"])
+        check(not diff, f"wgan/cifar10 resumed mid-period differs at {diff[:8]}")
+        out["resume"] = row = dict(experiment="wgan/cifar10", resumed_at=4, period=6,
+                                   steps=8, resumed_k="auto", whole_k=1,
+                                   checkpoint_bit_equal=True)
+        emit("gan", run="cli_resume", **row)
+    _release()
+    return out
+
+
+def phase_gan() -> dict:
+    """The adversarial zoo; the caller zeroes the counters before it.  No
+    hand kernel is on these paths: every count must stay 0."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(41)
+    out, sec = {"reference": {}, "chain": {}, "train": {}}, {}
+    out["instantiate"] = gan_instantiate_all()
+    sec["instantiate"] = time.perf_counter() - t0
+    by_model = {name: {} for name, _, _ in GAN_EXPERIMENTS}
+    for name, experiment, extra in GAN_EXPERIMENTS:
+        t1 = time.perf_counter()
+        out["reference"][name] = gan_reference(name, experiment, extra, gen)
+        by_model[name]["reference"] = time.perf_counter() - t1
+    for name, experiment, extra in GAN_EXPERIMENTS:     # one model and state for both
+        t1 = time.perf_counter()
+        model, cfg = _gan_model(experiment, extra)
+        batch = int(cfg.datamodule.batch_size)
+        out["chain"][name], state = gan_chain(name, model, batch)
+        t2 = time.perf_counter()
+        out["train"][name] = gan_train_timed(name, model, state, batch)
+        by_model[name].update(chain=t2 - t1, train=time.perf_counter() - t2)
+        del model, state
+        _release()
+    for part in ("reference", "chain", "train"):
+        sec[part] = sum(m[part] for m in by_model.values())
+    t1 = time.perf_counter()
+    out["cli"] = gan_cli()
+    sec["cli"] = time.perf_counter() - t1
+    out["launches"] = counts()
+    check(out["launches"] == expected(),
+          f"gan phase launched {dict(zip(KERNELS, out['launches']))}")
+    emit("gan", run="path", seconds=time.perf_counter() - t0, seconds_by_part=sec,
+         seconds_by_model=by_model, launches=dict(zip(KERNELS, out["launches"])))
+    return out
+
+
 # ---------------------------------------------------------------- chain
 # the train steps the chain phase holds graphed against eager:
 # (name, overrides, batch, launches per step)
@@ -3498,12 +4178,18 @@ CHAIN_TIMED_STEPS = 16               # per turn of the a-b-b-a timing
 CHAIN_SAMPLE_BATCH = 64
 
 
-def same_bits(a, b, path: str = "") -> list[str]:
+def same_bits(a, b, path: str = "", nan_equal: bool = False) -> list[str]:
     """The places where two nested state dicts differ (tensors bit for
-    bit, on the CPU); empty when they are equal."""
+    bit, on the CPU); empty when they are equal.  ``nan_equal``: a NaN
+    equals a NaN in the same place (the metrics of a branch that did not
+    run); else any NaN differs."""
     import torch
     if isinstance(a, torch.Tensor):
         a, b = a.detach().cpu(), b.detach().cpu()
+        if nan_equal and a.shape == b.shape and a.dtype == b.dtype and a.dtype.is_floating_point:
+            nan = a.isnan()
+            ok = torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+            return [] if ok else [path]
         ok = a.shape == b.shape and a.dtype == b.dtype and torch.equal(
             a.view(torch.uint8) if a.dtype.is_floating_point and a.element_size() == 1 else a,
             b.view(torch.uint8) if b.dtype.is_floating_point and b.element_size() == 1 else b)
@@ -3513,11 +4199,12 @@ def same_bits(a, b, path: str = "") -> list[str]:
     if isinstance(a, dict):
         if set(a) != set(b):
             return [f"{path}: keys"]
-        return [d for k in a for d in same_bits(a[k], b[k], f"{path}/{k}")]
+        return [d for k in a for d in same_bits(a[k], b[k], f"{path}/{k}", nan_equal)]
     if isinstance(a, (list, tuple)):
         if len(a) != len(b):
             return [f"{path}: length"]
-        return [d for i, (x, y) in enumerate(zip(a, b)) for d in same_bits(x, y, f"{path}/{i}")]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in same_bits(x, y, f"{path}/{i}", nan_equal)]
     return [] if a == b else [f"{path}: {a!r} != {b!r}"]
 
 
@@ -3810,7 +4497,7 @@ ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
          "fused_block": lambda: phase_fused_block(), "chain": lambda: phase_chain(),
          "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit(),
          "families": lambda: phase_families(), "likelihood": lambda: phase_likelihood(),
-         "vae": lambda: phase_vae()}
+         "vae": lambda: phase_vae(), "gan": lambda: phase_gan()}
 
 
 def main(argv=None) -> int:
@@ -3900,6 +4587,10 @@ def main(argv=None) -> int:
     vae = phase_vae()
     check_path("vae", vae["launches"])
     path_launches["vae"] = vae["launches"]
+    reset_counts()                      # the adversarial zoo
+    gan = phase_gan()
+    check_path("gan", gan["launches"])
+    path_launches["gan"] = gan["launches"]
     chain = phase_chain()               # graphed against eager
 
     def by_path(i: int) -> dict:
@@ -4045,6 +4736,10 @@ def main(argv=None) -> int:
          vae_train_images_per_s={k: v["images_per_s"] for k, v in vae["train"].items()},
          vae_sampling_images_per_s={k: v["sample"]["images_per_s"]
                                     for k, v in vae["train"].items()},
+         gan_train_ms_per_step={k: v["ms_per_step"] for k, v in gan["train"].items()},
+         gan_train_images_per_s={k: v["images_per_s"] for k, v in gan["train"].items()},
+         gan_sampling_images_per_s={k: v["sample"]["images_per_s"]
+                                    for k, v in gan["train"].items()},
          made_update_ms=lik["train"]["made"]["update"]["update_ms"],
          made_update_bound_ms=lik["train"]["made"]["update"]["update_bound_ms"],
          seconds=time.perf_counter() - T_START)

@@ -23,7 +23,8 @@ ODE; consistency: multistep, also as ``--sampler multistep``; progressive
 distillation: the student's DDIM on its own grid, or ``--sampler ddim``
 at ``student_steps``; ``experiment=vqvae/*``: decoded random codes;
 ``experiment=tar/*``: the KV-cached decode; ``experiment=realnvp/*``: one
-inverse pass of the flow), and writes a grid image.  MADE and PixelCNN have
+inverse pass of the flow; the VAEs and the adversarial zoo: the decoder or
+generator on N(0, I) latents of ``latent_dim``), and writes a grid image.  MADE and PixelCNN have
 no sampler here (``igm_tpu``'s CLI fails on them with a KeyError from
 ``BaseModel.sample``): the port exits with a message; their sample grids come
 from validation.  A
@@ -37,7 +38,8 @@ results.  ``--ckpt`` restores the
 whole train state from the newest of the port's checkpoints in DIR: every
 module (for latent DDPM the denoiser, the first stage, the codebook and the
 latent scale) and the EMA shadow the samplers use.  ``--weights`` takes the
-model's network alone (the denoiser; TAR's ``net``; RealNVP's ``flow``): a
+model's network alone (the denoiser; TAR's ``net``; RealNVP's ``flow``; the
+zoo's generator, ``netG`` or ``decoder``): a
 ``torch.save``d state_dict or an ``.npz`` of that network's ``igm_tpu`` param leaves keyed by
 their ``/``-joined path (converted through ``igm_tpu_torch.interop``; flow
 matching's network is its ``velocity``).  Without either the weights are a seeded random
@@ -130,8 +132,8 @@ def sample_main(argv=None) -> torch.Tensor:
                               "every module from the newest")
     weights.add_argument("--weights", default=None,
                          help="the network's weights (the denoiser; TAR's net; RealNVP's "
-                              "flow): a torch state_dict file, or an .npz of igm_tpu "
-                              "param leaves by '/'-joined path")
+                              "flow; the zoo's generator): a torch state_dict file, or an "
+                              ".npz of igm_tpu param leaves by '/'-joined path")
     parser.add_argument("--n", type=int, default=64)
     parser.add_argument("--out", default="samples.png")
     parser.add_argument("--seed", type=int, default=0)

@@ -23,7 +23,9 @@ from the host.  :class:`StepGraph` captures a step into one
 - the kernel wrappers count launches in Python (``ops/*.py``
   ``launches``), which runs once at capture and not at a replay: the
   capture's count is taken back, and added again at every replay, so the
-  counters go on meaning kernels launched.
+  counters go on meaning kernels launched;
+- the cycle collector does not run during a capture: a graph destroyed
+  while another is being captured invalidates that capture.
 
 The callable must read and write device state only through tensors that
 outlive the graph (parameters, optimizer state, buffers): a replay
@@ -35,6 +37,7 @@ to the eager step.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
@@ -100,11 +103,18 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
+        # a graph dropped earlier may sit in a reference cycle (its callable
+        # holds its model): the cycle collector destroys it whenever it
+        # runs, and a graph destroyed inside this capture invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with self.capture_context(), torch.cuda.graph(graph,
                                                           capture_error_mode="thread_local"):
                 self.outputs = self.fn(*self.inputs)
         finally:
+            if collecting:
+                gc.enable()
             # nothing ran at capture: its launches are counted at each replay
             for c, n in zip(counters, before):
                 self.deltas[c] = c.launches - n

@@ -28,8 +28,16 @@ bfloat16 parameter's update with the counter-hash stochastic rounding of
 given as a device tensor.  ``Adam.clip_norm`` chains optax's
 ``clip_by_global_norm`` ahead of the update.
 
-Not ported yet (they wait for the GAN slice): ``rmsprop``,
-``grouped_adam`` and ``clip_params``.
+The adversarial zoo's helpers: :func:`rmsprop` (:class:`RMSprop`, optax's
+formula with eps inside the square root, capturable on the card),
+:func:`grouped_adam` (one Adam over param groups, a learning rate a
+module: InfoGAN's) and :func:`clip_params` (WGAN's in-place clamp).
+
+A scheduled learning rate follows the count of its own optimizer's
+updates, as optax keeps the count in each optimizer's state: the train
+state counts each optimizer's updates (``TrainState.counts``), and a model
+may update one optimizer twice a step (AAE) or on some steps only (AGE,
+the GANs).
 """
 from __future__ import annotations
 
@@ -220,7 +228,26 @@ def _env_dtype(name: str, default: Optional[torch.dtype]) -> Optional[torch.dtyp
 
 
 @dataclasses.dataclass(frozen=True)
-class Adam:
+class Spec:
+    """What :class:`OptimizerSet` names: a learning rate (a float or a
+    schedule of the update count) and the optimizer it creates."""
+    lr: Union[float, Schedule]
+
+    def create(self, params: Sequence[torch.Tensor]) -> torch.optim.Optimizer:
+        raise NotImplementedError
+
+    def create_groups(self, groups: Sequence[Tuple[str, Sequence[torch.Tensor]]]
+                      ) -> torch.optim.Optimizer:
+        """``groups``: (module name, its parameters), in the optimizer's
+        order; one optimizer over all of them."""
+        return self.create([p for _, ps in groups for p in ps])
+
+    def lr_at(self, count: int) -> float:
+        return float(self.lr(count) if callable(self.lr) else self.lr)
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam(Spec):
     """``optax.adam``: eps = 1e-8 added to sqrt of the bias-corrected second
     moment, the placement ``torch.optim.Adam`` also uses, which runs it
     where the moments and parameters are float32; :class:`CastAdam` runs it
@@ -251,8 +278,110 @@ class Adam:
                                     capturable=True)
         return torch.optim.Adam(params, lr=lr, betas=(self.b1, self.b2), eps=self.eps)
 
-    def lr_at(self, count: int) -> float:
-        return float(self.lr(count) if callable(self.lr) else self.lr)
+
+@dataclasses.dataclass(frozen=True)
+class GroupedAdam(Adam):
+    """``igm_tpu``'s ``grouped_adam`` (``optax.multi_transform`` of one
+    ``adam`` a module): one Adam whose param groups are the modules, each
+    with its own constant learning rate (``lrs``, by module name)."""
+    lrs: Tuple[Tuple[str, float], ...] = ()
+
+    def create_groups(self, groups: Sequence[Tuple[str, Sequence[torch.Tensor]]]
+                      ) -> torch.optim.Optimizer:
+        """A param group a module."""
+        lrs = dict(self.lrs)
+        params = [p for _, ps in groups for p in ps]
+        device = params[0].device if params else torch.device("cpu")
+        cuda = device.type == "cuda"
+        param_groups = [{"params": list(ps),
+                         "lr": torch.tensor(lrs[m], device=device) if cuda else lrs[m]}
+                        for m, ps in groups]
+        return torch.optim.Adam(param_groups, lr=self.lr_at(0), betas=(self.b1, self.b2),
+                                eps=self.eps, capturable=cuda)
+
+
+def grouped_adam(lr_by_module: Dict[str, float], b1: float, b2: float) -> GroupedAdam:
+    """``igm_tpu``'s ``grouped_adam`` (``core/optim.py:252-264``): per-module
+    learning rates in one optimizer (InfoGAN's ``g``: ``lrG`` for netG and
+    ``lrQ`` for netQ)."""
+    lrs = tuple((m, float(lr)) for m, lr in lr_by_module.items())
+    return GroupedAdam(lrs[0][1], float(b1), float(b2), lrs=lrs)
+
+
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay=alpha, eps)`` with optax's default
+    ``eps_in_sqrt``: ``nu = (1 - alpha) g**2 + alpha nu`` from ``nu = 0``,
+    then ``p - lr * g * rsqrt(nu + eps)``.  Not ``torch.optim.RMSprop``,
+    which divides by ``sqrt(nu) + eps``: the two differ wherever ``nu`` is
+    near ``eps``, as on WGAN's first steps.  ``lr`` may be a device tensor
+    and the state (``step``, ``square_avg``) lives on the parameter's
+    device, so the step captures into a CUDA graph."""
+
+    def __init__(self, params, lr, alpha: float = 0.99, eps: float = 1e-8,
+                 capturable: bool = False):
+        super().__init__(params, dict(lr=lr, alpha=float(alpha), eps=float(eps),
+                                      capturable=capturable))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("RMSprop takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["square_avg"] = torch.zeros_like(p)
+            alpha, eps, lr = group["alpha"], group["eps"], group["lr"]
+            grads = [p.grad for p in params]
+            nus = [self.state[p]["square_avg"] for p in params]
+            torch._foreach_add_([self.state[p]["step"] for p in params], 1.0)
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - alpha)
+            torch._foreach_mul_(nus, alpha)
+            torch._foreach_add_(nus, sq)
+            scale = torch._foreach_add(nus, eps)
+            torch._foreach_rsqrt_(scale)
+            torch._foreach_mul_(scale, grads)
+            torch._foreach_mul_(scale, lr)
+            torch._foreach_sub_(params, scale)
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSpropSpec(Spec):
+    """The spec :func:`rmsprop` returns (the counterpart of the optax
+    transform): a constant learning rate or a schedule of the update
+    count, as :class:`Adam`'s; no gradient clipping."""
+    alpha: float = 0.99
+    eps: float = 1e-8
+    clip_norm: Optional[float] = None
+
+    def create(self, params: Sequence[torch.Tensor]) -> RMSprop:
+        params = list(params)
+        device = params[0].device if params else torch.device("cpu")
+        cuda = device.type == "cuda"
+        lr = torch.tensor(self.lr_at(0), device=device) if cuda else self.lr_at(0)
+        return RMSprop(params, lr=lr, alpha=self.alpha, eps=self.eps, capturable=cuda)
+
+
+def rmsprop(lr: Union[float, Schedule], alpha: float = 0.99) -> RMSpropSpec:
+    """``igm_tpu``'s ``rmsprop`` (``core/optim.py:167-169``):
+    ``optax.rmsprop(lr, decay=alpha, eps=1e-8)``."""
+    return RMSpropSpec(lr, float(alpha), 1e-8)
+
+
+@torch.no_grad()
+def clip_params(module: nn.Module, limit: float) -> None:
+    """WGAN's weight clipping (``igm_tpu``'s ``clip_params``,
+    ``core/optim.py:172-175``): every parameter of ``module`` clamped to
+    [-limit, limit], in place."""
+    params = list(module.parameters())
+    torch._foreach_clamp_min_(params, -float(limit))
+    torch._foreach_clamp_max_(params, float(limit))
 
 
 def adam(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
@@ -270,13 +399,13 @@ class OptimizerSet:
     """Named optimizers over disjoint subsets of a model's modules."""
 
     def __init__(self):
-        self._opts: Dict[str, Tuple[Adam, Tuple[str, ...]]] = {}
+        self._opts: Dict[str, Tuple[Spec, Tuple[str, ...]]] = {}
         # inside a capture: the device vectors of scheduled learning rates,
         # one slot per update of each optimizer, taken in order
         self._slots: Dict[str, torch.Tensor] = {}
         self._taken: Dict[str, int] = {}
 
-    def add(self, name: str, tx: Adam, module_names: Iterable[str]) -> "OptimizerSet":
+    def add(self, name: str, tx: Spec, module_names: Iterable[str]) -> "OptimizerSet":
         self._opts[name] = (tx, tuple(module_names))
         return self
 
@@ -286,12 +415,12 @@ class OptimizerSet:
     def modules_of(self, name: str) -> Tuple[str, ...]:
         return self._opts[name][1]
 
-    def tx(self, name: str) -> Adam:
+    def tx(self, name: str) -> Spec:
         return self._opts[name][0]
 
     def init(self, modules: nn.ModuleDict) -> Dict[str, torch.optim.Optimizer]:
         """One optimizer per name, over the parameters of its modules."""
-        return {name: tx.create([p for m in mods for p in modules[m].parameters()])
+        return {name: tx.create_groups([(m, list(modules[m].parameters())) for m in mods])
                 for name, (tx, mods) in self._opts.items()}
 
     def scheduled(self) -> List[str]:
@@ -322,7 +451,8 @@ class OptimizerSet:
         params = _params(opt)
         loss, aux = loss_fn()
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        self._apply(opt_name, opt, params, grads, state.step, sr_seeds)
+        self._apply(opt_name, opt, params, grads, state.counts.get(opt_name, 0), sr_seeds)
+        state.counts[opt_name] = state.counts.get(opt_name, 0) + 1
         return state, loss.detach(), aux
 
     def apply_grads(self, state: TrainState, opt_name: str,
@@ -334,14 +464,15 @@ class OptimizerSet:
         if len(grads) != len(params):
             raise ValueError(f"{opt_name}: {len(grads)} gradients for "
                              f"{len(params)} parameters")
-        self._apply(opt_name, opt, params, grads, state.step)
+        self._apply(opt_name, opt, params, grads, state.counts.get(opt_name, 0))
+        state.counts[opt_name] = state.counts.get(opt_name, 0) + 1
         return state
 
     def _apply(self, opt_name: str, opt: torch.optim.Optimizer,
                params: List[torch.Tensor], grads, count: Optional[int] = None,
                sr_seeds: Optional[torch.Tensor] = None) -> None:
-        """One update; ``count`` is the updates already applied: the train
-        state's step (every model here updates each optimizer once a step),
+        """One update; ``count`` is the updates this optimizer has already
+        applied: the train state's count of them (``TrainState.counts``),
         or, where it is not given, the optimizer's own step count, read back
         from its state (a host sync on the card)."""
         tx = self.tx(opt_name)

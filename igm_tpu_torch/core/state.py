@@ -5,6 +5,10 @@ through a jitted step; here the parameters stay in the model's modules and
 are updated in place, and the state holds the rest:
 
 - ``step``: the global step counter (on the host);
+- ``counts``: per optimizer name, the updates it has applied (on the
+  host), the count its learning-rate schedule follows, as optax counts in
+  each optimizer's own state: a model may update an optimizer on some
+  steps only (the GANs' alternating phases) or twice a step (AAE);
 - ``opt_states``: per optimizer name, the ``torch.optim`` optimizer over
   that optimizer's modules; under ``"ema"`` (models with an EMA shadow) a
   dict of the shadow's tensors by parameter name, as ``igm_tpu`` carries
@@ -19,7 +23,8 @@ modules' parameters included.  Loading writes into the existing tensors
 where it can (parameters, buffers, the EMA shadow, optimizer state of the
 same layout), so captured graphs stay valid; where an optimizer's state is
 built anew (a fresh state, or another layout) the graphs are dropped, to be
-captured again on the new tensors.  ``snapshot`` is a copy of
+captured again on the new tensors.  ``counts`` is not saved: loading reads
+it back from each optimizer's own step count.  ``snapshot`` is a copy of
 ``state_dict`` that a later ``load_state_dict`` returns to.
 """
 from __future__ import annotations
@@ -83,6 +88,16 @@ def load_optimizer_state(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> b
     return in_place
 
 
+def update_count(opt: torch.optim.Optimizer) -> int:
+    """The updates ``opt`` has applied: its state's ``step`` (every
+    parameter has the same), 0 before the first."""
+    for p in _params(opt):
+        st = opt.state.get(p)
+        if st and "step" in st:
+            return int(st["step"])
+    return 0
+
+
 def _clone(obj: Any) -> Any:
     if isinstance(obj, torch.Tensor):
         return obj.detach().clone()
@@ -99,6 +114,7 @@ class TrainState:
     opt_states: Dict[str, Any]
     generator: torch.Generator
     step: int = 0
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     graphs: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False,
                                                compare=False)
 
@@ -135,3 +151,5 @@ class TrainState:
                         current[key].copy_(tensor)
         self.generator.set_state(saved["generator"])
         self.step = int(saved["step"])
+        self.counts = {name: update_count(opt) for name, opt in self.opt_states.items()
+                       if isinstance(opt, torch.optim.Optimizer)}

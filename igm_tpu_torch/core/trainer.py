@@ -66,7 +66,8 @@ H100_BF16_DENSE_FLOPS = 989e12
 # 700.00 W, torch 2.11 (chip_smoke.py, phase chain, run dispatch)
 DISPATCH_S = 51.9e-6
 # executions of the K = 1 step that ``auto`` runs: one eager (and captured),
-# then AUTO_TIMED replays timed
+# then AUTO_TIMED replays timed (each of them once a step of the model's
+# phase_period)
 AUTO_TIMED = 3
 
 
@@ -79,10 +80,27 @@ def _bmm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
     return 2 * b * m * b_shape[-1] * k
 
 
+class _NoModules:
+    """A ``FlopCounterMode`` module tracker that tracks no module: the
+    trainer reads the global total alone, and the tracker's backward hooks
+    refuse a gradient taken with respect to a leaf that a module takes as
+    its input (``torch.autograd.grad``: WGAN-GP's gradient penalty)."""
+    parents = {"Global"}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *args):
+        return None
+
+
 def step_flop_counter():
-    """``FlopCounterMode`` as the trainer counts a step's FLOPs."""
+    """``FlopCounterMode`` as the trainer counts a step's FLOPs: the total
+    over the step, no breakdown by module."""
     from torch.utils.flop_counter import FlopCounterMode
-    return FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flops})
+    counter = FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flops})
+    counter.mod_tracker = _NoModules()
+    return counter
 
 
 def _np(x):
@@ -295,24 +313,28 @@ class Trainer:
                                   steps_per_epoch: int) -> int:
         """Time the K = 1 execution (on the card the captured step: one
         eager execution that is captured, then ``AUTO_TIMED`` replays
-        timed) on the first training batch, then restore the state as it
-        was: parameters, buffers, optimizer state, EMA shadow, generator
-        and step.  So ``auto`` never perturbs the trajectory.  A failure
+        timed; for a model whose branch alternates, one of each per step of
+        its ``phase_period``, the mean over whole periods) on the first
+        training batch, then restore the state as it was: parameters,
+        buffers, optimizer state, EMA shadow, generator, step and update
+        counts.  So ``auto`` never perturbs the trajectory.  A failure
         raises."""
         probe = next(iter(epoch_batches(train_arrays, batch_size, shuffle=False,
                                         limit=1)), None)
         if probe is None:
             return 1
         chunk = tuple(torch.from_numpy(a[None]).to(model.device) for a in probe)
+        period = model.phase_period
         saved = state.snapshot()
         try:
-            model.train_step_n(state, chunk)
-            self._sync(model.device)
-            t0 = time.perf_counter()
-            for _ in range(AUTO_TIMED):
+            for _ in range(period):          # each phase's graph: eager, then captured
                 model.train_step_n(state, chunk)
             self._sync(model.device)
-            t_step = (time.perf_counter() - t0) / AUTO_TIMED
+            t0 = time.perf_counter()
+            for _ in range(AUTO_TIMED * period):
+                model.train_step_n(state, chunk)
+            self._sync(model.device)
+            t_step = (time.perf_counter() - t0) / (AUTO_TIMED * period)
         finally:
             state.load_state_dict(saved)
         k = self.resolve_chain_k(t_step, steps_per_epoch)

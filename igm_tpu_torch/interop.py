@@ -55,6 +55,10 @@ onto buffers (:func:`flax_mutables_to_torch`).  Layouts:
   ``scale`` and ``bias`` carry over as they are.  Their ``batch_stats``
   collection (``encoder/batch_stats/Norm_1/BatchNorm_0/{mean,var}``) maps
   onto the ``mean`` and ``var`` buffers (:func:`flax_mutables_to_torch`).
+  The adversarial zoo's trees map by the same rules: BiGAN's
+  ``discriminator/MLPEncoder_0/...``, ``Encoder_0/...`` (its sub-networks
+  under Flax's automatic names, which the port's ``Discriminator`` takes),
+  InfoGAN's heads ``netD/Dense_0/Dense_0/kernel`` and ``netQ/Dense_1/...``.
 """
 from __future__ import annotations
 

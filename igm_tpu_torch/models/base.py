@@ -41,14 +41,20 @@ K steps in one ``lax.scan``): K train steps on ``[k, ...]`` batches, the
 metrics the per-key nan-mean over the chunk.  On a CUDA device with
 ``use_graphs`` (the default) one execution is one CUDA graph launch: the K
 steps are captured together into one graph (``core.graphs.StepGraph``),
-one per chunk length and batch layout, kept in ``state.graphs``.  The
-first execution of a signature runs eagerly and is then captured; later
-ones replay it.  A scheduled learning rate is written for the K steps into
-a device vector before each launch (one ``fill_`` a value).  On the CPU, or with ``graph=False``
-or ``use_graphs = False``, it runs the K steps eagerly.  A model's
-``train_step`` must therefore make every draw from ``state.generator``,
-touch device state only in place, and change nothing on the host but
-``state.step``.
+one per chunk length, batch layout and starting phase (``state.step %
+phase_period``: a model whose step picks its branch by the step, as GAN's
+G/D alternation does, replays the branches of the steps it stands at),
+kept in ``state.graphs``.  The first execution of a signature runs
+eagerly and is then captured from the same step; later ones replay it.  A
+scheduled learning rate is written for each update of the chunk into a
+device vector before each launch (one ``fill_`` a value), from its
+optimizer's own update count (``state.counts``).  On the CPU, or with
+``graph=False`` or ``use_graphs = False``, it runs the K steps eagerly.  A
+model's ``train_step`` must therefore make every draw from
+``state.generator``, touch device state only in place, change nothing on
+the host but ``state.step`` and ``state.counts``, and take its branch from
+``state.step % phase_period`` alone; every branch returns the same metric
+keys (NaN for what it does not compute).
 """
 from __future__ import annotations
 
@@ -111,6 +117,16 @@ def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.T
 
 
 @dataclasses.dataclass
+class _ChunkGraph:
+    """A captured chunk of train steps: the graph, each scheduled
+    optimizer's learning-rate slots (one an update, filled before a
+    launch) and each optimizer's updates in the chunk."""
+    graph: Optional[StepGraph] = None
+    slots: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    updates: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class ValidationResult:
     others: Dict[str, Any] = dataclasses.field(default_factory=dict)
     real_image: Any = None
@@ -123,6 +139,9 @@ class ValidationResult:
 class BaseModel:
     #: the module ``--weights`` loads into (the sampling CLI)
     weights_module: str = "denoise"
+    #: the steps after which the branch a train step takes repeats (the
+    #: GANs' alternating phases); a chunk's graph is kept per starting phase
+    phase_period: int = 1
 
     def __init__(self, datamodule: Any, device: str | torch.device | None = None):
         self.width = int(datamodule["width"])
@@ -250,32 +269,55 @@ class BaseModel:
         """K train steps on ``batches``, a tuple of ``[k, B, ...]`` tensors
         on the model's device -> (state, the nan-mean of their metrics)."""
         k = len(batches[0])
-        if not (graph and self.use_graphs and self.device.type == "cuda"):
+        if not self._graphed(graph):
             return self._steps(state, batches)
-        key = ("train_step_n", k, tuple((tuple(b.shape), b.dtype) for b in batches))
-        if key not in state.graphs:
-            slots = {name: torch.empty(k, device=self.device)
-                     for name in self.optimizers.scheduled()}
-
-            @contextlib.contextmanager
-            def capture_context():
-                self.optimizers.capture_lr_slots(slots)
-                try:
-                    yield
-                finally:
-                    self.optimizers.capture_lr_slots({})
-
-            state.graphs[key] = (StepGraph(lambda *b: self._steps(state, b)[1],
-                                           (state.generator,), capture_context), slots)
-        step_graph, slots = state.graphs[key]
-        for name, slot in slots.items():     # one fill a value: no host memory to wait for
-            tx = self.optimizers.tx(name)
-            for i in range(k):
-                slot[i].fill_(tx.lr_at(state.step + i))
-        first = state.step
-        metrics = step_graph(*batches)
+        phase = state.step % self.phase_period
+        key = ("train_step_n", k, phase, tuple((tuple(b.shape), b.dtype) for b in batches))
+        chunk = state.graphs.get(key)
+        if chunk is None:
+            chunk = state.graphs[key] = self._capture_chunk(state)
+        else:
+            for name, slot in chunk.slots.items():   # one fill a value: no host memory to wait for
+                tx, count = self.optimizers.tx(name), state.counts.get(name, 0)
+                for i in range(len(slot)):
+                    slot[i].fill_(tx.lr_at(count + i))
+        first, counts = state.step, dict(state.counts)
+        metrics = chunk.graph(*batches)
         state.step = first + k
+        state.counts = {name: counts.get(name, 0) + n for name, n in chunk.updates.items()}
         return state, metrics
+
+    def _graphed(self, graph: bool) -> bool:
+        """Whether ``train_step_n`` runs its chunk as a CUDA graph."""
+        return graph and self.use_graphs and self.device.type == "cuda"
+
+    def _capture_chunk(self, state: TrainState) -> "_ChunkGraph":
+        """The graph of a chunk that starts at ``state.step``, to be run
+        once: its warm-up and its capture both run the chunk's steps from
+        that step and from the optimizers' counts there, so the capture
+        records the branches the warm-up took.  The warm-up's updates of
+        each optimizer size the learning-rate slots of the capture."""
+        chunk = _ChunkGraph()
+        first, counts = state.step, dict(state.counts)
+
+        def run(*batches):
+            state.step, state.counts = first, dict(counts)
+            return self._steps(state, batches)[1]
+
+        @contextlib.contextmanager
+        def capture_context():
+            chunk.updates = {name: state.counts.get(name, 0) - counts.get(name, 0)
+                             for name in self.optimizers.names()}
+            chunk.slots = {name: torch.empty(chunk.updates[name], device=self.device)
+                           for name in self.optimizers.scheduled() if chunk.updates[name]}
+            self.optimizers.capture_lr_slots(chunk.slots)
+            try:
+                yield
+            finally:
+                self.optimizers.capture_lr_slots({})
+
+        chunk.graph = StepGraph(run, (state.generator,), capture_context)
+        return chunk
 
     # ------------------------------------------- the samplers' network call
     @property

@@ -225,8 +225,8 @@ def _canon_norm(norm_type) -> Optional[str]:
 
 def _fast_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     """Flax's ``_compute_stats`` (``use_fast_variance``): the mean and
-    E[x^2] - E[x]^2 clipped at 0, in float32."""
-    x = x.float()
+    E[x^2] - E[x]^2 clipped at 0, in float32 (float64 for a float64 input)."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = x.mean(dim=dims)
     var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
     return mean, var

@@ -792,6 +792,95 @@ def test_graphed_tar_train_step_equals_eager(gen, numerics):
     assert da.dropout_attention_dq.launches - before == 1 + 3 + 3 + 3
 
 
+def test_graphs_capture_after_graphs_were_dropped(gen, numerics, monkeypatch):
+    """WGAN-GP's step (the gradient penalty's double backward) captured at
+    full width, batch 16: its six starting phases at K = 1, then, with
+    those graphs dropped into reference cycles (a graph's callable holds
+    its model), two chunks at K = 4, with the cycle collector run inside
+    each capture wherever it is enabled (as it runs whenever its
+    allocation count comes due).  A graph the collector destroys inside
+    another capture invalidates it: StepGraph keeps the collector off
+    while it captures (without that, this capture fails)."""
+    import gc
+    import weakref
+
+    class CollectingGraph(torch.cuda.graph):
+        def __enter__(self):
+            super().__enter__()
+            if gc.isenabled():
+                gc.collect()
+
+    model = _model("experiment=wgan_gp/celeba")
+    state = model.init_state(0)
+    imgs = torch.randint(0, 256, (8, 4, 16, 64, 64, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    labels = torch.zeros(8, 4, 16, dtype=torch.int32, device="cuda")
+    for i in range(6):
+        state, _ = model.train_step_n(state, (imgs[i, :1], labels[i, :1]))
+    assert len(state.graphs) == 6
+    dropped = [weakref.ref(g) for g in state.graphs.values()]
+    gc.collect()           # what lives now sits in the oldest generation
+    state.graphs.clear()
+    assert all(r() is not None for r in dropped)        # held by their cycles
+    monkeypatch.setattr(torch.cuda, "graph", CollectingGraph)
+    for i in range(6, 8):
+        state, metrics = model.train_step_n(state, (imgs[i], labels[i]))
+    torch.cuda.synchronize()
+    assert len(state.graphs) == 2 and state.step == 14
+    assert all(torch.isfinite(v) or torch.isnan(v) for v in metrics.values())
+    gc.collect()
+    assert all(r() is None for r in dropped)
+
+
+# the zoo's alternating steps: (experiment, overrides at a small width)
+ZOO_GRAPHS = [
+    ("vanilla_gan/cifar10", ("networks.encoder.ndf=16", "networks.decoder.ngf=16")),
+    ("wgan/mnist_mlp", ("networks.encoder.hidden_dims=[64]",
+                        "networks.decoder.hidden_dims=[64]")),
+    # each optimizer's halving rate on its own count, through the graph's slots
+    ("age/mnist", ("networks.encoder.ndf=8", "networks.decoder.ngf=8",
+                   "model.drop_lr_epoch=1")),
+]
+
+
+@pytest.mark.parametrize("start", [0, 1], ids=["from0", "midperiod"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("experiment,overrides", ZOO_GRAPHS, ids=[e for e, _ in ZOO_GRAPHS])
+def test_graphed_zoo_fit_equals_eager(gen, numerics, experiment, overrides, k, start):
+    """GAN (G/D alternating, period 2), WGAN (period n_critic + 1 = 6) and
+    AGE (period 3, scheduled rates): two periods and more of train_step_n
+    at K = 1 and 4 (not a multiple of 6 or 3), from step 0 and from step 1,
+    graphed (each starting phase's first chunk eager, then captured; the
+    rest replayed) against eager, bit for bit: the parameters, buffers,
+    optimizer states, generator, step, update counts and each chunk's
+    metrics with their NaNs; one graph per starting phase that occurs."""
+    runs, imgs = [], None
+    for graphed in (False, True):
+        model = _model(f"experiment={experiment}", *overrides)
+        model.steps_per_epoch = 1
+        state = model.init_state(0)
+        period = model.phase_period
+        n_exec = -(-2 * period // k) + 1
+        if imgs is None:
+            imgs = torch.randint(0, 256, (n_exec + 1, k, 8, model.height, model.width,
+                                          model.channels), generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+            labels = torch.zeros(n_exec + 1, k, 8, dtype=torch.int32, device="cuda")
+        if start:
+            state, _ = model.train_step(state, (imgs[-1, 0], labels[-1, 0]))
+        metrics = []
+        for i in range(n_exec):
+            state, m = model.train_step_n(state, (imgs[i], labels[i]), graph=graphed)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        runs.append((state.snapshot(), metrics, dict(state.counts), len(state.graphs)))
+    (want, want_m, want_c, _), (got, got_m, got_c, n_graphs) = runs
+    assert not _differ(got, want)
+    assert not _differ(got_m, want_m)
+    assert got_c == want_c and got["step"] == start + n_exec * k
+    assert n_graphs == len({(start + i * k) % period for i in range(n_exec)})
+
+
 def test_graphed_denoiser_equals_eager_and_follows_ema(gen, numerics):
     """DDIM through the denoiser's graph equals the eager chain, with the
     EMA shadow's weights; after train steps move the shadow in place, the

@@ -10,6 +10,7 @@ from torch import nn
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
@@ -356,3 +357,99 @@ def test_clip_by_global_norm_then_adam_matches_optax(max_norm):
         for k in params:
             np.testing.assert_allclose(tparams[k].numpy(), np.asarray(jparams[k]),
                                        atol=ATOL, rtol=RTOL)
+
+
+def test_rmsprop_matches_optax_over_five_steps():
+    """optax.rmsprop (eps inside the square root) against the port's
+    RMSprop over five steps, gradients from 1e-5 to 1: where g**2 is near
+    eps, sqrt(nu + eps) and torch.optim.RMSprop's sqrt(nu) + eps differ."""
+    from igm_tpu_torch.core.optim import RMSprop, rmsprop
+    rng = np.random.default_rng(3)
+    params = {"w": rng.normal(size=(6, 5)).astype(np.float32)}
+    tx = jax_optim.rmsprop(5e-5, 0.99)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    opt_state = tx.init(jparams)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    spec = rmsprop(5e-5, 0.99)
+    opt = spec.create(list(tparams.values()))
+    assert isinstance(opt, RMSprop)
+    opts = OptimizerSet().add("opt", spec, ["m"])
+    plain = torch.from_numpy(params["w"].copy())
+    ref = torch.optim.RMSprop([plain], lr=5e-5, alpha=0.99, eps=1e-8)
+    scales = np.logspace(-5, 0, 30).reshape(6, 5).astype(np.float32)
+    for step in range(5):
+        g = (rng.normal(size=(6, 5)) * scales).astype(np.float32)
+        updates, opt_state = tx.update({"w": jnp.asarray(g)}, opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opts._apply("opt", opt, list(tparams.values()), [torch.from_numpy(g)])
+        plain.grad = torch.from_numpy(g)
+        ref.step()
+        np.testing.assert_allclose(tparams["w"].numpy(), np.asarray(jparams["w"]),
+                                   atol=1e-9, rtol=1e-6)
+        if step == 0:      # the first step: lr g / sqrt(0.01 g^2 + eps) against ~10 lr
+            small = scales < 1e-4
+            moved = np.abs(tparams["w"].numpy() - params["w"])[small]
+            torch_moved = np.abs(plain.detach().numpy() - params["w"])[small]
+            assert np.all(moved < 0.5 * torch_moved)
+    assert float(opt.state[tparams["w"]]["step"]) == 5
+
+
+def test_grouped_adam_and_clip_params_match_igm_tpu():
+    """grouped_adam: one Adam, a learning rate a module (optax's
+    multi_transform of one adam a module); clip_params: WGAN's clamp."""
+    from igm_tpu_torch.core.optim import clip_params, grouped_adam
+    mods = _two_modules()
+    for p in mods.parameters():
+        torch.nn.init.normal_(p, std=0.05, generator=torch.Generator().manual_seed(1))
+    jparams = {m: {k: jnp.asarray(p.detach().numpy()) for k, p in mods[m].named_parameters()}
+               for m in ("g", "d")}
+    tx = jax_optim.grouped_adam({"g": 1e-3, "d": 5e-4}, 0.5, 0.999)
+    opt_state = tx.init(jparams)
+    opts = OptimizerSet().add("opt", grouped_adam({"g": 1e-3, "d": 5e-4}, 0.5, 0.999),
+                              ["g", "d"])
+    state = _state(mods, opts)
+    opt = state.opt_states["opt"]
+    assert [g["lr"] for g in opt.param_groups] == [1e-3, 5e-4]
+    rng = np.random.default_rng(4)
+    for step in range(3):
+        grads = {m: {k: rng.normal(size=p.shape).astype(np.float32)
+                     for k, p in mods[m].named_parameters()} for m in ("g", "d")}
+        updates, opt_state = tx.update(jax.tree_util.tree_map(jnp.asarray, grads), opt_state,
+                                       jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        state = opts.apply_grads(state, "opt", [torch.from_numpy(grads[m][k])
+                                                for m in ("g", "d")
+                                                for k, _ in mods[m].named_parameters()])
+        for m in ("g", "d"):
+            for k, p in mods[m].named_parameters():
+                np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[m][k]),
+                                           atol=ATOL, rtol=RTOL, err_msg=f"{m}.{k}")
+    assert state.counts == {"opt": 3}
+    clip_params(mods["d"], 0.01)
+    want = jax_optim.clip_params(jparams["d"], 0.01)
+    for k, p in mods["d"].named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), np.asarray(want[k]))
+    assert max(float(p.detach().abs().max()) for p in mods["g"].parameters()) > 0.01
+
+
+def test_scheduled_rates_follow_each_optimizers_own_count():
+    """Two optimizers with halving schedules (one update an epoch): ``a``
+    updates three times and ``b`` once in four steps; each rate follows its
+    own count (TrainState.counts), as each optax state counts its own
+    updates, and a restore reads the counts back from the optimizers."""
+    mods = _two_modules()
+    opts = (OptimizerSet().add("a", adam(halving_lr(1e-2, 1, 1)), ["g"])
+            .add("b", adam(halving_lr(1e-2, 1, 1)), ["d"]))
+    state = _state(mods, opts)
+    x = torch.randn(4, 3, generator=torch.Generator().manual_seed(0))
+    used = []
+    for step, name in enumerate(("a", "a", "b", "a")):
+        state, _, _ = opts.grad_step(state, name, lambda: (mods["d"](mods["g"](x)).sum(), {}))
+        used.append(state.opt_states[name].param_groups[0]["lr"])
+        state.step = step + 1
+    assert used == [1e-2, 5e-3, 1e-2, 2.5e-3]
+    assert state.counts == {"a": 3, "b": 1}
+    saved = state.snapshot()
+    state.counts = {}
+    state.load_state_dict(saved)
+    assert state.counts == {"a": 3, "b": 1}
