@@ -194,6 +194,20 @@ and prints no result line):
           the sampling CLI from its checkpoint; wgan/cifar10 resumed at
           step 4 (mid-period) ends where an uninterrupted run does, bit for
           bit.
+  serve   the serving, evaluation and sweep tools, counters zeroed just
+          before and read just after: experiment=ddpm/cifar10 at full width
+          (bf16, seeded weights through --weights) exported with --sampler
+          dpm --steps 20 --n 64 (python -m igm_tpu_torch.tools.export),
+          served in this process (tools/serve.py: the warm-up captures the
+          denoiser's graph), 20 sequential HTTP requests (exactly 25 and 6
+          launches a DPM forward each, 500 and 120 a request), /stats, 8
+          concurrent requests equal to the sequential ones, a PNG, 3 eager
+          requests (graphs off) equal to the graphed ones and timed; the
+          sampling CLI at each of the 20 seeds equal to its response bit for
+          bit; the --bench line (a server of its own, 20 requests); eval_fid
+          on 256 DDIM fakes with the random backend; a two-job joblib grid
+          multirun of a tiny vae/mnist_mlp whose workers (python -m
+          igm_tpu_torch.train) train on the card.
   chain   graphed against eager (igm_tpu_torch/core/graphs.py): the train
           steps of the flagship (batch 256, bf16), the VQ-VAE (128, f32),
           the latent DDPM (128), TAR (128, flash_attention=dropout) and the
@@ -763,6 +777,8 @@ PATH_KERNELS = {
     "vae": (),
     # the adversarial zoo launches no hand kernel: phase gan holds it to 0
     "gan": (),
+    # the flagship's DPM-20 artifact served over HTTP
+    "serve": ("group_norm_mish", "linear_attention"),
 }
 
 
@@ -4157,6 +4173,205 @@ def phase_gan() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- serve
+SERVE_OVERRIDES = ["experiment=ddpm/cifar10"]
+SERVE_SAMPLER = ("dpm", 20)          # DPM-Solver++ at 20 steps: one forward a step
+SERVE_N = 64
+SERVE_REQUESTS = 20
+SERVE_CONCURRENT = (0, 1, 0, 2, 1, 2, 0, 1)
+SERVE_EAGER = 3                      # eager requests timed beside the graphed ones
+SERVE_FID_FAKES = 256
+SERVE_SWEEP = ["experiment=vae/mnist_mlp", "networks.encoder.hidden_dims=[16]",
+               "networks.decoder.hidden_dims=[16]", "trainer.max_epochs=1",
+               "trainer.limit_train_batches=2", "trainer.limit_val_batches=1",
+               "datamodule.batch_size=16", "trainer.enable_checkpointing=False",
+               "trainer.steps_per_execution=1", "print_config=False", "logger=null"]
+
+
+def _http_sample(base: str, seed: int, fmt: str = "npy"):
+    import io
+    import urllib.request
+    import numpy as np
+    req = urllib.request.Request(f"{base}/sample",
+                                 data=json.dumps({"seed": seed, "format": fmt}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        check(r.status == 200, f"/sample seed {seed}: HTTP {r.status}")
+        body = r.read()
+    return body if fmt == "png" else np.load(io.BytesIO(body))
+
+
+def _http_json(base: str, route: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(f"{base}{route}", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def serve_http(art: Path) -> dict:
+    """The artifact served in this process: SERVE_REQUESTS sequential
+    requests (each launch-counted), /stats, the concurrent requests against
+    the sequential responses, a PNG, then SERVE_EAGER requests with the
+    graphs off (timed, equal to the graphed ones bit for bit)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from igm_tpu_torch.tools.serve import serve
+    t0 = time.perf_counter()
+    httpd = serve(str(art), "127.0.0.1", 0)              # loads, warms up, captures
+    warm_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    svc = httpd.service
+    try:
+        model = svc.model
+        dpm_forwards = len(model._dpm_timesteps(SERVE_SAMPLER[1],
+                                                 str(model.hparams.dpm_schedule)))
+        per_request = expected(group_norm_mish=25 * dpm_forwards,
+                               linear_attention=6 * dpm_forwards)
+        health = _http_json(base, "/healthz")
+        check(health["n"] == SERVE_N and health["out_shape"] == [[SERVE_N, 32, 32, 3]],
+              f"/healthz {health}")
+        responses, client_ms = {}, []
+        for seed in range(SERVE_REQUESTS):
+            before = counts()
+            t1 = time.perf_counter()
+            imgs = _http_sample(base, seed)
+            client_ms.append((time.perf_counter() - t1) * 1e3)
+            got = since(before)
+            check(got == per_request,
+                  f"request {seed} launched {dict(zip(KERNELS, got))}, expected "
+                  f"{dict(zip(KERNELS, per_request))}")
+            check(imgs.shape == (SERVE_N, 32, 32, 3) and bool(np.isfinite(imgs).all()),
+                  f"request {seed}: {imgs.shape} or non-finite")
+            responses[seed] = imgs
+        stats = _http_json(base, "/stats")
+        emit("serve", run="stats", **stats)
+        with ThreadPoolExecutor(max_workers=len(SERVE_CONCURRENT)) as pool:
+            together = list(pool.map(lambda s: _http_sample(base, s), SERVE_CONCURRENT))
+        for seed, got in zip(SERVE_CONCURRENT, together):
+            check(np.array_equal(got, responses[seed]),
+                  f"concurrent request at seed {seed} differs from the sequential one")
+        png = _http_sample(base, 0, fmt="png")
+        check(png[:8] == b"\x89PNG\r\n\x1a\n", "/sample png: not a PNG")
+        model.use_graphs = False                          # the same requests, eager
+        eager_ms = []
+        for seed in range(SERVE_EAGER):
+            t1 = time.perf_counter()
+            imgs = svc.sample(seed)
+            eager_ms.append((time.perf_counter() - t1) * 1e3)
+            check(np.array_equal(imgs, responses[seed]),
+                  f"eager request at seed {seed} differs from the graphed one")
+        model.use_graphs = True
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    graphed_ms = sorted(svc.latencies_ms[:SERVE_REQUESTS])
+    return dict(responses=responses, stats=stats, warm_s=warm_s,
+                dpm_forwards=dpm_forwards, per_request=dict(zip(KERNELS, per_request)),
+                client_ms=client_ms, graphed_ms=graphed_ms, eager_ms=eager_ms,
+                concurrent=len(SERVE_CONCURRENT), png_bytes=len(png))
+
+
+def phase_serve() -> dict:
+    """The serving path; the caller zeroes the counters before it: export,
+    serve over HTTP, the sampling CLI at each served seed, the bench line,
+    eval_fid and a joblib multirun."""
+    import numpy as np
+    import torch
+    from igm_tpu_torch.cli import sample_main, train_main
+    from igm_tpu_torch.config import compose, instantiate
+    from igm_tpu_torch.tools import eval_fid, export
+    from igm_tpu_torch.tools.serve import bench
+    t0 = time.perf_counter()
+    sec, out = {}, {}
+    sampler, steps = SERVE_SAMPLER
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = compose(REPO / "configs", [*SERVE_OVERRIDES, "print_config=False"])
+        model = instantiate(cfg.model, datamodule=cfg.datamodule, device="cuda")
+        check(model.compute_dtype == torch.bfloat16, "compute dtype is not bf16")
+        model.init_params(2026)                          # seeded weights
+        weights = tmp / "w.pt"
+        torch.save(model.modules[model.weights_module].state_dict(), weights)
+        del model
+        art = tmp / "ddpm_dpm20.pt"
+        t1 = time.perf_counter()
+        meta = export.export(SERVE_OVERRIDES, str(art), n=SERVE_N, sampler=sampler,
+                             steps=steps, weights=str(weights))
+        sec["export"] = time.perf_counter() - t1
+        out["artifact_mb"] = art.stat().st_size / 1e6
+        check(meta["out_shape"] == [[SERVE_N, 32, 32, 3]], f"export meta {meta}")
+
+        t1 = time.perf_counter()
+        http = serve_http(art)
+        sec["http"] = time.perf_counter() - t1
+        responses = http.pop("responses")
+        out["http"] = http
+        _release()
+
+        t1 = time.perf_counter()                         # each response is the CLI's batch
+        for seed, served in responses.items():
+            imgs = sample_main([*SERVE_OVERRIDES, "--weights", str(weights), "--n", str(SERVE_N),
+                                "--sampler", sampler, "--steps", str(steps), "--seed", str(seed),
+                                "--out", str(tmp / "cli.png")])
+            check(np.array_equal(imgs.float().cpu().numpy(), served),
+                  f"served seed {seed} differs from the sampling CLI's batch")
+            del imgs
+            _release()
+        sec["cli_equal"] = time.perf_counter() - t1
+        out["cli_equal"] = len(responses)
+
+        t1 = time.perf_counter()
+        out["bench"] = bench(str(art), SERVE_REQUESTS)
+        sec["bench"] = time.perf_counter() - t1
+        emit("serve", run="bench", **out["bench"])
+        _release()
+
+        t1 = time.perf_counter()
+        fid = eval_fid.main([*SERVE_OVERRIDES, "--weights", str(weights),
+                             "--n", str(SERVE_FID_FAKES), "--batch", str(SERVE_N),
+                             "--sampler", "ddim", "--stats-dir", str(tmp / "fid_stats"),
+                             f"datamodule.data_dir={tmp / 'data'}"])
+        sec["eval_fid"] = time.perf_counter() - t1
+        check(math.isfinite(fid["fid"]) and fid["backend"] == "random_torch"
+              and fid["n_fake"] == SERVE_FID_FAKES, f"eval_fid {fid}")
+        out["fid"] = fid
+        emit("serve", run="eval_fid", seconds=sec["eval_fid"], **fid)
+        _release()
+
+        t1 = time.perf_counter()                         # joblib workers on the card
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            train_main(["-m", "hydra/launcher=joblib", "hydra.launcher.n_jobs=2",
+                        "model.lr=1e-3,5e-4", "+optimized_metric=val_log/log_p_x_of_z",
+                        *SERVE_SWEEP, f"hydra.sweep.dir={tmp / 'sweep'}"])
+        finally:
+            os.chdir(cwd)
+        sec["multirun"] = time.perf_counter() - t1
+        values = [json.loads((tmp / "sweep" / str(i) / "optimized_metric.json").read_text())
+                  ["optimized_metric"] for i in range(2)]
+        check(all(math.isfinite(v) for v in values), f"multirun values {values}")
+        out["multirun"] = dict(jobs=2, values=values, seconds=sec["multirun"])
+        emit("serve", run="multirun", **out["multirun"])
+    out["launches"] = counts()
+    lat = http["graphed_ms"]
+    out["request"] = dict(graphed_p50_ms=float(np.percentile(lat, 50)),
+                          graphed_p95_ms=float(np.percentile(lat, 95)),
+                          eager_ms=http["eager_ms"],
+                          images_per_s=SERVE_N * len(lat) / (sum(lat) / 1e3),
+                          client_p50_ms=float(np.percentile(http["client_ms"], 50)))
+    emit("serve", run="path", seconds=time.perf_counter() - t0, seconds_by_part=sec,
+         export=meta, artifact_mb=out["artifact_mb"], warm_s=http["warm_s"],
+         dpm_forwards=http["dpm_forwards"], per_request=http["per_request"],
+         requests=SERVE_REQUESTS, concurrent=http["concurrent"], cli_equal=out["cli_equal"],
+         request=out["request"], launches=dict(zip(KERNELS, out["launches"])))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ---------------------------------------------------------------- chain
 # the train steps the chain phase holds graphed against eager:
 # (name, overrides, batch, launches per step)
@@ -4497,7 +4712,8 @@ ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
          "fused_block": lambda: phase_fused_block(), "chain": lambda: phase_chain(),
          "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit(),
          "families": lambda: phase_families(), "likelihood": lambda: phase_likelihood(),
-         "vae": lambda: phase_vae(), "gan": lambda: phase_gan()}
+         "vae": lambda: phase_vae(), "gan": lambda: phase_gan(),
+         "serve": lambda: phase_serve()}
 
 
 def main(argv=None) -> int:
@@ -4591,6 +4807,10 @@ def main(argv=None) -> int:
     gan = phase_gan()
     check_path("gan", gan["launches"])
     path_launches["gan"] = gan["launches"]
+    reset_counts()                      # export, HTTP serving, eval_fid, a multirun
+    srv = phase_serve()
+    check_path("serve", srv["launches"])
+    path_launches["serve"] = srv["launches"]
     chain = phase_chain()               # graphed against eager
 
     def by_path(i: int) -> dict:
@@ -4740,6 +4960,12 @@ def main(argv=None) -> int:
          gan_train_images_per_s={k: v["images_per_s"] for k, v in gan["train"].items()},
          gan_sampling_images_per_s={k: v["sample"]["images_per_s"]
                                     for k, v in gan["train"].items()},
+         serve_p50_ms=srv["http"]["stats"]["p50_ms"],
+         serve_p95_ms=srv["http"]["stats"]["p95_ms"],
+         serve_images_per_s=srv["http"]["stats"]["samples_per_sec"],
+         serve_http_requests_per_s=srv["bench"]["http_requests_per_sec"],
+         serve_eager_request_ms=srv["request"]["eager_ms"],
+         serve_phase_s=srv["seconds"],
          made_update_ms=lik["train"]["made"]["update"]["update_ms"],
          made_update_bound_ms=lik["train"]["made"]["update"]["update_bound_ms"],
          seconds=time.perf_counter() - T_START)

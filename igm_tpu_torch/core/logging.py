@@ -1,13 +1,17 @@
-"""TensorBoard logging and metric accumulation.
+"""TensorBoard and Weights & Biases logging, and metric accumulation.
 
 Own copy of ``igm_tpu/core/logging.py``'s ``TensorBoardLogger``,
-``NoOpLogger`` and ``MetricAccumulator``; tag names are the same
-(``train_loss/*``, ``perf/*``, ``images/*``).  tensorboardX is imported at
-the first write: a run without it fails there, it is never silently not
-logged.  Use ``logger=null`` (a ``NoOpLogger``) to log nothing.
+``WandbLogger``, ``NoOpLogger`` and ``MetricAccumulator``; tag names are
+the same (``train_loss/*``, ``perf/*``, ``images/*``).  tensorboardX is
+imported at the first write: a run without it fails there, it is never
+silently not logged.  ``WandbLogger`` (``logger=wandb``) is, as in
+``igm_tpu``, a loud no-op when wandb is not installed: it warns once at
+construction and logs nothing.  Use ``logger=null`` (a ``NoOpLogger``) to
+log nothing.
 """
 from __future__ import annotations
 
+import logging
 import os
 from typing import Dict
 
@@ -52,6 +56,54 @@ class TensorBoardLogger:
         if self._writer is not None:
             self._writer.flush()
             self._writer.close()
+
+
+class WandbLogger:
+    """Weights & Biases logger.  wandb is not a dependency: without it this
+    logger warns and logs nothing, so ``logger=wandb`` configs still run.
+    ``finalize`` calls ``wandb.finish()``, so a multirun's jobs do not log
+    into one run."""
+
+    def __init__(self, project: str = "image-generation-models",
+                 name: str = "", save_dir: str = "wandb/", **kwargs):
+        self._run = None
+        try:
+            import wandb
+        except ImportError:
+            logging.getLogger(__name__).warning(
+                "logger=wandb configured but wandb is not installed — "
+                "logging disabled (pip install wandb to enable)")
+            self._wandb = None
+            return
+        self._wandb = wandb
+        os.makedirs(save_dir, exist_ok=True)
+        self._run = wandb.init(project=project, name=name or None, dir=save_dir, **kwargs)
+
+    @property
+    def experiment(self):
+        return self._run
+
+    def log_scalar(self, tag: str, value: float, step: int) -> None:
+        if self._run is not None:
+            self._run.log({tag: float(value)}, step=step)
+
+    def log_scalars(self, metrics: Dict[str, float], step: int) -> None:
+        if self._run is not None:
+            clean = {t: float(v) for t, v in metrics.items()
+                     if v is not None and not (isinstance(v, float) and np.isnan(v))}
+            self._run.log(clean, step=step)
+
+    def log_image(self, tag: str, img_hwc: np.ndarray, step: int) -> None:
+        if self._run is not None:
+            self._run.log({tag: self._wandb.Image(np.asarray(img_hwc))}, step=step)
+
+    def log_hyperparams(self, params: Dict[str, object]) -> None:
+        if self._run is not None:
+            self._run.config.update(params, allow_val_change=True)
+
+    def finalize(self) -> None:
+        if self._wandb is not None and self._wandb.run is not None:
+            self._wandb.finish()
 
 
 class NoOpLogger(TensorBoardLogger):

@@ -94,6 +94,10 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
             dm = instantiate(cfg.datamodule)
             callbacks = [instantiate(c) for c in cfg.callbacks.values()]
         assert sum(p.numel() for p in model.modules.parameters()) > 0
+        import igm_tpu_torch.sweep  # noqa: F401
+        import igm_tpu_torch.tools.eval_fid, igm_tpu_torch.tools.export  # noqa: F401
+        import igm_tpu_torch.tools.serve  # noqa: F401
+        from igm_tpu_torch.core.logging import WandbLogger  # noqa: F401
         bad = [m for m in sys.modules
                if m.split(".")[0] in {FORBIDDEN!r} + ("sklearn", "matplotlib")]
         assert not bad, bad
@@ -180,3 +184,12 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
         sample_main(["experiment=ddpm/cifar10", "--n", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main(["experiment=ddpm/cifar10"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["-m", "experiment=vae/mnist_mlp", "model.lr=1e-3,5e-4"])
+    from igm_tpu_torch.tools import eval_fid, export, serve
+    for main, args in ((export.main, ["experiment=vae/mnist_mlp", "--n", "1"]),
+                       (export.main, ["--run", "sampler.pt"]),
+                       (serve.main, ["sampler.pt", "--bench", "1"]),
+                       (eval_fid.main, ["experiment=vae/mnist_mlp", "--weights", "w.pt"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(args)
