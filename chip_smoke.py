@@ -94,12 +94,12 @@ and prints no result line):
           (384 wide, 8 deep, 6 heads, batch 8, f32, TF32 off) on the card
           against the same weights on the CPU, the xla, flash and scan arms
           and an MoE DiT (8 experts every 2nd block, scatter); one f32
-          train step's loss and gradients of the DDPM-DiT, EDM and flow on
-          the DiT against the CPU; EDM's and flow's train steps on the
+          train step's loss and gradients (batch 2) of the DDPM-DiT, EDM and
+          flow on the DiT against the CPU; EDM's and flow's train steps on the
           flagship-width UNet (exactly 25 + 25 GroupNorm+Mish and 6 + 6
           linear attention); the train CLI on ddpm/cifar10_dit (DDIM
           validation), ddpm/cifar10_dit_v (DPM validation), edm/cifar10_dit
-          and flow/cifar10_dit (2 epochs of 3 steps, then a resume) and the
+          and flow/cifar10_dit (2 epochs of 3 steps; flow's then resumed) and the
           sampling CLI from their checkpoints (--sampler ddim, dpm, heun,
           the ODE); one block's attention core forward and backward at the
           train step's shapes, the xla arm and SDPA; the train step at
@@ -119,8 +119,8 @@ and prints no result line):
           the same draws; exact launches: 25 + 25 and 6 + 6 a score-SDE
           step, 50 + 25 and 12 + 6 a consistency step, 51 + 17 and 12 + 4 a
           distillation step, 25 and 6 (17 and 4 on MNIST) a sampler forward;
-          the train CLI (2 epochs of 3 steps, then a resume) on the three
-          experiments, distill/mnist from a ddpm/mnist teacher trained in the
+          the train CLI (2 epochs of 3 steps; distill's then resumed) on the
+          three experiments, distill/mnist from a ddpm/mnist teacher trained in the
           phase, and the sampling CLI from their checkpoints (the defaults,
           --sampler multistep, the student's --sampler ddim); each train step
           at batch 256 bf16 (distill 128) graphed against eager bit for bit
@@ -132,7 +132,7 @@ and prints no result line):
           pixelcnn/mnist, pixelcnn/cifar10, realnvp/mnist, realnvp/cifar10),
           counters zeroed just before and read just after (no hand kernel on
           these paths: every count exactly 0): at full width in f32 (TF32
-          off), batch 8, each train step's bpd and gradients on the card
+          off), batch 4, each train step's bpd and gradients on the card
           against the CPU; MADE's bf16 path (bf16 products, the output kernel
           and the Adam moments stored in bf16, counter-hash stochastic
           rounding): its bpd within 5e-3 of f32 on the same weights, 20 SR
@@ -144,9 +144,10 @@ and prints no result line):
           time and idle share); MADE's optimizer update alone against its
           bound and its eager step by group; the samplers at batch 64 (MADE's
           784-step chain and PixelCNN's row sampler eager, RealNVP's inverse
-          pass graphed against eager, bit for bit); the train CLI on each
-          experiment (3 steps with the sample grid, a resume for 1) and the
-          sampling CLI on realnvp/cifar10.
+          pass graphed against eager, bit for bit); the train CLI on one
+          experiment of each model (made/mnist, pixelcnn/cifar10,
+          realnvp/cifar10: 3 steps with the sample grid; realnvp's then a
+          resume for 1) and the sampling CLI on realnvp/cifar10.
   vae     VAE, beta-VAE, cVAE and FactorVAE (vae/celeba, beta_vae/dsprites,
           factor_vae/dsprites, cvae/mnist, vae/mnist_mlp, composed from
           their experiment files at full width), counters zeroed just before
@@ -175,7 +176,7 @@ and prints no result line):
           configs; one experiment of each of the ten models and speed_gan
           (vanilla_gan/cifar10, lsgan/mlp_mnist, ggan/celeba, wgan/cifar10,
           wgan_gp/celeba, infogan/mnist, bigan/cifar10, vaegan/celeba,
-          aae/mnist, age/celeba), batch 8, f32, one train step of each
+          aae/mnist, age/celeba), batch 4, f32, one train step of each
           branch on the card against float64 on the CPU from the same
           weights, batch and injected draws (float64 on the card's side of
           any ReLU kink the two disagree on): the metrics (NaN where the
@@ -203,11 +204,25 @@ and prints no result line):
           launches a DPM forward each, 500 and 120 a request), /stats, 8
           concurrent requests equal to the sequential ones, a PNG, 3 eager
           requests (graphs off) equal to the graphed ones and timed; the
-          sampling CLI at each of the 20 seeds equal to its response bit for
+          sampling CLI at the first 5 seeds equal to its response bit for
           bit; the --bench line (a server of its own, 20 requests); eval_fid
           on 256 DDIM fakes with the random backend; a two-job joblib grid
           multirun of a tiny vae/mnist_mlp whose workers (python -m
           igm_tpu_torch.train) train on the card.
+  scores  the digit scorer's path: the packaged real digits made from the
+          port's scans file (no scikit-learn); the digit classifier trained
+          on the card (30 epochs, seed 0; validation accuracy > 0.90, its
+          logits on the 360 validation scans against the same weights on
+          the CPU); score_gallery over benchmarks/real_runs (read only: the
+          port's scores beside the archived digit_scores.json, a report); a
+          ddpm/cond_mnist fit on the real digits (2 epochs of 3 steps) with
+          GifCallback writing video.gif; score_conditional --per-class 8 from
+          its checkpoints, counters zeroed just before and read just after:
+          exactly 17,000 GroupNorm+Mish and 4,000 linear attention (1000
+          guided forwards at a doubled batch of 160); the host batcher built
+          from csrc/batcher.cpp: a CIFAR-shaped epoch through epoch_batches
+          equal to numpy's rows, and one batch's gather (256 CIFAR rows, 128
+          MNIST rows) against numpy's, a-b-b-a.
   chain   graphed against eager (igm_tpu_torch/core/graphs.py): the train
           steps of the flagship (batch 256, bf16), the VQ-VAE (128, f32),
           the latent DDPM (128), TAR (128, flash_attention=dropout) and the
@@ -252,6 +267,9 @@ GroupNorm+Mish also its totals at batch 64 (``sampling_batch``: the
 flagship's 25 calls, the latent UNet's 17), its backward and the linear
 attention their latent UNet totals at batch 128, nearest_codebook its time
 at each shape.
+
+Each phase's seconds follow it on a line of their own ({"phase": "seconds",
+...}) and are kept in the summary line (``phase_seconds``).
 
 Every path names the kernels it must launch (PATH_KERNELS); each of those
 must have launched at least once in that path's run.  Then the total time,
@@ -779,6 +797,8 @@ PATH_KERNELS = {
     "gan": (),
     # the flagship's DPM-20 artifact served over HTTP
     "serve": ("group_norm_mish", "linear_attention"),
+    # score_conditional's guided ancestral chain on ddpm/cond_mnist
+    "scores": ("group_norm_mish", "linear_attention"),
 }
 
 
@@ -1875,7 +1895,10 @@ DIT_MOE_OVERRIDES = [f"+model.{k}={v}" for k, v in DIT_MOE.items()]
 DIT_EXPERIMENTS = ("ddpm/cifar10_dit", "ddpm/cifar10_dit_v", "edm/cifar10_dit",
                    "flow/cifar10_dit")
 DIT_REF_BATCH = 8                    # card against CPU: forwards
-DIT_STEP_BATCH = 4                   # card against CPU: train steps
+DIT_STEP_BATCH = 2                   # card against CPU: train steps
+# the DiT experiment whose CLI fit is resumed (the others' resumes drive the
+# same trainer path, which phases train, latent, tar and families resume too)
+DIT_CLI_RESUME = "flow/cifar10_dit"
 # float32 with TF32 off on both sides: the same GEMMs and softmaxes summed in
 # another order over 8 blocks (a few ulps a layer); held to 1e-4 of the
 # output's largest value, the loss to 1e-4 of itself, and the gradients to
@@ -1964,7 +1987,7 @@ def dit_reference() -> dict:
 
 def dit_train_reference() -> dict:
     """One f32 train step's loss and gradients (the DDPM-DiT, EDM and flow
-    losses on the full-width DiT, batch 4, TF32 off) on the card against the
+    losses on the full-width DiT, batch 2, TF32 off) on the card against the
     same weights and draws on the CPU; no hand-kernel launch."""
     import torch
     from igm_tpu_torch.config import compose, instantiate
@@ -2043,7 +2066,7 @@ def dit_unet_launches() -> tuple:
 
 def dit_cli() -> tuple:
     """The train CLI on the four DiT experiments (2 epochs of 3 steps with
-    validation samples, then a resume for one more epoch), then the
+    validation samples; DIT_CLI_RESUME then resumed for one more epoch), then the
     sampling CLI from their checkpoints: --sampler ddim, dpm, heun, and flow
     matching's default ODE.  Returns the launches (all 0)."""
     from PIL import Image
@@ -2055,11 +2078,12 @@ def dit_cli() -> tuple:
         for experiment in DIT_EXPERIMENTS:
             run = tmp / "logs" / "runs" / experiment
             extra = ["model.val_sampler=ddim"] if experiment == "ddpm/cifar10_dit" else []
-            for name, overrides, ckpts in (
-                    ("fit", ["trainer.max_epochs=2"], ["step_3.pt", "step_6.pt"]),
-                    ("resume", ["trainer.max_epochs=3",
-                                f"trainer.resume={run / 'checkpoints'}"],
-                     ["step_6.pt", "step_9.pt"])):
+            stages = [("fit", ["trainer.max_epochs=2"], ["step_3.pt", "step_6.pt"])]
+            if experiment == DIT_CLI_RESUME:
+                stages.append(("resume", ["trainer.max_epochs=3",
+                                          f"trainer.resume={run / 'checkpoints'}"],
+                               ["step_6.pt", "step_9.pt"]))
+            for name, overrides, ckpts in stages:
                 t0 = time.perf_counter()
                 loss = _train_cli(tmp, *extra, *overrides, experiment=experiment)
                 got = sorted(p.name for p in (run / "checkpoints").iterdir())
@@ -2459,9 +2483,10 @@ def family_reference(name: str, experiment: str, forwards: int, gen) -> tuple[di
 
 
 def families_cli() -> tuple[dict, tuple]:
-    """The train CLI (2 epochs of 3 steps with validation samples, then a
-    resume for one more epoch) on score_sde/cifar10, consistency/cifar10 and
-    distill/mnist, the last from the checkpoints of a ddpm/mnist teacher
+    """The train CLI (2 epochs of 3 steps with validation samples) on
+    score_sde/cifar10, consistency/cifar10 and distill/mnist (then resumed
+    for one more epoch: the frozen teacher rides the checkpoint), the last
+    from the checkpoints of a ddpm/mnist teacher
     trained here (1 epoch); then the sampling CLI from their checkpoints:
     the default samplers, consistency's --sampler multistep and the
     student's --sampler ddim.  Backward launches are exact (the steps and
@@ -2480,11 +2505,12 @@ def families_cli() -> tuple[dict, tuple]:
         for name, experiment, forwards in FAMILIES:
             ckpts = tmp / "logs" / "runs" / experiment / "checkpoints"
             extra = [f"model.teacher_ckpt={teacher}"] if name == "distill" else []
-            runs += [(experiment, "fit", extra, ["trainer.max_epochs=2"], 6, forwards,
-                      ["step_3.pt", "step_6.pt"]),
-                     (experiment, "resume", extra, ["trainer.max_epochs=3",
-                                                    f"trainer.resume={ckpts}"],
-                      3, forwards, ["step_6.pt", "step_9.pt"])]
+            runs.append((experiment, "fit", extra, ["trainer.max_epochs=2"], 6, forwards,
+                         ["step_3.pt", "step_6.pt"]))
+            if name == "distill":
+                runs.append((experiment, "resume", extra, ["trainer.max_epochs=3",
+                                                           f"trainer.resume={ckpts}"],
+                             3, forwards, ["step_6.pt", "step_9.pt"]))
         for experiment, stage, extra, overrides, steps, forwards, want_ckpts in runs:
             run = tmp / "logs" / "runs" / experiment
             cfg = compose(REPO / "configs", [f"experiment={experiment}", *extra,
@@ -2699,7 +2725,11 @@ def phase_families() -> dict:
 LIKELIHOOD = (("made", "made/mnist"), ("pixelcnn_mnist", "pixelcnn/mnist"),
               ("pixelcnn_cifar10", "pixelcnn/cifar10"), ("realnvp_mnist", "realnvp/mnist"),
               ("realnvp_cifar10", "realnvp/cifar10"))
-LIK_REF_BATCH = 8                    # card against CPU, f32
+LIK_REF_BATCH = 4                    # card against CPU, f32
+# the train CLI: one experiment of each model class (pixelcnn/mnist and
+# realnvp/mnist run the same model code on the MNIST datamodule, which
+# made/mnist drives); realnvp/cifar10 also resumed, then sampled
+LIK_CLI = ("made/mnist", "pixelcnn/cifar10", "realnvp/cifar10")
 LIK_BATCH = 128                      # the datamodules' batch
 LIK_SR_STEPS = 20
 LIK_TIMED_STEPS = 5                  # per turn of the a-b-b-a timing
@@ -2746,7 +2776,7 @@ def _lik_loss(model, imgs, labels, u):
 
 
 def lik_reference(name: str, experiment: str, gen) -> dict:
-    """At full width in f32 (TF32 off), batch 8: the loss and every gradient
+    """At full width in f32 (TF32 off), batch 4: the loss and every gradient
     of the train step on the card against the same weights, batch and
     dequantisation noise on the CPU (RealNVP's weights moved by 0.02 N(0, 1):
     its Conv_2 starts at 0)."""
@@ -3000,22 +3030,24 @@ def lik_sampler(name: str, model) -> dict:
 
 
 def lik_cli() -> dict:
-    """Through the port's CLI, each experiment: 3 steps (an epoch of one
-    step each, validation with the sample grid after the last), then a resume
-    for 1 more step without validation; realnvp/cifar10 then samples
-    through igm_tpu_torch.cli from its checkpoints."""
+    """Through the port's CLI, each experiment of LIK_CLI: 3 steps (an epoch
+    of one step each, validation with the sample grid after the last);
+    realnvp/cifar10 then a resume for 1 more step without validation, and
+    samples through igm_tpu_torch.cli from its checkpoints."""
     from PIL import Image
     from igm_tpu_torch.cli import sample_main
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for name, experiment in LIKELIHOOD:
+        for experiment in LIK_CLI:
             ckpts = tmp / "logs" / "runs" / experiment / "checkpoints"
-            for stage, overrides, want in (
-                    ("fit", ["trainer.max_epochs=3", "trainer.check_val_every_n_epoch=3"],
-                     ["step_2.pt", "step_3.pt"]),
-                    ("resume", ["trainer.max_epochs=4", "trainer.limit_val_batches=0",
-                                f"trainer.resume={ckpts}"], ["step_3.pt", "step_4.pt"])):
+            stages = [("fit", ["trainer.max_epochs=3", "trainer.check_val_every_n_epoch=3"],
+                       ["step_2.pt", "step_3.pt"])]
+            if experiment == "realnvp/cifar10":
+                stages.append(("resume", ["trainer.max_epochs=4", "trainer.limit_val_batches=0",
+                                          f"trainer.resume={ckpts}"],
+                               ["step_3.pt", "step_4.pt"]))
+            for stage, overrides, want in stages:
                 t0 = time.perf_counter()
                 bpd = _train_cli(tmp, "trainer.limit_train_batches=1", *overrides,
                                  experiment=experiment, metric="train_bpd")
@@ -3538,7 +3570,7 @@ GAN_EXPERIMENTS = (("vanilla_gan", "vanilla_gan/cifar10", ()),
                    ("speed_gan", "vanilla_gan/cifar10", ("model=speed_gan",)))
 GAN_ZOO = ("vanilla_gan", "lsgan", "ggan", "wgan", "wgan_gp", "infogan", "bigan", "vaegan",
            "aae", "age")
-GAN_REF_BATCH = 8                    # card against CPU
+GAN_REF_BATCH = 4                    # card against CPU (float64)
 GAN_SAMPLE_BATCH = 64
 GAN_TIMED_STEPS = 6                  # per turn of the a-b-b-a timing (whole periods)
 # the steps profiled for their busy time and idle share (PERF.md's rows)
@@ -3792,7 +3824,7 @@ def _update_bound(model, opt_name: str) -> float:
 
 
 def gan_reference(name: str, experiment: str, extra, gen, device: str = "cuda") -> dict:
-    """At full width, batch 8, from the same weights, batch and injected
+    """At full width, batch 4, from the same weights, batch and injected
     draws: one train step of each branch on the card (f32, TF32 off) and
     on the CPU in float64.  The float64 run's updates come first; the
     card's run is put onto the float64 parameters after each of its
@@ -4178,6 +4210,7 @@ SERVE_OVERRIDES = ["experiment=ddpm/cifar10"]
 SERVE_SAMPLER = ("dpm", 20)          # DPM-Solver++ at 20 steps: one forward a step
 SERVE_N = 64
 SERVE_REQUESTS = 20
+SERVE_CLI_SEEDS = 5                  # served seeds the sampling CLI redraws, bit for bit
 SERVE_CONCURRENT = (0, 1, 0, 2, 1, 2, 0, 1)
 SERVE_EAGER = 3                      # eager requests timed beside the graphed ones
 SERVE_FID_FAKES = 256
@@ -4276,7 +4309,7 @@ def serve_http(art: Path) -> dict:
 
 def phase_serve() -> dict:
     """The serving path; the caller zeroes the counters before it: export,
-    serve over HTTP, the sampling CLI at each served seed, the bench line,
+    serve over HTTP, the sampling CLI at SERVE_CLI_SEEDS served seeds, the bench line,
     eval_fid and a joblib multirun."""
     import numpy as np
     import torch
@@ -4311,8 +4344,8 @@ def phase_serve() -> dict:
         out["http"] = http
         _release()
 
-        t1 = time.perf_counter()                         # each response is the CLI's batch
-        for seed, served in responses.items():
+        t1 = time.perf_counter()                         # a response is the CLI's batch
+        for seed, served in list(responses.items())[:SERVE_CLI_SEEDS]:
             imgs = sample_main([*SERVE_OVERRIDES, "--weights", str(weights), "--n", str(SERVE_N),
                                 "--sampler", sampler, "--steps", str(steps), "--seed", str(seed),
                                 "--out", str(tmp / "cli.png")])
@@ -4321,7 +4354,7 @@ def phase_serve() -> dict:
             del imgs
             _release()
         sec["cli_equal"] = time.perf_counter() - t1
-        out["cli_equal"] = len(responses)
+        out["cli_equal"] = min(len(responses), SERVE_CLI_SEEDS)
 
         t1 = time.perf_counter()
         out["bench"] = bench(str(art), SERVE_REQUESTS)
@@ -4369,6 +4402,177 @@ def phase_serve() -> dict:
          requests=SERVE_REQUESTS, concurrent=http["concurrent"], cli_equal=out["cli_equal"],
          request=out["request"], launches=dict(zip(KERNELS, out["launches"])))
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------- scores
+SCORES_EXPERIMENT = "ddpm/cond_mnist"
+SCORES_PER_CLASS = 8
+# score_conditional at 8 a class: 80 images, the guided batch doubled to
+# 160 inside each of the T = 1000 forwards of the ancestral chain; the
+# cond_mnist UNet (dim_mults [2, 4]) launches 17 GroupNorm+Mish and 4 linear
+# attention a forward
+SCORES_LAUNCHES = dict(group_norm_mish=17 * 1000, linear_attention=4 * 1000)
+GATHER_SHAPES = (("cifar_batch_256", (50_000, 32, 32, 3), 256),
+                 ("mnist_batch_128", (60_000, 28, 28, 1), 128))
+GATHER_CALLS = 200                   # index sets a turn of the a-b-b-a timing
+
+
+def _gather_us(src, batch: int) -> dict:
+    """One batch's gather (native and numpy) in microseconds a call, on the
+    host's clock, a-b-b-a over GATHER_CALLS random index sets."""
+    import numpy as np
+    from igm_tpu_torch.data import native
+    rng = np.random.default_rng(3)
+    sets = [rng.permutation(len(src))[:batch] for _ in range(GATHER_CALLS)]
+    turns = {"native": [], "numpy": []}
+    for mode in ("native", "numpy", "numpy", "native"):
+        t0 = time.perf_counter()
+        for idx in sets:
+            if mode == "native":
+                native.gather_rows(src, idx)
+            else:
+                np.ascontiguousarray(src[idx])
+        turns[mode].append(1e6 * (time.perf_counter() - t0) / GATHER_CALLS)
+    return turns
+
+
+def scores_batcher() -> dict:
+    """The host batcher built from csrc/batcher.cpp: a CIFAR-shaped epoch of
+    batches of 256 through epoch_batches equal to numpy's rows, and one
+    batch's gather against numpy's (a 256-row CIFAR batch, a 128-row MNIST
+    batch)."""
+    import numpy as np
+    from igm_tpu_torch.data import native
+    from igm_tpu_torch.data.loader import epoch_batches
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    out = dict(library=lib.name, build_seconds=build_s, threads=min(os.cpu_count() or 1,
+                                                                     native.MAX_THREADS))
+    for name, shape, batch in GATHER_SHAPES:
+        x = rng.integers(0, 256, shape, np.uint8)
+        if name.startswith("cifar"):
+            y = rng.integers(0, 10, shape[0]).astype(np.int32)
+            order = np.random.default_rng(1).permutation(shape[0])
+            n = 0
+            for i, (a, b) in enumerate(epoch_batches([x, y], batch, np.random.default_rng(1),
+                                                     shuffle=True)):
+                idx = order[i * batch:(i + 1) * batch]
+                check(np.array_equal(a, x[idx]) and np.array_equal(b, y[idx]),
+                      f"epoch_batches batch {i} differs from numpy's rows")
+                n += 1
+            check(n == shape[0] // batch, f"epoch of {n} batches")
+            out["epoch_batches"] = n
+        us = _gather_us(x, batch)
+        out[name] = dict(batch_bytes=batch * x[0].nbytes, native_us=us["native"],
+                         numpy_us=us["numpy"],
+                         native_over_numpy=min(us["native"]) / min(us["numpy"]))
+    emit("scores", run="batcher", **out)
+    return out
+
+
+def phase_scores() -> dict:
+    """The scorer's path: the packaged digits made without scikit-learn, the
+    digit classifier trained on the card (against the same weights on the
+    CPU), score_gallery over the archived runs (read only), a
+    ddpm/cond_mnist fit on the real digits with GifCallback, score_conditional
+    from its checkpoints (counters zeroed just before and read just after:
+    exactly SCORES_LAUNCHES), and the host batcher."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from igm_tpu_torch.data import packaged
+    from igm_tpu_torch.tools import score_conditional, score_gallery
+    from igm_tpu_torch.utils import digit_score
+    t0 = time.perf_counter()
+    sec, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t1 = time.perf_counter()
+        packaged.ensure(tmp / "data")
+        sec["packaged"] = time.perf_counter() - t1
+        check("sklearn" not in sys.modules, "packaging the digits imported scikit-learn")
+
+        t1 = time.perf_counter()                         # 30 epochs, seed 0, on the card
+        params = digit_score.load_or_train(tmp / "data", 28, 28, "cuda")
+        torch.cuda.synchronize()
+        sec["classifier"] = time.perf_counter() - t1
+        acc = digit_score.validation_accuracy(params, 28, 28)
+        card = digit_score.validation_logits(params, 28, 28).cpu()
+        cpu = digit_score.validation_logits({k: v.cpu() for k, v in params.items()}, 28, 28)
+        err = (card - cpu).abs().max().item()
+        atol, rtol = tolerance(torch.float32)
+        check(acc > 0.90, f"digit classifier on the card: validation accuracy {acc}")
+        check(err <= atol + rtol * cpu.abs().max().item(),
+              f"classifier logits card vs CPU: {err}")
+        out["classifier"] = dict(epochs=30, seed=0, val_accuracy=acc, seconds=sec["classifier"],
+                                 logits_max_abs_err=err, max_logit=cpu.abs().max().item())
+        emit("scores", run="classifier", **out["classifier"])
+
+        runs = REPO / "benchmarks" / "real_runs"
+        before = {p: (p.stat().st_mtime_ns, p.stat().st_size) for p in runs.rglob("*")}
+        t1 = time.perf_counter()
+        table = score_gallery.main(["--runs-dir", str(runs), "--out-dir",
+                                    str(tmp / "digit_scores"), "--cache-dir", str(tmp / "data")])
+        sec["gallery"] = time.perf_counter() - t1
+        check({p: (p.stat().st_mtime_ns, p.stat().st_size) for p in runs.rglob("*")} == before,
+              "score_gallery wrote into the runs directory")
+        keys = ("mean_confidence", "coverage", "inception_score")
+        gallery = {}
+        for family, got in table.items():
+            check(all(math.isfinite(got[k]) for k in keys), f"gallery {family}: {got}")
+            archived = runs / family / "digit_scores.json"
+            old = json.loads(archived.read_text()) if archived.exists() else {}
+            gallery[family] = {"grid": got["grid"], "port": {k: got[k] for k in keys},
+                               "archived": {k: old.get(k) for k in keys}}
+        check(len(gallery) >= 10, f"gallery scored {len(gallery)} families")
+        out["gallery"] = gallery
+        emit("scores", run="gallery", seconds=sec["gallery"], families=len(gallery),
+             table=gallery)
+
+        t1 = time.perf_counter()                         # the fit: 2 epochs of 3 steps
+        loss = _train_cli(tmp, "trainer.max_epochs=2",
+                          "+callbacks.gif._target_=igm_tpu.callbacks.util.GifCallback",
+                          experiment=SCORES_EXPERIMENT)
+        sec["fit"] = time.perf_counter() - t1
+        run = tmp / "logs" / "runs" / SCORES_EXPERIMENT
+        with Image.open(run / "video.gif") as gif:
+            frames = gif.n_frames
+        check(loss is not None and math.isfinite(loss) and frames == 2,
+              f"{SCORES_EXPERIMENT} fit: loss {loss}, {frames} gif frames")
+        out["fit"] = dict(seconds=sec["fit"], loss=loss, gif_frames=frames)
+        emit("scores", run="fit", **out["fit"])
+        _release()
+
+        reset_counts()                                   # the scores path
+        t1 = time.perf_counter()
+        scores = score_conditional.main([f"experiment={SCORES_EXPERIMENT}", "--ckpt",
+                                         str(run / "checkpoints"), "--per-class",
+                                         str(SCORES_PER_CLASS), "--cache-dir", str(tmp / "data"),
+                                         "--out", str(tmp / "scores.json")])
+        torch.cuda.synchronize()
+        sec["score_conditional"] = time.perf_counter() - t1
+        out["launches"] = counts()
+        check(out["launches"] == expected(**SCORES_LAUNCHES),
+              f"score_conditional launched {dict(zip(KERNELS, out['launches']))}, "
+              f"expected {SCORES_LAUNCHES}")
+        check(json.loads((tmp / "scores.json").read_text()) == json.loads(json.dumps(scores))
+              and scores["step"] == 6 and scores["per_class_n"] == SCORES_PER_CLASS
+              and all(math.isfinite(v) for v in (scores["conditional_accuracy"],
+                                                  scores["mean_confidence"])),
+              f"score_conditional {scores}")
+        out["score_conditional"] = dict(seconds=sec["score_conditional"], **scores)
+        emit("scores", run="score_conditional", seconds=sec["score_conditional"],
+             launches=dict(zip(KERNELS, out["launches"])), result=scores)
+        _release()
+    t1 = time.perf_counter()
+    out["batcher"] = scores_batcher()
+    sec["batcher"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    emit("scores", run="path", seconds=out["seconds"], seconds_by_part=sec,
+         launches=dict(zip(KERNELS, out["launches"])))
     return out
 
 
@@ -4702,6 +4906,16 @@ def totals(rows: list[dict], key: str):
 
 
 T_START = time.perf_counter()
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, phase):
+    """Run a phase; print and keep its seconds."""
+    t0 = time.perf_counter()
+    out = phase()
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    emit("seconds", name=name, seconds=PHASE_SECONDS[name])
+    return out
 
 
 # phases that run alone with --only (a rehearsal of a changed phase)
@@ -4713,7 +4927,7 @@ ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
          "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit(),
          "families": lambda: phase_families(), "likelihood": lambda: phase_likelihood(),
          "vae": lambda: phase_vae(), "gan": lambda: phase_gan(),
-         "serve": lambda: phase_serve()}
+         "serve": lambda: phase_serve(), "scores": lambda: phase_scores()}
 
 
 def main(argv=None) -> int:
@@ -4733,13 +4947,14 @@ def main(argv=None) -> int:
     # these) and cuDNN's deterministic algorithms, as the CLIs run
     from igm_tpu_torch.utils.platform import set_numerics
     set_numerics()
-    usage = phase_build()
+    usage = timed("build", phase_build)
     if args.only:
         for name in args.only:
             reset_counts()
-            ALONE[name]()
+            timed(name, ALONE[name])
         emit("only", phases=args.only, seconds=time.perf_counter() - T_START)
         return 0
+    t_parity = time.perf_counter()
     gn_rows = (parity_gn(torch.bfloat16) + parity_gn(torch.float32)
                + parity_gn(torch.bfloat16, SAMPLE_BATCH)
                + parity_gn(torch.bfloat16, SAMPLE_BATCH, LATENT_GN_SHAPES, "latent"))
@@ -4755,29 +4970,31 @@ def main(argv=None) -> int:
     vq_rows = parity_vq()
     da_rows = parity_dropout_attention(torch.bfloat16) + parity_dropout_attention(torch.float32)
     fb_rows = parity_fused_block()
-    phase_unet()
-    sl = phase_slice()                  # the sampling path: zeroes, then reads
+    PHASE_SECONDS["parity"] = time.perf_counter() - t_parity
+    emit("seconds", name="parity", seconds=PHASE_SECONDS["parity"])
+    timed("unet", phase_unet)
+    sl = timed("slice", phase_slice)    # the sampling path: zeroes, then reads
     check_path("sampling", sl["launches"])
-    phase_train_unet()
+    timed("train_unet", phase_train_unet)
     reset_counts()                      # the training path
-    tr = phase_train()
+    tr = timed("train", phase_train)
     tr_launches = counts()
     check_path("training", tr_launches)
     emit("train", run="path", launches=dict(zip(KERNELS, tr_launches)))
-    phase_first_stage()
+    timed("first_stage", phase_first_stage)
     reset_counts()                      # the VQ-VAE -> latent-DDPM path
-    lat = phase_latent()
+    lat = timed("latent", phase_latent)
     lat_launches = counts()
     check_path("latent", lat_launches)
     emit("latent", run="path", launches=dict(zip(KERNELS, lat_launches)))
-    phase_tar_reference()
+    timed("tar_reference", phase_tar_reference)
     reset_counts()                      # the TAR path
-    tar = phase_tar()
+    tar = timed("tar", phase_tar)
     tar_launches = counts()
     check_path("tar", tar_launches)
     emit("tar", run="path", launches=dict(zip(KERNELS, tar_launches)))
     reset_counts()                      # the fused-block bench tool
-    fb = phase_fused_block()
+    fb = timed("fused_block", phase_fused_block)
     fb_launches = counts()
     check_path("fused_block", fb_launches)
     path_launches = {"sampling": sl["launches"], "training": tr_launches,
@@ -4788,30 +5005,33 @@ def main(argv=None) -> int:
     elsewhere = {p: n[fb_index] for p, n in path_launches.items() if p != "fused_block"}
     check(not any(elsewhere.values()), f"fused_block_fwd launched on {elsewhere}")
     reset_counts()                      # the DiT, EDM and flow matching paths
-    dit = phase_dit()
+    dit = timed("dit", phase_dit)
     check_path("edm_flow_unet", dit["launches"]["edm_flow_unet"])
     path_launches.update(dit["launches"])
     reset_counts()                      # the score-SDE, consistency and distillation paths
-    fam = phase_families()
+    fam = timed("families", phase_families)
     check_path("families", fam["launches"])
     path_launches["families"] = fam["launches"]
     reset_counts()                      # MADE, PixelCNN and RealNVP
-    lik = phase_likelihood()
+    lik = timed("likelihood", phase_likelihood)
     check_path("likelihood", lik["launches"])
     path_launches["likelihood"] = lik["launches"]
     reset_counts()                      # VAE, beta-VAE, cVAE and FactorVAE
-    vae = phase_vae()
+    vae = timed("vae", phase_vae)
     check_path("vae", vae["launches"])
     path_launches["vae"] = vae["launches"]
     reset_counts()                      # the adversarial zoo
-    gan = phase_gan()
+    gan = timed("gan", phase_gan)
     check_path("gan", gan["launches"])
     path_launches["gan"] = gan["launches"]
     reset_counts()                      # export, HTTP serving, eval_fid, a multirun
-    srv = phase_serve()
+    srv = timed("serve", phase_serve)
     check_path("serve", srv["launches"])
     path_launches["serve"] = srv["launches"]
-    chain = phase_chain()               # graphed against eager
+    sc = timed("scores", phase_scores)  # zeroes before score_conditional, reads after
+    check_path("scores", sc["launches"])
+    path_launches["scores"] = sc["launches"]
+    chain = timed("chain", phase_chain)  # graphed against eager
 
     def by_path(i: int) -> dict:
         return {path: n[i] for path, n in path_launches.items()}
@@ -4968,7 +5188,13 @@ def main(argv=None) -> int:
          serve_phase_s=srv["seconds"],
          made_update_ms=lik["train"]["made"]["update"]["update_ms"],
          made_update_bound_ms=lik["train"]["made"]["update"]["update_bound_ms"],
-         seconds=time.perf_counter() - T_START)
+         digit_classifier_val_accuracy=sc["classifier"]["val_accuracy"],
+         digit_classifier_seconds=sc["classifier"]["seconds"],
+         conditional_accuracy=sc["score_conditional"]["conditional_accuracy"],
+         score_conditional_seconds=sc["score_conditional"]["seconds"],
+         gather_native_over_numpy={k: sc["batcher"][k]["native_over_numpy"]
+                                   for k, *_ in GATHER_SHAPES},
+         phase_seconds=PHASE_SECONDS, seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

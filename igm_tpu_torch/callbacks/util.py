@@ -1,8 +1,9 @@
-"""Progress reporting: own copy of ``igm_tpu/callbacks/util.py``'s
-``ProgressBar`` (the ``tqdm`` callback of the configs)."""
+"""Misc callbacks: the port's copy of ``igm_tpu/callbacks/util.py``,
+``ProgressBar`` (the ``tqdm`` callback of the configs) and ``GifCallback``."""
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 
 log = logging.getLogger(__name__)
 
@@ -19,3 +20,26 @@ class ProgressBar:
                    list(trainer.callback_metrics.items())[:4]}
         log.info("[epoch %d/%d] step=%d %s", trainer.current_epoch + 1,
                  trainer.max_epochs, trainer.global_step, metrics)
+
+
+class GifCallback:
+    """At the end of training, ``results/<epoch>.jpg`` (the sample grids) in
+    numeric order into ``video.gif`` at ``fps`` frames a second, both under
+    the run directory (the CWD); nothing without frames.  PIL writes it."""
+
+    def __init__(self, fps: int = 4):
+        self.fps = fps
+
+    def on_train_end(self, trainer, model) -> None:
+        frames_dir = Path("results")
+        if not frames_dir.exists():
+            return
+        frames = sorted(frames_dir.glob("*.jpg"),
+                        key=lambda p: int(p.stem) if p.stem.isdigit() else 0)
+        if not frames:
+            return
+        from PIL import Image
+        imgs = [Image.open(f) for f in frames]
+        imgs[0].save("video.gif", save_all=True, append_images=imgs[1:],
+                     duration=int(1000 / self.fps), loop=0)
+        log.info("wrote video.gif (%d frames)", len(imgs))

@@ -56,7 +56,9 @@ erases a region of the first n validation images of the datamodule
 results.  ``--ckpt`` restores the
 whole train state from the newest of the port's checkpoints in DIR: every
 module (for latent DDPM the denoiser, the first stage, the codebook and the
-latent scale) and the EMA shadow the samplers use.  ``--weights`` takes the
+latent scale) and the EMA shadow the samplers use; given an ``.npz`` that
+``tools/igm_tpu_ckpt_to_npz.py`` converted from an ``igm_tpu`` checkpoint,
+the same from it (no optimizer state).  ``--weights`` takes the
 model's network alone (the denoiser; TAR's ``net``; RealNVP's ``flow``; the
 zoo's generator, ``netG`` or ``decoder``): a
 ``torch.save``d state_dict or an ``.npz`` of that network's ``igm_tpu`` param leaves keyed by
@@ -109,19 +111,23 @@ def load_model(cfg, device: torch.device, ckpt: str | None = None,
                weights: str | None = None, seed: int = 0):
     """The config's model on ``device`` with its weights, as the sampling
     CLI loads them: ``ckpt`` restores every module and the EMA shadow from
-    the newest of the port's checkpoints in that directory; ``weights``
+    the newest of the port's checkpoints in that directory, or from a
+    converted ``igm_tpu`` checkpoint (an ``.npz``); ``weights``
     loads the network alone (:func:`load_weights`); with neither, a random
     init from ``seed``."""
     from .config import instantiate
 
     model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device)
     if ckpt:
-        from .core.checkpoint import CheckpointManager
+        from .core.checkpoint import load_converted, read_checkpoint
         state = model.init_state(0)
-        saved = CheckpointManager(ckpt).restore_raw()
-        # the training generator's state stays behind: the checkpoint may
-        # come from another device, and sampling draws from its own
-        state.load_state_dict({**saved, "generator": state.generator.get_state()})
+        saved = read_checkpoint(ckpt)
+        if saved.get("converted"):
+            load_converted(state, saved)
+        else:
+            # the training generator's state stays behind: the checkpoint may
+            # come from another device, and sampling draws from its own
+            state.load_state_dict({**saved, "generator": state.generator.get_state()})
     elif weights:
         load_weights(model.modules[model.weights_module], weights)
     else:
@@ -339,8 +345,9 @@ def sample_main(argv=None) -> torch.Tensor:
                         help="config overrides (experiment=...)")
     weights = parser.add_mutually_exclusive_group()
     weights.add_argument("--ckpt", default=None,
-                         help="a directory of the port's checkpoints: restore "
-                              "every module from the newest")
+                         help="a directory of the port's checkpoints (restore "
+                              "every module from the newest), or a converted igm_tpu "
+                              "checkpoint (.npz)")
     weights.add_argument("--weights", default=None,
                          help="the network's weights (the denoiser; TAR's net; RealNVP's "
                               "flow; the zoo's generator): a torch state_dict file, or an "

@@ -12,8 +12,15 @@ temporary name and renamed, so a cut run leaves no half-written checkpoint.
 
 ``restore_raw`` reads a checkpoint without a state to load it into, as
 ``igm_tpu``'s does: LatentDDPM splices a VQ-VAE's first stage from it.
-This reads only the port's own files: orbax checkpoints of ``igm_tpu``
-need JAX to read.
+
+An orbax checkpoint of ``igm_tpu`` needs JAX to read: the converter
+``tools/igm_tpu_ckpt_to_npz.py`` (run beside ``igm_tpu``) writes one
+``.npz`` of its params, mutable collections, EMA shadow and step, keyed by
+``/``-joined paths under a format tag.  :func:`read_checkpoint` reads that
+file with numpy alone (through ``interop``) wherever the port reads a
+checkpoint directory: the CLIs' ``--ckpt``, ``model.first_stage_ckpt`` and
+``model.teacher_ckpt``.  A converted file carries no optimizer state or
+generator: it serves sampling and splicing, not resuming a run.
 """
 from __future__ import annotations
 
@@ -23,11 +30,17 @@ import threading
 from pathlib import Path
 from typing import Any, List, Optional
 
+import numpy as np
 import torch
 
 from .state import TrainState
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
+# the format tag tools/igm_tpu_ckpt_to_npz.py writes
+CONVERTED_FORMAT = "igm_tpu-checkpoint-npz/1"
+NOT_RESUMABLE = ("{path} is a converted igm_tpu checkpoint: it carries no optimizer "
+                 "state, so it serves sampling and splicing (--ckpt, "
+                 "model.first_stage_ckpt, model.teacher_ckpt), not resuming a run")
 
 
 def _to_host(obj: Any) -> Any:
@@ -95,10 +108,75 @@ class CheckpointManager:
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
-            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+            hint = ""
+            if self.directory.is_dir() and any(p.name.isdigit()
+                                               for p in self.directory.iterdir()):
+                hint = (" (step_<N>.pt); this looks like an orbax checkpoint directory "
+                        "of igm_tpu: convert it first with python "
+                        f"tools/igm_tpu_ckpt_to_npz.py {self.directory} <out>.npz")
+            raise FileNotFoundError(f"no checkpoint of the port in {self.directory}{hint}")
         return torch.load(self._path(step), map_location="cpu", weights_only=True)
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """Load checkpoint ``step`` (default: the newest) into ``state``."""
         state.load_state_dict(self.restore_raw(step))
         return state
+
+
+def is_converted(path: str | os.PathLike) -> bool:
+    """Whether ``path`` names a converted ``igm_tpu`` checkpoint (an .npz)."""
+    return str(path).endswith(".npz")
+
+
+def read_converted(path: str | os.PathLike) -> dict:
+    """A converted ``igm_tpu`` checkpoint as :meth:`CheckpointManager.restore_raw`
+    gives the port's: {step, params (the modules' parameters and buffers by
+    state_dict key), opt_states ({"ema": shadow} where it has one, else
+    {})}, plus ``converted: True``; no optimizer state, no generator."""
+    from ..interop import flax_mutables_to_torch, flax_to_torch
+
+    with np.load(path) as npz:
+        tag = str(npz["format"]) if "format" in npz.files else None
+        if tag != CONVERTED_FORMAT:
+            raise ValueError(f"{path}: not a converted igm_tpu checkpoint (format "
+                             f"{tag!r}, expected {CONVERTED_FORMAT!r}); write one with "
+                             "tools/igm_tpu_ckpt_to_npz.py")
+        groups: dict[str, dict[str, np.ndarray]] = {"params": {}, "mutables": {}, "ema": {}}
+        for key in npz.files:
+            head, _, rest = key.partition("/")
+            if head in groups:
+                groups[head][rest] = npz[key]
+        step = int(npz["step"])
+    params = {**flax_to_torch(groups["params"]), **flax_mutables_to_torch(groups["mutables"])}
+    ema = flax_to_torch(groups["ema"]) if groups["ema"] else None
+    return {"step": step, "params": params,
+            "opt_states": {"ema": ema} if ema is not None else {}, "converted": True}
+
+
+def read_checkpoint(path: str | os.PathLike) -> dict:
+    """The newest of the port's checkpoints in directory ``path``, or the
+    converted ``igm_tpu`` checkpoint ``path`` names (:func:`read_converted`),
+    on the CPU."""
+    if is_converted(path):
+        return read_converted(path)
+    return CheckpointManager(str(path)).restore_raw()
+
+
+def load_converted(state: TrainState, saved: dict) -> None:
+    """Load a converted checkpoint into ``state``: every module, the EMA
+    shadow where both have one, and the step; the optimizers keep their
+    fresh state."""
+    state.modules.load_state_dict(saved["params"], strict=True)
+    ema, have = saved["opt_states"].get("ema"), state.opt_states.get("ema")
+    if (ema is None) != (have is None):
+        raise ValueError(f"the checkpoint {'has' if ema is not None else 'has no'} EMA "
+                         f"shadow, the model {'keeps' if have is not None else 'keeps no'} "
+                         "one (model.ema_decay)")
+    if ema is not None:
+        if set(ema) != set(have):
+            raise ValueError("the checkpoint's EMA shadow does not match the model's "
+                             "parameters")
+        with torch.no_grad():
+            for key, tensor in ema.items():
+                have[key].copy_(tensor)
+    state.step = int(saved["step"])

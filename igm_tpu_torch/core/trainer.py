@@ -198,6 +198,9 @@ class Trainer:
         hp["trainer/max_epochs"] = self.max_epochs
         self.logger.log_hyperparams(hp)
 
+        from .checkpoint import NOT_RESUMABLE, is_converted
+        if self.resume and is_converted(self.resume):
+            raise ValueError(NOT_RESUMABLE.format(path=self.resume))
         state = model.init_state(self.seed)
         # before a resume restore, so the checkpoint's value wins
         state = model.on_fit_start(state, train_arrays)

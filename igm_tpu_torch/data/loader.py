@@ -2,12 +2,12 @@
 
 Counterpart of ``igm_tpu/data/loader.py``.  An epoch is one permutation
 drawn from the caller's ``np.random.Generator`` (the trainer's, seeded as
-``igm_tpu``'s, so the batch order is the same), batches are gathered with
-numpy indexing into contiguous uint8 arrays, :func:`chunk_batches` stacks
-K of them for a chained execution (``steps_per_execution``), and
+``igm_tpu``'s, so the batch order is the same), batches are gathered by the
+C++ host batcher (``data/native.py`` ``gather_rows``, as ``igm_tpu``'s
+loader gathers) into contiguous arrays, :func:`chunk_batches` stacks K of
+them for a chained execution (``steps_per_execution``), and
 :class:`DevicePrefetcher` stages the next batches (or chunks, each array
 one copy) on the device while the current step runs.
-``igm_tpu``'s C++ gather (``data/native.py``) is not ported.
 
 A prefetch worker's exception is re-raised in the training loop: a dying
 worker fails the epoch, it never shortens it.
@@ -20,6 +20,8 @@ from typing import Any, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from . import native
 
 
 def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int,
@@ -43,7 +45,7 @@ def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int,
         n_batches = min(n_batches, int(limit))
     for i in range(n_batches):
         idx = order[i * bs:(i + 1) * bs]
-        yield tuple(np.ascontiguousarray(a[idx]) for a in arrays)
+        yield tuple(native.gather_rows(a, idx) for a in arrays)
 
 
 def chunk_batches(batches: Iterable, k: int) -> Iterator[Tuple[np.ndarray, ...]]:

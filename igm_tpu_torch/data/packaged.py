@@ -1,13 +1,17 @@
-"""Dataset files from scikit-learn's bundled digit scans: the port's own
-copy of ``igm_tpu/data/packaged.py``.
+"""Dataset files from the 1,797 real 8x8 digit scans: the port's own copy
+of ``igm_tpu/data/packaged.py``.
 
 With no network, ``prepare_data`` cannot download MNIST, CIFAR-10, CelebA
-or dSprites.  ``ensure(data_dir)`` packages the 1,797 real 8x8 digit scans
-of ``sklearn.datasets.load_digits`` into each dataset's official on-disk
-container (IDX.gz, pickled batches, npz, JPEG + partition file), byte for
-byte as ``igm_tpu`` does, so every parser reads real container bytes.  A
-seed-0 shuffle and fixed split sizes (1437 / 360).  scikit-learn and PIL
-are imported only when files are made.
+or dSprites.  ``ensure(data_dir)`` packages the scans into each dataset's
+official on-disk container (IDX.gz, pickled batches, npz, JPEG + partition
+file), byte for byte as ``igm_tpu`` does, so every parser reads real
+container bytes.  A seed-0 shuffle and fixed split sizes (1437 / 360).
+
+The scans are the UCI "Optical Recognition of Handwritten Digits" test
+set as scikit-learn ships it (``sklearn.datasets.load_digits``), kept in
+``digits.npz`` beside this module (uint8 ``images`` with values 0-16 and
+``target``), so neither the port nor the card's machine needs
+scikit-learn.  PIL is imported only when CelebA's files are made.
 """
 from __future__ import annotations
 
@@ -22,11 +26,16 @@ N_TRAIN = 1437
 CELEBA_N = 256
 
 
+SCANS = Path(__file__).resolve().parent / "digits.npz"
+
+
 def load_real_digits():
-    from sklearn.datasets import load_digits
-    d = load_digits()
-    imgs = (d.images / 16.0 * 255.0).round().astype(np.uint8)      # (1797, 8, 8)
-    labels = d.target.astype(np.int32)
+    """The scans scaled to 0-255 as ``igm_tpu`` scales them, and their
+    labels, in the seed-0 order."""
+    with np.load(SCANS) as d:
+        images, target = d["images"], d["target"]
+    imgs = (images / 16.0 * 255.0).round().astype(np.uint8)        # (1797, 8, 8)
+    labels = target.astype(np.int32)
     order = np.random.default_rng(0).permutation(len(imgs))
     return imgs[order], labels[order]
 

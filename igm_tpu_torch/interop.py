@@ -104,7 +104,8 @@ def _convert(path: str, value: np.ndarray) -> np.ndarray:
         return value.reshape(-1, value.shape[-1]).T
     if value.ndim != 4:
         raise ValueError(f"{path}: unexpected kernel rank {value.ndim}")
-    if path.split("/")[-3].startswith("ConvTranspose_"):
+    parts = path.split("/")
+    if len(parts) >= 3 and parts[-3].startswith("ConvTranspose_"):
         return value[::-1, ::-1].transpose(2, 3, 0, 1)  # (in, out, kh, kw)
     return value.transpose(3, 2, 0, 1)                # HWIO -> OIHW
 

@@ -14,7 +14,8 @@ resumes with them; its forwards are ``torch.func.functional_call`` of the
 denoiser under ``no_grad`` (neither the EMA shadow nor a nested CUDA
 graph), and the train step stays capturable by ``train_step_n``.
 ``teacher_ckpt`` names a directory of the port's own checkpoints (a DDPM
-run of the same config): its denoiser, the EMA shadow preferred when the
+run of the same config) or a converted ``igm_tpu`` checkpoint (an ``.npz``
+from ``tools/igm_tpu_ckpt_to_npz.py``): its denoiser, the EMA shadow preferred when the
 checkpoint carries one, becomes both the teacher and the student's
 initial weights (and the student's EMA shadow's, where ``igm_tpu`` leaves
 the shadow at the fresh init).  Without it the teacher is a copy of the
@@ -82,15 +83,11 @@ class ProgressiveDistillation(DDPM):
 
     def _load_teacher(self, ckpt: str) -> None:
         """The denoiser of the newest checkpoint in the port's checkpoint
-        directory ``ckpt`` into the student, with the EMA shadow's weights
-        when the checkpoint carries one."""
-        from ..core.checkpoint import CheckpointManager
-        manager = CheckpointManager(ckpt)
-        if not manager.steps():
-            raise FileNotFoundError(
-                f"teacher_ckpt {ckpt} holds no checkpoint of the port (step_<N>.pt); an "
-                "orbax checkpoint of igm_tpu needs JAX to read and has no converter yet")
-        raw = manager.restore_raw()
+        directory ``ckpt`` (or of the converted ``igm_tpu`` checkpoint
+        ``ckpt``, an ``.npz``) into the student, with the EMA shadow's
+        weights when the checkpoint carries one."""
+        from ..core.checkpoint import read_checkpoint
+        raw = read_checkpoint(ckpt)
         got = {k[len("denoise."):]: v for k, v in raw["params"].items()
                if k.startswith("denoise.")}
         if not got:

@@ -8,7 +8,8 @@ the card: one nearest-codebook kernel launch per decode) before the
 convolutional decoder, the VQ-VAE's own eval path.
 
 The first stage arrives through ``first_stage_ckpt``, a directory of the
-port's checkpoints written by ``experiment=vqvae/*``: its encoder, decoder
+port's checkpoints written by ``experiment=vqvae/*`` (or an ``igm_tpu``
+VQ-VAE checkpoint converted to an ``.npz``): its encoder, decoder
 and codebook (parameters and buffers) are spliced into this model's modules,
 frozen (no optimizer owns them; they run under ``no_grad`` in eval mode),
 so a latent-DDPM checkpoint holds everything afterwards.  The first stage
@@ -157,9 +158,10 @@ class LatentDDPM(DDPM):
 
     def _load_first_stage(self, ckpt: str) -> None:
         """Splice the encoder, decoder and codebook of the newest checkpoint
-        in the port's checkpoint directory ``ckpt``."""
-        from ..core.checkpoint import CheckpointManager
-        raw = CheckpointManager(ckpt).restore_raw()["params"]
+        in the port's checkpoint directory ``ckpt``, or of the converted
+        ``igm_tpu`` checkpoint ``ckpt`` (an ``.npz``)."""
+        from ..core.checkpoint import read_checkpoint
+        raw = read_checkpoint(ckpt)["params"]
         for name in FIRST_STAGE:
             prefix = f"{name}."
             got = {k[len(prefix):]: v for k, v in raw.items() if k.startswith(prefix)}

@@ -37,3 +37,15 @@ def normal_kld(mu: torch.Tensor, log_sigma: torch.Tensor) -> torch.Tensor:
     kl = -0.5 * torch.sum(1.0 + 2.0 * log_sigma - mu ** 2 - torch.exp(2.0 * log_sigma),
                           dim=-1)
     return kl.mean()
+
+
+def symmetry_contra_loss(feat1: torch.Tensor, feat2: torch.Tensor,
+                         temperature: float = 0.07) -> torch.Tensor:
+    """CLIP-style symmetric InfoNCE over a batch of paired features: the
+    mean of the row-wise and column-wise cross-entropies of
+    ``feat1 @ feat2.T / temperature`` against the diagonal (no config uses
+    it)."""
+    logits = feat1 @ feat2.T / temperature
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return (torch.nn.functional.cross_entropy(logits, labels)
+            + torch.nn.functional.cross_entropy(logits.T, labels)) / 2.0

@@ -18,7 +18,7 @@ from igm_tpu_torch.config import resolve_target  # noqa: E402
 
 torch.set_num_threads(1)
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "igm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "igm_tpu", "sklearn")
 
 
 def _port_files():
@@ -98,6 +98,13 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
         import igm_tpu_torch.tools.eval_fid, igm_tpu_torch.tools.export  # noqa: F401
         import igm_tpu_torch.tools.serve  # noqa: F401
         from igm_tpu_torch.core.logging import WandbLogger  # noqa: F401
+        import igm_tpu_torch.utils.digit_score, igm_tpu_torch.data.native  # noqa: F401
+        import igm_tpu_torch.tools.score_gallery  # noqa: F401
+        import igm_tpu_torch.tools.score_conditional  # noqa: F401
+        from igm_tpu_torch.callbacks.util import GifCallback  # noqa: F401
+        from igm_tpu_torch.data.packaged import load_real_digits
+        assert load_real_digits()[0].shape == (1797, 8, 8)
+        from igm_tpu_torch.core.checkpoint import read_checkpoint  # noqa: F401
         bad = [m for m in sys.modules
                if m.split(".")[0] in {FORBIDDEN!r} + ("sklearn", "matplotlib")]
         assert not bad, bad
@@ -186,10 +193,13 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
         train_main(["experiment=ddpm/cifar10"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main(["-m", "experiment=vae/mnist_mlp", "model.lr=1e-3,5e-4"])
-    from igm_tpu_torch.tools import eval_fid, export, serve
+    from igm_tpu_torch.tools import eval_fid, export, score_conditional, score_gallery, serve
     for main, args in ((export.main, ["experiment=vae/mnist_mlp", "--n", "1"]),
                        (export.main, ["--run", "sampler.pt"]),
                        (serve.main, ["sampler.pt", "--bench", "1"]),
-                       (eval_fid.main, ["experiment=vae/mnist_mlp", "--weights", "w.pt"])):
+                       (eval_fid.main, ["experiment=vae/mnist_mlp", "--weights", "w.pt"]),
+                       (score_gallery.main, []),
+                       (score_conditional.main, ["experiment=ddpm/cond_mnist",
+                                                 "--ckpt", "x.npz"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(args)
