@@ -99,7 +99,7 @@ and prints no result line):
           flagship-width UNet (exactly 25 + 25 GroupNorm+Mish and 6 + 6
           linear attention); the train CLI on ddpm/cifar10_dit (DDIM
           validation), ddpm/cifar10_dit_v (DPM validation), edm/cifar10_dit
-          and flow/cifar10_dit (2 epochs of 3 steps; flow's then resumed) and the
+          and flow/cifar10_dit (an epoch of 3 steps; flow's 2, then resumed) and the
           sampling CLI from their checkpoints (--sampler ddim, dpm, heun,
           the ODE); one block's attention core forward and backward at the
           train step's shapes, the xla arm and SDPA; the train step at
@@ -241,6 +241,33 @@ and prints no result line):
           trainer.steps_per_execution=3 and at 1 (3 epochs of 3 steps):
           the same checkpoint, bit for bit; and the host's cost of one
           graphed execution (dispatch, trainer.DISPATCH_S).
+  parallel  the data axis (igm_tpu_torch/parallel), counters zeroed just
+          before and read just after (this process's and every rank's):
+          (a) one NCCL rank in this process (a world-1 group through
+          make_mesh): the flagship's graphed K = 1 train step at batch 256,
+          bf16, 3 steps with the gradient and metric all-reduces inside the
+          graph, bit for bit the ungrouped graphed steps from the same
+          state, both timed graphed plain, NCCL, NCCL, plain; (b) two gloo
+          ranks spawned on this card, eager: 2 steps each of the flagship
+          (128 rows a rank against one process on 256), tar/mnist with
+          flash_attention=dropout (the kernels' seed offset a rank) and
+          vqvae/cifar10 with codebook_update=ema (the EMA counts and sums
+          all-reduced): the ranks' states equal bit for bit, the metrics and
+          every update's reduced gradients within PARALLEL_TOL of one
+          process's, each rank's hand-kernel launches a step exactly the
+          one-process step's; (c) DDIM-50 over 64 images through
+          sample_sharded: on the NCCL rank bit for bit the one-process
+          sampler, over the two gloo ranks bit for bit one process on each
+          half of x_T and within PARALLEL_SAMPLE_MEAN_ATOL (mean absolute)
+          of one process on 64.
+  parallel_cards  (--only, on a host of more than one card; the default run
+          leaves it out) one NCCL rank a card, spawned: the flagship's eager
+          step on 256 rows a rank against one process on card 0 on the whole
+          global batch (as phase parallel's (b)), 3 graphed steps with the
+          all-reduces inside the graph (every rank's state equal bit for
+          bit), the graphed step's ms a rank against one card's at 256;
+          then the train CLI with trainer.devices=-1 for 2 epochs of 64
+          rows a rank (rank 0's checkpoints at the steps one process reaches).
 The sampling and training paths run their denoiser and train steps as CUDA
 graphs (the counters add a graph's launches at every replay), and the CLI
 runs resolve steps_per_execution=auto, whose probe trains 1 + AUTO_TIMED
@@ -799,6 +826,11 @@ PATH_KERNELS = {
     "serve": ("group_norm_mish", "linear_attention"),
     # score_conditional's guided ancestral chain on ddpm/cond_mnist
     "scores": ("group_norm_mish", "linear_attention"),
+    # the data axis: the NCCL rank's flagship steps and sample_sharded, and
+    # the two gloo ranks' flagship, TAR (dropout) and EMA VQ-VAE steps
+    "parallel": ("group_norm_mish", "linear_attention", "group_norm_mish_bwd",
+                 "linear_attention_bwd", "nearest_codebook", "dropout_attention_fwd",
+                 "dropout_attention_dq", "dropout_attention_dkv"),
 }
 
 
@@ -2065,8 +2097,8 @@ def dit_unet_launches() -> tuple:
 
 
 def dit_cli() -> tuple:
-    """The train CLI on the four DiT experiments (2 epochs of 3 steps with
-    validation samples; DIT_CLI_RESUME then resumed for one more epoch), then the
+    """The train CLI on the four DiT experiments (an epoch of 3 steps with
+    validation samples; DIT_CLI_RESUME 2, then resumed for one more), then the
     sampling CLI from their checkpoints: --sampler ddim, dpm, heun, and flow
     matching's default ODE.  Returns the launches (all 0)."""
     from PIL import Image
@@ -2078,11 +2110,12 @@ def dit_cli() -> tuple:
         for experiment in DIT_EXPERIMENTS:
             run = tmp / "logs" / "runs" / experiment
             extra = ["model.val_sampler=ddim"] if experiment == "ddpm/cifar10_dit" else []
-            stages = [("fit", ["trainer.max_epochs=2"], ["step_3.pt", "step_6.pt"])]
+            stages = [("fit", ["trainer.max_epochs=1"], ["step_3.pt"])]
             if experiment == DIT_CLI_RESUME:
-                stages.append(("resume", ["trainer.max_epochs=3",
-                                          f"trainer.resume={run / 'checkpoints'}"],
-                               ["step_6.pt", "step_9.pt"]))
+                stages = [("fit", ["trainer.max_epochs=2"], ["step_3.pt", "step_6.pt"]),
+                          ("resume", ["trainer.max_epochs=3",
+                                      f"trainer.resume={run / 'checkpoints'}"],
+                           ["step_6.pt", "step_9.pt"])]
             for name, overrides, ckpts in stages:
                 t0 = time.perf_counter()
                 loss = _train_cli(tmp, *extra, *overrides, experiment=experiment)
@@ -2091,7 +2124,8 @@ def dit_cli() -> tuple:
                       f"{experiment} {name}: loss {loss}")
                 check(got == ckpts, f"{experiment} {name}: checkpoints {got}")
                 grids = sorted(p.name for p in (run / "results").iterdir())
-                check(grids[:2] == ["0.jpg", "1.jpg"], f"{experiment}: grids {grids}")
+                check(grids[:len(ckpts)] == [f"{i}.jpg" for i in range(len(ckpts))],
+                      f"{experiment}: grids {grids}")
                 out[f"{experiment} {name}"] = row = dict(seconds=time.perf_counter() - t0,
                                                          loss=loss, checkpoints=got)
                 emit("dit", run="cli_train", experiment=experiment, stage=name, **row)
@@ -4593,7 +4627,7 @@ CHAIN_MODELS = (
     ("dit_moe", ["experiment=ddpm/cifar10_dit", *DIT_MOE_OVERRIDES], TRAIN_BATCH, {}),
 )
 CHAIN_K = (1, 4)
-CHAIN_TIMED_STEPS = 16               # per turn of the a-b-b-a timing
+CHAIN_TIMED_STEPS = 8                # per turn of the a-b-b-a timing
 CHAIN_SAMPLE_BATCH = 64
 
 
@@ -4868,6 +4902,396 @@ def phase_chain() -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase parallel
+# the data axis (igm_tpu_torch/parallel): (a) one NCCL rank in this process,
+# graphed; (b) two gloo ranks spawned on this card, eager; (c) sample_sharded
+PARALLEL_STEPS = 3                   # (a): graphed K = 1 steps from one state
+PARALLEL_TIMED = 16                  # steps a turn of (a)'s a-b-b-a timing
+PARALLEL_DP_STEPS = 2                # (b): steps a model
+PARALLEL_WORLD = 2
+PARALLEL_TIMEOUT_S = 300             # (b)'s spawn: killed and failed past this
+# (b)'s models: name, overrides, global batch, hand-kernel launches a step
+PARALLEL_MODELS = (
+    ("flagship", ["experiment=ddpm/cifar10"], TRAIN_BATCH,
+     dict(group_norm_mish=25, linear_attention=6, group_norm_mish_bwd=25,
+          linear_attention_bwd=6)),
+    ("tar", ["experiment=tar/mnist", "model.flash_attention=dropout"], TAR_SHAPE[0],
+     dict(dropout_attention_fwd=4, dropout_attention_dq=4, dropout_attention_dkv=4)),
+    ("vqvae_ema", ["experiment=vqvae/cifar10", "model.codebook_update=ema"], VQ_TRAIN_BATCH,
+     dict(nearest_codebook=1)),
+)
+PARALLEL_SAMPLE_N, PARALLEL_SAMPLE_STEPS = 64, 50
+# (b)'s tolerances, two ranks of half the batch against one process on all
+# of it: each metric over its own size, each update's reduced gradients
+# over their largest entry.  The card showed (H100 80GB HBM3, 700.00 W,
+# this phase alone): the flagship (bf16) 5.0e-5 and 2.1e-3, TAR (bf16
+# attention) 4.7e-6 and 3.7e-4, the VQ-VAE (f32) 7.0e-8 and 9.2e-8; cuDNN
+# picks its algorithms at the half batch and bf16 rounds the activations
+# (tests/test_torch_parallel_dp.py holds the CPU's float32 to 1e-5)
+PARALLEL_TOL = {"flagship": (5e-4, 1e-2), "tar": (1e-4, 2e-3), "vqvae_ema": (1e-5, 1e-5)}
+# (c): DDIM-50 over 64 images, two ranks of 32 against one process on 64:
+# bit for bit against one process on each half of the same x_T, which is
+# what one process gives at a batch of 32.  Against the batch of 64 the
+# seeded (untrained) bf16 UNet's outputs at another batch part in the last
+# bits, and the first step divides them by sqrt(alphas_cumprod[T-1]):
+# pixels land up to 1.67 apart (H100 80GB HBM3, 700.00 W), so the mean absolute
+# difference over the images is held, the largest reported.  That card read
+# a mean of 0.00203 in two whole runs; the limit is five times it
+PARALLEL_SAMPLE_MEAN_ATOL = 1e-2
+
+
+def _parallel_model(overrides, device="cuda"):
+    from igm_tpu_torch.config import compose, instantiate
+    cfg = compose(REPO / "configs", [*overrides, "print_config=False"])
+    model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device)
+    model.steps_per_epoch = 1000
+    return model
+
+
+def _dp_steps(model, state, batch, steps: int) -> dict:
+    """``steps`` eager train steps on ``batch`` as the trainer runs them
+    (``train_step_n``; under gloo eagerly): each step's metrics (averaged
+    over the ranks on a mesh) and hand-kernel launches, each update's
+    gradients after the reduction over the ranks, the state_dict after."""
+    import torch
+    opts = model.optimizers
+    updates = []
+    reduce = opts.reduce_grads
+
+    def recorded(gs):
+        out = reduce(gs)
+        updates.append([g.detach().float().cpu() for g in out])
+        return out
+
+    opts.reduce_grads = recorded
+    chunk = tuple(b[None] for b in batch)
+    metrics, launches = [], []
+    for _ in range(steps):
+        before = counts()
+        state, m = model.train_step_n(state, chunk, graph=False)
+        torch.cuda.synchronize()
+        launches.append(since(before))
+        metrics.append({k: float(v) for k, v in m.items()})
+    del opts.reduce_grads
+    return {"metrics": metrics, "launches": launches, "updates": updates,
+            "state": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()}}
+
+
+def _parallel_rank(device, out_dir: str) -> None:
+    """One of (b)'s gloo ranks (spawned, sharing the card): each model of
+    PARALLEL_MODELS from init_state(0), its rows of the seeded global
+    batch, PARALLEL_DP_STEPS steps recorded; then DDIM-50 over 64 images
+    through sample_sharded.  Records saved in ``out_dir``."""
+    import torch
+    from igm_tpu_torch.parallel.mesh import make_mesh, sample_sharded
+    from igm_tpu_torch.utils.platform import set_numerics
+    set_numerics()
+    mesh = make_mesh(devices=device)
+    out = Path(out_dir)
+    for name, overrides, batch, _ in PARALLEL_MODELS:
+        model = _parallel_model(overrides, device)
+        model.set_mesh(mesh)
+        state = model.init_state(0)
+        rows = torch.from_numpy(mesh.local_rows(batch, model.batch_blocks)).to(device)
+        local = tuple(b[0][rows] for b in _chain_batches(model, batch, 1, 21))
+        record = _dp_steps(model, state, local, PARALLEL_DP_STEPS)
+        record["jax"] = "jax" in sys.modules
+        torch.save(record, out / f"{name}.rank{mesh.rank}.pt")
+        del model, state
+        _release()
+    model = _parallel_model(["experiment=ddpm/cifar10"], device)
+    gen = torch.Generator(device).manual_seed(0)
+    before = counts()
+    imgs = sample_sharded(model, mesh, None, gen, PARALLEL_SAMPLE_N, sampler="ddim_sample",
+                          steps=PARALLEL_SAMPLE_STEPS)
+    torch.save({"imgs": imgs.cpu(), "launches": since(before)},
+               out / f"sample.rank{mesh.rank}.pt")
+
+
+def _rel_err(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-12)
+
+
+def parallel_compare(name: str, ranks: list, ref: dict, per_step: dict,
+                     run: str = "two_ranks") -> dict:
+    """(b): every rank ends in the same state bit for bit and reports the
+    same metrics; against one process, each metric and each update's
+    reduced gradients within PARALLEL_TOL; each rank's launches a step
+    exactly the one-process step's, which are the model's own."""
+    import torch
+    metric_tol, grad_tol = PARALLEL_TOL[name]
+    check(not any(r["jax"] for r in ranks), f"parallel {name}: a rank imported jax")
+    for r in ranks[1:]:
+        diff = same_bits(r["state"], ranks[0]["state"], name)
+        check(not diff, f"parallel {name}: the ranks' states differ at {diff[:4]}")
+        check(r["metrics"] == ranks[0]["metrics"], f"parallel {name}: the ranks' metrics differ")
+    want_launches = [expected(**per_step)] * len(ref["launches"])
+    check(ref["launches"] == want_launches,
+          f"parallel {name}: one process launched {ref['launches']}, not {want_launches}")
+    for r, rec in enumerate(ranks):
+        check(rec["launches"] == ref["launches"],
+              f"parallel {name}: rank {r} launched {rec['launches']}, one process "
+              f"{ref['launches']}")
+    got = ranks[0]
+    metric_err = max(_rel_err(got["metrics"][i][k], v) for i, m in enumerate(ref["metrics"])
+                     for k, v in m.items() if math.isfinite(v))
+    check(len(got["updates"]) == len(ref["updates"]), f"parallel {name}: update counts")
+    grad_err = [max(float((g - w).abs().max()) for g, w in zip(gs, ws))
+                / max(float(w.abs().max()) for w in ws)
+                for gs, ws in zip(got["updates"], ref["updates"])]
+    out = dict(metric_rel_err=metric_err, grad_err_over_largest=grad_err,
+               launches_a_step=dict(zip(KERNELS, ref["launches"][0])),
+               metrics=got["metrics"], metrics_one_process=ref["metrics"])
+    emit("parallel", run=f"{run}_{name}", **out)
+    check(metric_err <= metric_tol, f"parallel {name}: metrics {metric_err:.3g} off "
+                                    f"(tolerance {metric_tol})")
+    check(max(grad_err) <= grad_tol, f"parallel {name}: gradients {max(grad_err):.3g} of "
+                                     f"the largest off (tolerance {grad_tol})")
+    return out
+
+
+def _graphed_ms(model, state, chunk, n: int) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = model.train_step_n(state, chunk)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def phase_parallel() -> dict:
+    """The data axis; the caller zeroes the counters before it.  (b)'s two
+    gloo ranks run in a thread's spawn while this process runs (a), (c)'s
+    NCCL rank and (b)'s one-process references on the same card; (a)'s
+    timing waits for the ranks to end.  Returns the phase's launches: this
+    process's and every rank's."""
+    import datetime
+    import shutil
+    import threading
+    import torch
+    import torch.distributed as dist
+    from igm_tpu_torch.parallel import launch
+    from igm_tpu_torch.parallel.mesh import make_mesh, sample_sharded
+    out, failed = {}, []
+    tmp = Path(tempfile.mkdtemp(prefix="parallel-"))
+
+    def ranks():
+        try:
+            launch.spawn(_parallel_rank, PARALLEL_WORLD, torch.device("cuda"), (str(tmp),),
+                         timeout=PARALLEL_TIMEOUT_S)
+        except BaseException as exc:      # re-raised by the phase below
+            failed.append(exc)
+
+    spawner = threading.Thread(target=ranks)
+    spawner.start()
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=launch.TIMEOUT_S))
+    try:
+        mesh = make_mesh(devices="cuda")
+        check(mesh.backend == "nccl" and mesh.capturable and mesh.world == 1,
+              f"parallel: the NCCL mesh is {mesh}")
+        # (a) the flagship's graphed K = 1 steps, without a group and on the NCCL rank
+        models = {}
+        for key, m in (("plain", None), ("nccl", mesh)):
+            model = _parallel_model(["experiment=ddpm/cifar10"])
+            model.set_mesh(m)
+            models[key] = (model, model.init_state(0))
+        chunk = _chain_batches(models["plain"][0], TRAIN_BATCH, 1, 17)
+        metrics = {key: [{k: float(v) for k, v in model.train_step_n(state, chunk)[1].items()}
+                         for _ in range(PARALLEL_STEPS)]
+                   for key, (model, state) in models.items()}
+        torch.cuda.synchronize()
+        diff = same_bits(models["plain"][1].state_dict(), models["nccl"][1].state_dict())
+        check(not diff, f"parallel: the NCCL rank's graphed steps differ at {diff[:4]}")
+        check(metrics["plain"] == metrics["nccl"], "parallel: the NCCL rank's metrics differ")
+        n_graphs = len(models["nccl"][1].graphs)
+        check(n_graphs == 1, f"parallel: {n_graphs} graphs captured on the NCCL rank")
+        # (c) DDIM-50 over 64 images from the seeded init: one process, the NCCL
+        # rank through sample_sharded, and one process on each half of x_T
+        fresh = _parallel_model(["experiment=ddpm/cifar10"])
+        want = fresh.ddim_sample(PARALLEL_SAMPLE_N, steps=PARALLEL_SAMPLE_STEPS,
+                                 generator=torch.Generator("cuda").manual_seed(0))
+        got = sample_sharded(fresh, mesh, None, torch.Generator("cuda").manual_seed(0),
+                             PARALLEL_SAMPLE_N, sampler="ddim_sample",
+                             steps=PARALLEL_SAMPLE_STEPS)
+        check(torch.equal(got, want), "parallel: sample_sharded on the NCCL rank differs "
+                                      "from the one-process DDIM-50")
+        x_t = torch.randn((PARALLEL_SAMPLE_N, fresh.height, fresh.width, fresh.channels),
+                          generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+        half = PARALLEL_SAMPLE_N // PARALLEL_WORLD
+        halves = torch.cat([fresh.ddim_sample(half, steps=PARALLEL_SAMPLE_STEPS,
+                                              x_T=x_t[r * half:(r + 1) * half])
+                            for r in range(PARALLEL_WORLD)]).cpu()
+        want = want.cpu()
+        del fresh
+        # (b)'s references: one process on the whole global batch
+        refs = {}
+        for name, overrides, batch, _ in PARALLEL_MODELS:
+            ref_model = _parallel_model(overrides)
+            state = ref_model.init_state(0)
+            glob = tuple(b[0] for b in _chain_batches(ref_model, batch, 1, 21))
+            refs[name] = _dp_steps(ref_model, state, glob, PARALLEL_DP_STEPS)
+            del ref_model, state, glob
+            _release()
+        spawner.join()
+        if failed:
+            raise failed[0]
+        out["seconds_to_ranks_end"] = time.perf_counter() - t0
+        # (a)'s timing, the card quiet again: plain, NCCL, NCCL, plain
+        ms = {"plain": [], "nccl": []}
+        for key in ("plain", "nccl", "nccl", "plain"):
+            ms[key].append(_graphed_ms(*models[key], chunk, PARALLEL_TIMED))
+        out["nccl_graphed"] = dict(batch=TRAIN_BATCH, steps=PARALLEL_STEPS, bit_for_bit=True,
+                                   timed_steps=PARALLEL_TIMED, ms_per_step_abba=ms)
+        emit("parallel", run="nccl_world_one", **out["nccl_graphed"])
+        del models, chunk
+        launch.leave_group()         # the graphs that captured NCCL collectives first
+    finally:
+        spawner.join()
+    launches = counts()
+    for name, _, _, per_step in PARALLEL_MODELS:
+        recs = [torch.load(tmp / f"{name}.rank{r}.pt", weights_only=False)
+                for r in range(PARALLEL_WORLD)]
+        out[name] = parallel_compare(name, recs, refs[name], per_step)
+        for rec in recs:
+            for step in rec["launches"]:
+                launches = add(launches, step)
+    samples = [torch.load(tmp / f"sample.rank{r}.pt", weights_only=False)
+               for r in range(PARALLEL_WORLD)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    for s in samples:
+        launches = add(launches, s["launches"])
+    check(all(torch.equal(s["imgs"], samples[0]["imgs"]) for s in samples),
+          "parallel: the ranks' gathered samples differ")
+    check(torch.equal(samples[0]["imgs"], halves),
+          "parallel: sample_sharded over two ranks differs from one process on each half")
+    diff = (samples[0]["imgs"] - want).abs()
+    err = float(diff.mean())
+    out["sample_sharded"] = dict(n=PARALLEL_SAMPLE_N, steps=PARALLEL_SAMPLE_STEPS,
+                                 nccl_bit_for_bit=True, two_ranks_halves_bit_for_bit=True,
+                                 two_ranks_mean_abs_err_vs_batch_64=err,
+                                 two_ranks_max_abs_err_vs_batch_64=float(diff.max()),
+                                 mean_atol=PARALLEL_SAMPLE_MEAN_ATOL)
+    emit("parallel", run="sample_sharded", **out["sample_sharded"])
+    check(err <= PARALLEL_SAMPLE_MEAN_ATOL,
+          f"parallel: sample_sharded {err:.3g} (mean absolute) off the one-process DDIM-50 "
+          f"at 64 (tolerance {PARALLEL_SAMPLE_MEAN_ATOL})")
+    out["launches"] = launches
+    return out
+
+
+
+# ------------------------------------------------------ phase parallel_cards
+# the data axis over every card of the host (--only parallel_cards; the
+# default run needs one card and leaves it out): one NCCL rank a card
+CARDS_BATCH = 256                    # rows a rank: the global batch is this x cards
+CARDS_STEPS = 3                      # graphed steps checked after the eager one
+CARDS_TIMED = 20
+CARDS_FIT_EPOCHS = 2
+CARDS_FIT_BATCH = 64                 # rows a rank in the CLI fit
+
+
+def _cards_rank(device, out_dir: str) -> None:
+    """One NCCL rank of phase parallel_cards: the flagship from
+    init_state(0), its rows of the seeded global batch; one eager step
+    recorded (the reduced gradients), CARDS_STEPS graphed steps (the
+    all-reduces inside the graph), then CARDS_TIMED graphed steps timed."""
+    import torch
+    from igm_tpu_torch.parallel.mesh import make_mesh
+    from igm_tpu_torch.utils.platform import set_numerics
+    set_numerics()
+    mesh = make_mesh(devices=device)
+    model = _parallel_model(["experiment=ddpm/cifar10"], device)
+    model.set_mesh(mesh)
+    state = model.init_state(0)
+    glob = _chain_batches(model, CARDS_BATCH * mesh.world, 1, 23)
+    rows = torch.from_numpy(mesh.local_rows(CARDS_BATCH * mesh.world)).to(device)
+    local = tuple(b[0][rows] for b in glob)
+    record = _dp_steps(model, state, local, 1)
+    chunk = tuple(b[None] for b in local)
+    record["graphed_metrics"] = [
+        {k: float(v) for k, v in model.train_step_n(state, chunk)[1].items()}
+        for _ in range(CARDS_STEPS)]
+    record["ms_per_step"] = _graphed_ms(model, state, chunk, CARDS_TIMED)
+    record["graphs"] = len(state.graphs)
+    record["jax"] = "jax" in sys.modules
+    torch.save(record, Path(out_dir) / f"rank{mesh.rank}.pt")
+
+
+def phase_parallel_cards() -> dict:
+    """Every card of the host, one NCCL rank each (spawned): the flagship's
+    eager step on CARDS_BATCH rows a rank against one process on card 0 on
+    the whole global batch (metrics and reduced gradients within
+    PARALLEL_TOL["flagship"], launches a step exactly the one-process
+    step's); CARDS_STEPS graphed steps with the all-reduces in the graph,
+    every rank's state equal bit for bit; the graphed step's ms a rank
+    against one card's at CARDS_BATCH (images/s of the host); then the
+    train CLI with trainer.devices=-1 (every card) for CARDS_FIT_EPOCHS
+    epochs of CARDS_FIT_BATCH rows a rank on the synthetic set: rank 0's
+    checkpoints, an epoch's each, at the steps one process would reach."""
+    import shutil
+    import torch
+    from igm_tpu_torch.parallel import launch
+    cards = torch.cuda.device_count()
+    check(cards > 1, f"parallel_cards needs more than one card, found {cards}")
+    out = {"cards": cards}
+    tmp = Path(tempfile.mkdtemp(prefix="parallel-cards-"))
+    launch.spawn(_cards_rank, cards, torch.device("cuda"), (str(tmp),),
+                 timeout=PARALLEL_TIMEOUT_S)
+    recs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(cards)]
+    for r in recs[1:]:
+        diff = same_bits(r["state"], recs[0]["state"])
+        check(not diff, f"parallel_cards: the ranks' states differ at {diff[:4]}")
+        check(r["graphed_metrics"] == recs[0]["graphed_metrics"],
+              "parallel_cards: the ranks' metrics differ")
+    check(all(r["graphs"] == 1 for r in recs), "parallel_cards: a rank did not capture one graph")
+    model = _parallel_model(["experiment=ddpm/cifar10"])
+    state = model.init_state(0)
+    glob = tuple(b[0] for b in _chain_batches(model, CARDS_BATCH * cards, 1, 23))
+    ref = _dp_steps(model, state, glob, 1)
+    out["flagship"] = parallel_compare("flagship", recs, ref, PARALLEL_MODELS[0][3],
+                                       run=f"{cards}_cards")
+    del model, state, glob
+    _release()
+    one = _parallel_model(["experiment=ddpm/cifar10"])
+    one_state = one.init_state(0)
+    chunk = _chain_batches(one, CARDS_BATCH, 1, 23)
+    for _ in range(2):
+        one.train_step_n(one_state, chunk)
+    one_ms = _graphed_ms(one, one_state, chunk, CARDS_TIMED)
+    ms = [r["ms_per_step"] for r in recs]
+    out["graphed"] = dict(rows_a_rank=CARDS_BATCH, ms_per_step_by_rank=ms,
+                          one_card_ms_per_step=one_ms,
+                          images_per_s=CARDS_BATCH * cards / (max(ms) / 1e3),
+                          one_card_images_per_s=CARDS_BATCH / (one_ms / 1e3))
+    emit("parallel_cards", run="graphed", **out["graphed"])
+    del one, one_state, chunk
+    _release()
+    shutil.rmtree(tmp, ignore_errors=True)
+    fit = Path(tempfile.mkdtemp(prefix="parallel-cards-fit-"))
+    from igm_tpu_torch.config import compose, instantiate
+    dm = instantiate(compose(REPO / "configs", ["experiment=ddpm/cifar10",
+                                                f"datamodule.data_dir={fit / 'data'}"]).datamodule)
+    dm.prepare_data()
+    dm.setup()
+    # _train_cli's limit of 3 batches an epoch; a checkpoint an epoch
+    per_epoch = min(3, len(dm.train_arrays()[0]) // (CARDS_FIT_BATCH * cards))
+    want = {f"step_{per_epoch * (e + 1)}.pt" for e in range(CARDS_FIT_EPOCHS)}
+    t0 = time.perf_counter()
+    _train_cli(fit, "trainer.devices=-1", f"trainer.max_epochs={CARDS_FIT_EPOCHS}",
+               "trainer.limit_val_batches=0", f"datamodule.batch_size={CARDS_FIT_BATCH * cards}",
+               "callbacks=null")
+    saved = sorted(p.name for p in (fit / "logs/runs/ddpm/cifar10/checkpoints").iterdir())
+    check(set(saved) == want, f"parallel_cards: the fit saved {saved}, not {sorted(want)}")
+    out["fit"] = dict(seconds=time.perf_counter() - t0, checkpoints=saved)
+    emit("parallel_cards", run="fit", **out["fit"])
+    shutil.rmtree(fit, ignore_errors=True)
+    return out
+
+
 # the redesigned kernels of rows 1, 2, 3 and 5 and of _flat_bwd: (design,
 # the prefix of their kernels' names in the ptxas report)
 REDESIGNED = {
@@ -4927,7 +5351,9 @@ ALONE = {"unet": lambda: phase_unet(), "slice": lambda: phase_slice(),
          "parity_vq": lambda: parity_vq(), "dit": lambda: phase_dit(),
          "families": lambda: phase_families(), "likelihood": lambda: phase_likelihood(),
          "vae": lambda: phase_vae(), "gan": lambda: phase_gan(),
-         "serve": lambda: phase_serve(), "scores": lambda: phase_scores()}
+         "serve": lambda: phase_serve(), "scores": lambda: phase_scores(),
+         "parallel": lambda: phase_parallel(),
+         "parallel_cards": lambda: phase_parallel_cards()}
 
 
 def main(argv=None) -> int:
@@ -5032,6 +5458,10 @@ def main(argv=None) -> int:
     check_path("scores", sc["launches"])
     path_launches["scores"] = sc["launches"]
     chain = timed("chain", phase_chain)  # graphed against eager
+    reset_counts()                      # the data axis: NCCL rank, two gloo ranks
+    par = timed("parallel", phase_parallel)
+    check_path("parallel", par["launches"])
+    path_launches["parallel"] = par["launches"]
 
     def by_path(i: int) -> dict:
         return {path: n[i] for path, n in path_launches.items()}
@@ -5194,6 +5624,9 @@ def main(argv=None) -> int:
          score_conditional_seconds=sc["score_conditional"]["seconds"],
          gather_native_over_numpy={k: sc["batcher"][k]["native_over_numpy"]
                                    for k, *_ in GATHER_SHAPES},
+         parallel_graphed_ms_per_step=par["nccl_graphed"]["ms_per_step_abba"],
+         parallel_sample_mean_abs_err=par["sample_sharded"][
+             "two_ranks_mean_abs_err_vs_batch_64"],
          phase_seconds=PHASE_SECONDS, seconds=time.perf_counter() - T_START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,15 @@ TensorBoard files go) and trains (``igm_tpu_torch.train.train``); with
 ``optimized_metric`` configured it writes the run's value into
 ``optimized_metric.json`` there.
 
+    python -m igm_tpu_torch.train experiment=ddpm/cifar10 trainer.devices=N [--device cpu]
+
+trains data-parallel on N ranks (``trainer.devices=-1``: every visible
+card), spawned here (``parallel.launch``): NCCL one card a rank, or gloo
+processes with ``--device cpu``; ``datamodule.batch_size`` is the global
+batch.  ``IGM_MULTIHOST=1`` under ``torchrun`` joins the group ``torchrun``
+launched instead of spawning one.  Rank 0 writes the run directory's
+checkpoints, logs and ``optimized_metric.json``.
+
     python -m igm_tpu_torch.train -m experiment=vae/mnist_mlp model.lr=1e-3,5e-4
     python -m igm_tpu_torch.train -m hydra/sweeper=optuna hydra.sweeper.n_trials=20 \\
         +optimized_metric=val_log/log_p_x_of_z experiment=vae/mnist_mlp \\
@@ -25,7 +34,8 @@ replayed on a rerun, which goes on where the last stopped, and
 runs each job as ``python -m igm_tpu_torch.train`` in a worker process,
 with this call's ``--device``; ``hydra/launcher=basic`` runs them one after
 another in this process, releasing each job's CUDA graphs and memory pool
-before the next.  A job that fails fails the multirun (non-zero exit).
+before the next.  A job that fails fails the multirun (non-zero exit), and a
+multirun whose jobs ask for more than one device is refused.
 
     python -m igm_tpu_torch.cli experiment=ddpm/cifar10 [--ckpt DIR | --weights w.pt] \\
         [--n 64] [--seed 0] [--out samples.png] [--sampler ddim|dpm|heun|multistep] \\
@@ -172,6 +182,7 @@ def train_main(argv=None):
                         help="torch device (default: the CUDA card)")
     args = parser.parse_intermixed_args(argv)
 
+    from .config import compose
     from .utils.platform import resolve_device, set_numerics
 
     logging.basicConfig(level=logging.INFO,
@@ -180,7 +191,35 @@ def train_main(argv=None):
     set_numerics()
     if args.multirun:
         return _multirun(args.overrides, args.device, device)
+    if os.environ.get("IGM_MULTIHOST") == "1":       # one rank of a torchrun launch
+        from .parallel.launch import init_from_env, leave_group
+        device = init_from_env(device)
+        result = _single_run(args.overrides, device)
+        leave_group()
+        return result
+    world = _world_size(compose(config_dir(), args.overrides), device)
+    if world > 1:
+        from .parallel.launch import spawn
+        spawn(_rank_run, world, device, (args.overrides,))
+        return None
     return _single_run(args.overrides, device)
+
+
+def _world_size(cfg, device: torch.device) -> int:
+    """The ranks the config's ``trainer.devices`` asks for on ``device``."""
+    from .config import select
+    from .parallel.launch import world_size
+    return world_size(select(cfg, "trainer.devices", 1), device)
+
+
+def _rank_run(device: torch.device, overrides) -> None:
+    """One spawned rank of ``trainer.devices=N``: its logging and numerics
+    (a fresh interpreter), then the run."""
+    from .utils.platform import set_numerics
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(asctime)s][%(name)s][%(levelname)s] %(message)s")
+    set_numerics()
+    _single_run(overrides, device)
 
 
 def _single_run(overrides, device: torch.device, multirun_subdir=None):
@@ -189,7 +228,7 @@ def _single_run(overrides, device: torch.device, multirun_subdir=None):
     from .train import train
 
     cfg = compose(config_dir(), overrides)
-    if cfg.get("print_config"):
+    if cfg.get("print_config") and _rank() == 0:
         import yaml
         print(yaml.safe_dump(to_plain(cfg), default_flow_style=False, sort_keys=False))
     if multirun_subdir is None:
@@ -204,7 +243,7 @@ def _single_run(overrides, device: torch.device, multirun_subdir=None):
             os.makedirs(run_dir, exist_ok=True)
             os.chdir(run_dir)
         result = train(cfg, device)
-        if result is not None:
+        if result is not None and _rank() == 0:
             print(f"optimized_metric: {result}")
             # the run directory: the CWD when changed into, else as named
             # (relative to the launch directory)
@@ -214,6 +253,11 @@ def _single_run(overrides, device: torch.device, multirun_subdir=None):
         return result
     finally:
         os.chdir(cwd)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _partition_sweep(overrides):
@@ -236,6 +280,9 @@ def _multirun(overrides, device_arg, device: torch.device) -> None:
 
     fixed, swept = _partition_sweep(overrides)
     cfg = compose(config_dir(), fixed)
+    if _world_size(cfg, device) > 1 or any(k == "trainer.devices" for k, _ in swept):
+        raise SystemExit("a multirun job trains on one device: drop trainer.devices (or "
+                         "set it to 1) for -m")
     sweeper = select(cfg, "hydra.sweeper", None) or {"_target_": "basic"}
     launcher = select(cfg, "hydra.launcher", None) or {"_target_": "basic"}
     sweep_dir = Path(str(select(cfg, "hydra.sweep.dir", "logs/multiruns")))

@@ -38,6 +38,33 @@ updates, as optax keeps the count in each optimizer's state: the train
 state counts each optimizer's updates (``TrainState.counts``), and a model
 may update one optimizer twice a step (AAE) or on some steps only (AGE,
 the GANs).
+
+Data parallelism: on a data-axis mesh (``OptimizerSet.mesh``, bound by
+``BaseModel.set_mesh``) every update first averages its gradients over the
+ranks, one flattened buffer a dtype and one all-reduce a buffer, before
+``clip_by_global_norm`` and the step (``parallel.mesh.all_reduce_``);
+under NCCL inside the step's CUDA graph.  The average, not the sum,
+because every loss the port's models differentiate is a mean over the
+batch (or a function of batch statistics that are themselves taken over
+the global batch), so that the mean of the ranks' losses is the global
+batch's loss.  The inventory, model by model:
+
+- DDPM, latent DDPM, EDM, flow matching, score-SDE, consistency,
+  distillation: a (weighted) mean over the batch of the per-element error
+  (the DiT's MoE aux is refused under more than one rank);
+- VAE, beta-VAE, cVAE, FactorVAE (``ae``; its critic ``d``), VAE-GAN,
+  AAE: batch means of the per-sample log-likelihood, KL (``normal_kld``),
+  MSE and adversarial terms (``adversarial_loss``: means); VAE-GAN's
+  feature loss is the batch sum over ``n``, a mean;
+- VQ-VAE: MSE means (the EMA codebook's counts and sums are summed over
+  the ranks by the quantizer itself);
+- GAN, LSGAN, hinge, WGAN, WGAN-GP (the gradient penalty a batch mean of
+  per-sample norms), speed_gan, BiGAN, InfoGAN (its code losses batch
+  means): means;
+- AGE: KLs of the global batch's moments (taken over the ranks) and batch
+  means;
+- MADE, PixelCNN, RealNVP: bits per dimension, a mean over the batch;
+- TAR: the per-image summed NLL, averaged over the batch.
 """
 from __future__ import annotations
 
@@ -48,6 +75,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_reduce_
 from .state import TrainState, _params
 
 Schedule = Callable[[int], float]
@@ -404,6 +432,8 @@ class OptimizerSet:
         # one slot per update of each optimizer, taken in order
         self._slots: Dict[str, torch.Tensor] = {}
         self._taken: Dict[str, int] = {}
+        # the data-axis mesh whose ranks average the gradients (None: one process)
+        self.mesh = None
 
     def add(self, name: str, tx: Spec, module_names: Iterable[str]) -> "OptimizerSet":
         self._opts[name] = (tx, tuple(module_names))
@@ -468,6 +498,11 @@ class OptimizerSet:
         state.counts[opt_name] = state.counts.get(opt_name, 0) + 1
         return state
 
+    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """An update's gradients averaged over the data axis's ranks (one
+        flattened buffer a dtype); as they are in one process."""
+        return grads if self.mesh is None else all_reduce_(self.mesh, grads)
+
     def _apply(self, opt_name: str, opt: torch.optim.Optimizer,
                params: List[torch.Tensor], grads, count: Optional[int] = None,
                sr_seeds: Optional[torch.Tensor] = None) -> None:
@@ -495,6 +530,7 @@ class OptimizerSet:
                 else:
                     group["lr"].fill_(tx.lr_at(count))
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = self.reduce_grads(grads)
         if tx.clip_norm is not None:
             grads = clip_by_global_norm(grads, tx.clip_norm)
         for p, g in zip(params, grads):

@@ -41,8 +41,30 @@
   step, with the data order and random stream an uninterrupted run would
   have had.
 
-One device: ``devices`` is 1 and ``mesh`` may only be the one-device
-default ({data: -1, model: 1}); anything else raises.
+Data parallelism (``igm_tpu_torch.parallel``): ``devices`` N > 1 is a
+launch of N ranks (``python -m igm_tpu_torch.train trainer.devices=N``
+spawns them; ``torchrun`` with ``IGM_MULTIHOST=1``), one per card, each
+running this trainer over ``parallel.make_mesh``'s data axis (``mesh.data``
+-1 takes them all).  ``datamodule.batch_size`` is the global batch, as in
+``igm_tpu``, rounded down to a multiple of the ranks (times the blocks a
+step splits its batch into).  Rank 0 alone prepares the data directory,
+the others waiting at a barrier; every rank runs the same epoch order and
+gathers its rows of each global batch, and its train step equals the
+one-process step on the whole batch (draws at the global batch, batch
+statistics and gradients over the ranks).  ``auto``'s K is timed by every
+rank on the same steps and rank 0's is broadcast, so every rank captures
+the same graphs and issues the same collectives.  Rank 0 alone writes the
+checkpoints (a barrier after each save), the logs and ``perf/*``
+(``perf/imgs_per_sec`` counts the global batch; ``achieved_tflops`` and
+``mfu`` are one card's), and runs validation, the epoch hooks and the
+callbacks over the whole validation batch as one process does, while the
+others wait at a barrier; every rank builds the same seeded state and
+reads a resume.  Under gloo (the CPU, or ranks sharing a card) the steps
+run eagerly.  ``devices`` 1 (the default) is one process without a
+process group, as before.  A model axis (``mesh.model``/``mesh.fsdp`` >
+1, ``mesh.mode=tensor``: slice 7b), ``mesh.stage`` > 1,
+``mesh.mode=pipeline`` and ``mesh.sequence`` (slice 7c) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,12 +76,15 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..data.loader import DevicePrefetcher, chunk_batches, epoch_batches
+from ..data.loader import DevicePrefetcher, chunk_batches, epoch_batches, global_batch
+from ..parallel.mesh import MODEL_AXES_REFUSED, barrier, make_mesh
 from .logging import MetricAccumulator, NoOpLogger, TensorBoardLogger
 
 log = logging.getLogger(__name__)
 
 H100_BF16_DENSE_FLOPS = 989e12
+STAGES_REFUSED = ("sequence and pipeline parallelism are ROADMAP Queue 1 slice 7c, "
+                  "not ported yet")
 # the host's cost of one graphed execution beyond its device work (the
 # chunk's copy into the graph's inputs, the launch, the metrics' copy out):
 # the median of 40.4, 51.9 and 52.6 us, three runs on an H100 80GB HBM3 at
@@ -132,14 +157,27 @@ class Trainer:
         profile: bool = False,
         **_: Any,
     ):
-        if devices not in (None, -1, 1):
-            raise NotImplementedError(f"devices={devices}: the port trains on one device")
+        self.devices = -1 if devices is None else int(devices)
+        if self.devices > 1 and not torch.distributed.is_initialized():
+            raise ValueError(f"trainer.devices={devices} trains on {devices} ranks: launch "
+                             f"them with python -m igm_tpu_torch.train trainer.devices="
+                             f"{devices} (or torchrun with IGM_MULTIHOST=1)")
         mesh_cfg = dict(mesh or {})
-        data_axis = mesh_cfg.pop("data", -1)
-        model_axis = mesh_cfg.pop("model", 1)
-        if data_axis not in (None, -1, 1) or model_axis not in (None, 1) or mesh_cfg:
-            raise NotImplementedError(f"mesh={mesh}: the port trains on one device "
-                                      f"(mesh.data -1 or 1, mesh.model 1)")
+        self.mesh_data = mesh_cfg.pop("data", -1)
+        mode = mesh_cfg.pop("mode", "fsdp")
+        if mode not in ("fsdp", "tensor", "pipeline"):
+            raise ValueError(f"mesh.mode must be fsdp|tensor|pipeline, got {mode!r}")
+        model_axis = int(mesh_cfg.pop("model", 1) or 1)
+        fsdp_axis = int(mesh_cfg.pop("fsdp", 1) or 1)
+        if model_axis > 1 or fsdp_axis > 1 or mode == "tensor":
+            raise NotImplementedError(f"mesh={mesh}: {MODEL_AXES_REFUSED}")
+        mesh_cfg.pop("microbatches", None)
+        if (int(mesh_cfg.pop("stage", 1) or 1) > 1 or mode == "pipeline"
+                or mesh_cfg.pop("sequence", False)):
+            raise NotImplementedError(f"mesh={mesh}: {STAGES_REFUSED}")
+        if mesh_cfg:
+            raise NotImplementedError(f"mesh keys {sorted(mesh_cfg)} are not ported")
+        self.mesh = None                 # the data-axis mesh, made in fit
         if isinstance(steps_per_execution, str):
             if steps_per_execution != "auto":
                 raise ValueError(f"steps_per_execution must be an int or 'auto', got "
@@ -176,21 +214,38 @@ class Trainer:
         self.ckpt_manager = None
         self.step_flops: Optional[float] = None
         self.profile_path: Optional[str] = None
+        self.rank0 = True
 
     # -------------------------------------------------------------------- fit
     def fit(self, model, datamodule) -> None:
         self.model = model
         self.datamodule = datamodule
-        datamodule.prepare_data()
+        mesh = self.mesh = make_mesh(self.mesh_data, devices=model.device)
+        if self.devices not in (-1, mesh.world):
+            raise ValueError(f"trainer.devices={self.devices}, but {mesh.world} rank(s) run")
+        self.rank0 = mesh.rank == 0
+        if self.rank0:            # the others read what rank 0 wrote into data_dir
+            datamodule.prepare_data()
+        barrier(mesh)
         datamodule.setup()
         train_arrays = datamodule.train_arrays()
         val_arrays = datamodule.val_arrays()
-        batch_size = int(datamodule.batch_size)
+        batch_size = int(datamodule.batch_size)       # the global batch
         n_train = len(train_arrays[0])
         steps_per_epoch = max(n_train // batch_size, 1)
         if self.limit_train_batches:
             steps_per_epoch = min(steps_per_epoch, int(self.limit_train_batches))
         model.steps_per_epoch = steps_per_epoch
+        if not self.rank0:
+            self.logger = NoOpLogger()           # rank 0 alone writes the logs
+        model.set_mesh(mesh)
+        blocks = model.batch_blocks
+        divisor = mesh.world * blocks if mesh.grouped else 1
+        global_bs = global_batch(n_train, batch_size, divisor)
+        rows = mesh.local_rows(global_bs, blocks) if mesh.grouped else None
+        if mesh.grouped and not mesh.capturable and model.device.type == "cuda":
+            log.info("data parallel over %s: its collectives cannot be captured, so the "
+                     "train steps run eagerly", mesh.backend)
 
         hp = {f"model/{k}": v for k, v in model.hparams.items()
               if isinstance(v, (int, float, bool, str))}
@@ -216,7 +271,7 @@ class Trainer:
         k_exec = self.steps_per_execution
         if k_exec == "auto":
             k_exec = self._auto_steps_per_execution(model, state, train_arrays, batch_size,
-                                                    steps_per_epoch)
+                                                    steps_per_epoch, divisor, rows)
             log.info("steps_per_execution=auto resolved to %d", k_exec)
         self.steps_per_execution = k_exec            # resolved value, callback-visible
 
@@ -227,7 +282,7 @@ class Trainer:
         self.global_step = state.step
         last_saved = None
         acc = MetricAccumulator()
-        profiler = self._start_profile(device) if self.profile else None
+        profiler = self._start_profile(device) if self.profile and self.rank0 else None
         t_train = time.perf_counter()
         for epoch in range(start_epoch, self.max_epochs):
             self.current_epoch = epoch
@@ -236,7 +291,8 @@ class Trainer:
             n_batches = 0
             pending = None               # (step, device metrics), read one execution late
             batches = epoch_batches(train_arrays, batch_size, rng=data_rng,
-                                    shuffle=True, limit=self.limit_train_batches)
+                                    shuffle=True, limit=self.limit_train_batches,
+                                    divisor=divisor, rows=rows)
             for chunk in DevicePrefetcher(chunk_batches(batches, k_exec), device):
                 k = len(chunk[0])
                 if self.step_flops is None:
@@ -261,7 +317,7 @@ class Trainer:
                 torch.cuda.synchronize(device)
             self.state = state
             epoch_time = time.perf_counter() - epoch_t0
-            imgs_per_sec = n_batches * batch_size / max(epoch_time, 1e-9)
+            imgs_per_sec = n_batches * global_bs / max(epoch_time, 1e-9)
             self.logger.log_scalar("perf/imgs_per_sec", imgs_per_sec, self.global_step)
             self.logger.log_scalar("perf/epoch_time_sec", epoch_time, self.global_step)
             if device.type == "cuda" and self.step_flops:
@@ -274,27 +330,36 @@ class Trainer:
             log.info("epoch %d done in %.1fs (%.0f imgs/s) %s", epoch, epoch_time,
                      imgs_per_sec, {k: round(v, 4) for k, v in acc.compute().items()})
 
-            if ((epoch + 1) % self.check_val_every_n_epoch == 0
-                    or epoch == self.max_epochs - 1):
-                self._run_validation(val_arrays, batch_size, epoch)
-            model.on_train_epoch_end(self)
-            for cb in self.callbacks:
-                if hasattr(cb, "on_train_epoch_end"):
-                    cb.on_train_epoch_end(self, model)
+            if self.rank0:           # validation and the hooks: the whole batch, one process
+                with model.sharded(None):
+                    if ((epoch + 1) % self.check_val_every_n_epoch == 0
+                            or epoch == self.max_epochs - 1):
+                        self._run_validation(val_arrays, batch_size, epoch)
+                    model.on_train_epoch_end(self)
+                    for cb in self.callbacks:
+                        if hasattr(cb, "on_train_epoch_end"):
+                            cb.on_train_epoch_end(self, model)
+            barrier(mesh)
             if self.ckpt_manager is not None and (epoch + 1) % self.ckpt_every_n_epochs == 0:
-                self.ckpt_manager.save(state.step, state)
+                if self.rank0:
+                    self.ckpt_manager.save(state.step, state)
+                barrier(mesh)
                 last_saved = state.step
 
         if profiler is not None:
             self._stop_profile(profiler, device)
         self.state = state
         if self.ckpt_manager is not None:
-            if last_saved != state.step:
+            if last_saved != state.step and self.rank0:
                 self.ckpt_manager.save(state.step, state)
             self.ckpt_manager.wait()
-        for cb in self.callbacks:
-            if hasattr(cb, "on_train_end"):
-                cb.on_train_end(self, model)
+            barrier(mesh)
+        if self.rank0:
+            with model.sharded(None):
+                for cb in self.callbacks:
+                    if hasattr(cb, "on_train_end"):
+                        cb.on_train_end(self, model)
+        barrier(mesh)
         self.logger.finalize()
         log.info("fit finished in %.1fs", time.perf_counter() - t_train)
 
@@ -313,7 +378,8 @@ class Trainer:
         return max(1, min(max_k, int(k), max(steps_per_epoch, 1)))
 
     def _auto_steps_per_execution(self, model, state, train_arrays, batch_size: int,
-                                  steps_per_epoch: int) -> int:
+                                  steps_per_epoch: int, divisor: int = 1,
+                                  rows=None) -> int:
         """Time the K = 1 execution (on the card the captured step: one
         eager execution that is captured, then ``AUTO_TIMED`` replays
         timed; for a model whose branch alternates, one of each per step of
@@ -321,9 +387,10 @@ class Trainer:
         training batch, then restore the state as it was: parameters,
         buffers, optimizer state, EMA shadow, generator, step and update
         counts.  So ``auto`` never perturbs the trajectory.  A failure
-        raises."""
+        raises.  On a mesh every rank runs the probe (its steps' collectives
+        need them all) and rank 0's K is broadcast."""
         probe = next(iter(epoch_batches(train_arrays, batch_size, shuffle=False,
-                                        limit=1)), None)
+                                        limit=1, divisor=divisor, rows=rows)), None)
         if probe is None:
             return 1
         chunk = tuple(torch.from_numpy(a[None]).to(model.device) for a in probe)
@@ -341,6 +408,10 @@ class Trainer:
         finally:
             state.load_state_dict(saved)
         k = self.resolve_chain_k(t_step, steps_per_epoch)
+        if self.mesh is not None and self.mesh.grouped:
+            k_rank0 = torch.tensor([k], device=self.mesh.device)
+            torch.distributed.broadcast(k_rank0, src=0, group=self.mesh.group)
+            k = int(k_rank0.item())
         log.info("auto: the K = 1 step took %.3f ms; dispatch %.1f us -> K = %d",
                  1e3 * t_step, 1e6 * DISPATCH_S, k)
         return k
@@ -424,6 +495,9 @@ class Trainer:
         datamodule = datamodule or self.datamodule
         if self.state is None:
             raise RuntimeError("call fit() first")
-        self._run_validation(datamodule.val_arrays(), int(datamodule.batch_size),
-                             self.current_epoch)
+        if self.rank0:
+            with self.model.sharded(None):
+                self._run_validation(datamodule.val_arrays(), int(datamodule.batch_size),
+                                     self.current_epoch)
+        barrier(self.mesh)
         return dict(self.callback_metrics)

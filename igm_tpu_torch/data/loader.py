@@ -7,7 +7,9 @@ C++ host batcher (``data/native.py`` ``gather_rows``, as ``igm_tpu``'s
 loader gathers) into contiguous arrays, :func:`chunk_batches` stacks K of
 them for a chained execution (``steps_per_execution``), and
 :class:`DevicePrefetcher` stages the next batches (or chunks, each array
-one copy) on the device while the current step runs.
+one copy) on the device while the current step runs.  Under data
+parallelism each rank gathers, and copies to its card, only its own rows
+of each global batch (``epoch_batches(..., rows=)``).
 
 A prefetch worker's exception is re-raised in the training loop: a dying
 worker fails the epoch, it never shortens it.
@@ -24,16 +26,38 @@ import torch
 from . import native
 
 
+def global_batch(n: int, batch_size: int, divisor: int = 1) -> int:
+    """The rows of an epoch's batches: ``batch_size`` at most ``n``, and with
+    ``divisor`` > 1 (the ranks of a data-axis mesh, times the blocks a step
+    splits its batch into) rounded down to a multiple of it, as
+    ``igm_tpu/data/loader.py:25-44`` rounds it; a dataset too small for one
+    such batch raises."""
+    bs = int(batch_size)
+    if divisor > 1:
+        bs = max((bs // divisor) * divisor, divisor)
+    bs = min(bs, n)
+    if divisor > 1:
+        bs -= bs % divisor
+        if bs <= 0:
+            raise ValueError(f"dataset of {n} rows cannot form a single batch divisible by "
+                             f"the {divisor}-device mesh; reduce device count or grow data")
+    if bs <= 0:
+        raise ValueError(f"cannot form a batch of {batch_size} from {n} rows")
+    return bs
+
+
 def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int,
                   rng: Optional[np.random.Generator] = None,
                   shuffle: bool = False,
-                  limit: Optional[int] = None) -> Iterator[Tuple[np.ndarray, ...]]:
-    """Yield host batch tuples of exactly ``min(batch_size, rows)`` rows, the
-    remainder dropped; ``shuffle`` takes one ``rng.permutation`` per call."""
+                  limit: Optional[int] = None, divisor: int = 1,
+                  rows: Optional[np.ndarray] = None) -> Iterator[Tuple[np.ndarray, ...]]:
+    """Yield host batch tuples of :func:`global_batch` rows, the remainder
+    dropped; ``shuffle`` takes one ``rng.permutation`` per call.  ``rows``
+    (a data-axis rank's ``Mesh.local_rows`` of that global batch) gathers
+    only those rows of each batch: every rank runs the same order from the
+    same ``rng`` and holds its part of each global batch."""
     n = len(arrays[0])
-    bs = min(int(batch_size), n)
-    if bs <= 0:
-        raise ValueError(f"cannot form a batch of {batch_size} from {n} rows")
+    bs = global_batch(n, batch_size, divisor)
     if shuffle:
         if rng is None:
             raise ValueError("shuffle needs an rng")
@@ -45,6 +69,8 @@ def epoch_batches(arrays: Sequence[np.ndarray], batch_size: int,
         n_batches = min(n_batches, int(limit))
     for i in range(n_batches):
         idx = order[i * bs:(i + 1) * bs]
+        if rows is not None:
+            idx = idx[rows]
         yield tuple(native.gather_rows(a, idx) for a in arrays)
 
 

@@ -34,6 +34,7 @@ from ..config import instantiate
 from ..core.optim import OptimizerSet, adam, halving_lr
 from ..core.state import TrainState
 from ..networks.base import frozen_stats
+from ..parallel.mesh import all_reduce_sum
 from .base import BaseModel, ValidationResult
 from .gan import nan_metrics
 
@@ -47,13 +48,21 @@ def _normalize(z: torch.Tensor) -> torch.Tensor:
     return z / torch.clamp(torch.linalg.vector_norm(z, dim=-1, keepdim=True), min=1e-12)
 
 
-def calculate_kl(samples: torch.Tensor):
+def calculate_kl(samples: torch.Tensor, mesh=None):
     """KL(N(batch mean, batch variance) || N(0, 1)) averaged over the
     dimensions, with the unbiased variance; and the means of the batch mean
-    and variance."""
-    n = samples.shape[0]
-    mu = samples.mean(dim=0)
-    var = samples.var(dim=0, unbiased=False) * (n / max(n - 1, 1))
+    and variance.  On a data-axis mesh the batch is the global one: the
+    mean and the squared deviations summed over the ranks, the global n in
+    ``n / (n - 1)``."""
+    if mesh is None:
+        n = samples.shape[0]
+        mu = samples.mean(dim=0)
+        var = samples.var(dim=0, unbiased=False) * (n / max(n - 1, 1))
+    else:
+        n = samples.shape[0] * mesh.world
+        mu = all_reduce_sum(mesh, samples.sum(dim=0)) / n
+        var = (all_reduce_sum(mesh, ((samples - mu) ** 2).sum(dim=0)) / n
+               * (n / max(n - 1, 1)))
     kl = (mu ** 2 + var - torch.log(var)).mean() / 2.0
     return kl, mu.mean(), var.mean()
 
@@ -105,11 +114,11 @@ class AGE(BaseModel):
     def e_loss(self, imgs: torch.Tensor, z: torch.Tensor):
         hp = self.hparams
         real_z = self._encode(imgs, True)
-        real_kl, real_mu, real_var = calculate_kl(real_z)
+        real_kl, real_mu, real_var = calculate_kl(real_z, self.mesh)
         with torch.no_grad():
             fake_imgs = self.modules["decoder"](z, True).reshape(imgs.shape)
         fake_z = self._encode(fake_imgs, True)
-        fake_kl, fake_mu, fake_var = calculate_kl(fake_z)
+        fake_kl, fake_mu, fake_var = calculate_kl(fake_z, self.mesh)
         total = real_kl - fake_kl
         if hp.e_recon_x_weight > 0:
             total = total + hp.e_recon_x_weight * self._recon(imgs, real_z)
@@ -126,7 +135,7 @@ class AGE(BaseModel):
         hp = self.hparams
         fake_imgs = self.modules["decoder"](z, True).reshape(imgs.shape)
         fake_z = self._encode(fake_imgs, True)
-        fake_kl, _, _ = calculate_kl(fake_z)
+        fake_kl, _, _ = calculate_kl(fake_z, self.mesh)
         recon_z = torch.zeros((), device=z.device)
         if hp.g_recon_z_weight > 0:
             recon_z = torch.mean((fake_z - z) ** 2)

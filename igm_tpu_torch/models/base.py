@@ -55,6 +55,20 @@ model's ``train_step`` must therefore make every draw from
 the host but ``state.step`` and ``state.counts``, and take its branch from
 ``state.step % phase_period`` alone; every branch returns the same metric
 keys (NaN for what it does not compute).
+
+Data parallelism (``igm_tpu_torch.parallel``): :meth:`BaseModel.set_mesh`
+binds a data-axis mesh of several ranks (or of one NCCL rank) to the model,
+its optimizers and the modules that take batch statistics (Flax's
+BatchNorm, the EMA codebook; the Switch-MoE refuses more than one rank).
+A train step then runs on this rank's rows of the global batch, and every
+training draw with a batch axis goes through :meth:`BaseModel.batch_draw`:
+made at the global batch size from ``state.generator`` (the same on every
+rank), this rank's rows kept.  ``train_step_n`` averages each step's
+metrics over the ranks, so every rank holds the global batch's; under
+gloo, which a CUDA graph cannot capture, it runs the steps eagerly.
+:meth:`BaseModel.sharded` binds a mesh for a block (``sample_sharded``) or,
+with None, unbinds it (validation on rank 0 alone).  Without a mesh (one
+process) every draw is made as before, at the batch it is given.
 """
 from __future__ import annotations
 
@@ -69,6 +83,7 @@ from ..config.node import ConfigNode
 from ..core.graphs import StepGraph
 from ..core.optim import OptimizerSet
 from ..core.state import TrainState
+from ..parallel.mesh import Mesh, all_reduce_, batch_draw, take_rows
 from ..utils.platform import resolve_device
 
 
@@ -83,36 +98,39 @@ def merge_metrics(per_step):
 
 def draw_labels(model: "BaseModel", labels, n: int, gen, drop) -> Optional[torch.Tensor]:
     """Conditional models: the labels with the drop mask (drawn from
-    ``gen`` with ``cond_drop_prob`` when not given) set to the null token;
-    None for unconditional ones."""
+    ``gen`` with ``cond_drop_prob`` when not given, a batch draw) set to the
+    null token; None for unconditional ones."""
     if not model.num_classes:
         return None
     if drop is None:
-        drop = (torch.rand(n, generator=gen, device=model.device)
+        drop = (model.batch_draw(torch.rand, (n,), gen)
                 < float(model.hparams.cond_drop_prob))
     labels = labels.to(model.device, non_blocking=True).long()
     return torch.where(drop, torch.full_like(labels, model.num_classes), labels)
 
 
-def noise_source(shape, generator: Optional[torch.Generator], noises, device):
+def noise_source(model: "BaseModel", shape, generator: Optional[torch.Generator], noises):
     """A sampler's N(0, I) draws of ``shape``: the next of ``noises`` (given
-    in the order the sampler draws) when given, else one from
-    ``generator``."""
+    in the order the sampler draws) when given, else a batch draw from
+    ``generator`` (``model.batch_draw``)."""
     given = iter(noises) if noises is not None else None
 
     def draw() -> torch.Tensor:
         if given is not None:
             return next(given)
-        return torch.randn(shape, generator=generator, device=device)
+        return model.batch_draw(torch.randn, shape, generator)
 
     return draw
 
 
-def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+def gumbel_noise(shape, generator: Optional[torch.Generator], device,
+                 mesh: Optional[Mesh] = None, axis: int = 0) -> torch.Tensor:
     """Standard Gumbel draws, -log(-log(U)) with U in [tiny, 1): a
     categorical draw ``jax.random.categorical(key, logits)`` is
-    ``argmax(logits + gumbel)``."""
-    u = torch.rand(shape, generator=generator, device=device)
+    ``argmax(logits + gumbel)``.  ``axis`` is the batch's: on a data-axis
+    ``mesh`` the draw is made at the global batch and this rank's rows kept
+    (``parallel.mesh.batch_draw``)."""
+    u = batch_draw(mesh, torch.rand, shape, generator, device, axis=axis)
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 
@@ -142,6 +160,9 @@ class BaseModel:
     #: the steps after which the branch a train step takes repeats (the
     #: GANs' alternating phases); a chunk's graph is kept per starting phase
     phase_period: int = 1
+    #: the equal blocks a train step splits its batch into (FactorVAE's
+    #: halves): under data parallelism a rank holds its rows of each block
+    batch_blocks: int = 1
 
     def __init__(self, datamodule: Any, device: str | torch.device | None = None):
         self.width = int(datamodule["width"])
@@ -163,6 +184,8 @@ class BaseModel:
         # the model's own captured graphs (the samplers' denoiser), valid
         # while its parameters stay where they are
         self._graphs: dict = {}
+        # the data-axis mesh of several ranks (set_mesh); None: one process
+        self.mesh: Optional[Mesh] = None
 
     def save_hyperparameters(self, **kwargs: Any) -> None:
         for k, v in kwargs.items():
@@ -180,10 +203,56 @@ class BaseModel:
                 module.reset_parameters(generator)
         self.modules.to(self.device)
 
+    # ------------------------------------------------------- data parallel
+    def set_mesh(self, mesh: Optional[Mesh]) -> None:
+        """Bind a data-axis mesh (``parallel.make_mesh``) to the model, its
+        optimizers and the modules that take batch statistics; a mesh
+        without a process group (one process) binds nothing.  The modules
+        and optimizers ``init_state`` makes are bound when it makes them."""
+        self.mesh = mesh if mesh is not None and mesh.grouped else None
+        self._bind_mesh()
+
+    def _bind_mesh(self) -> None:
+        self.optimizers.mesh = self.mesh
+        for module in self.modules.modules():
+            if hasattr(module, "bind_mesh"):
+                module.bind_mesh(self.mesh)
+
+    @contextlib.contextmanager
+    def sharded(self, mesh: Optional[Mesh]):
+        """Within: the model bound to ``mesh`` (None: one process, as rank
+        0 validates the whole batch alone); the mesh it had after."""
+        saved = self.mesh
+        self.set_mesh(mesh)
+        try:
+            yield
+        finally:
+            self.set_mesh(saved)
+
+    def batch_draw(self, fn, shape, generator: Optional[torch.Generator], **kwargs
+                   ) -> torch.Tensor:
+        """``fn(shape, generator=, device=, **kwargs)`` (``torch.randn``,
+        ``torch.rand``, a ``functools.partial`` of ``torch.randint``), a draw
+        whose first axis is the batch: on a mesh, drawn at the global batch
+        and this rank's rows kept (``parallel.mesh.batch_draw``)."""
+        return batch_draw(self.mesh, fn, shape, generator, self.device, **kwargs)
+
+    def batch_rows(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a tensor over the global batch."""
+        return take_rows(self.mesh, full)
+
+    def _default_labels(self, n: int) -> torch.Tensor:
+        """Conditional samplers' labels: contiguous class blocks, so that
+        with n a multiple of the grid row the sample grid shows one class
+        per row (on a mesh, this rank's rows of the global batch's)."""
+        full = n * (1 if self.mesh is None else self.mesh.world)
+        return self.batch_rows(torch.arange(full, device=self.device) * self.num_classes // full)
+
     def make_state(self, seed: int) -> TrainState:
         """Parameters drawn from ``seed``, fresh optimizer states, and the
         training generator on the model's device seeded with ``seed + 1``."""
         self.init_params(seed)
+        self._bind_mesh()
         generator = torch.Generator(device=self.device).manual_seed(int(seed) + 1)
         return TrainState(modules=self.modules,
                           opt_states=self.optimizers.init(self.modules),
@@ -234,9 +303,9 @@ class BaseModel:
         return self.graphed("forward", lambda z: net(z, train=False).reshape(shape), z)
 
     def latent_noise(self, n: int, generator: Optional[torch.Generator]) -> torch.Tensor:
-        """(n, latent_dim) N(0, I) draws on the model's device."""
-        return torch.randn((n, int(self.hparams["latent_dim"])), generator=generator,
-                           device=self.device)
+        """(n, latent_dim) N(0, I) draws on the model's device (a batch
+        draw)."""
+        return self.batch_draw(torch.randn, (n, int(self.hparams["latent_dim"])), generator)
 
     @torch.no_grad()
     def sample(self, n: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -258,10 +327,13 @@ class BaseModel:
         raise NotImplementedError
 
     def _steps(self, state: TrainState, batches):
-        """The K eager train steps of a chunk and their merged metrics."""
+        """The K eager train steps of a chunk and their merged metrics (on a
+        mesh each step's averaged over the ranks)."""
         per_step = []
         for i in range(len(batches[0])):
             state, metrics = self.train_step(state, tuple(b[i] for b in batches))
+            if self.mesh is not None:
+                metrics = dict(zip(metrics, all_reduce_(self.mesh, list(metrics.values()))))
             per_step.append(metrics)
         return state, merge_metrics(per_step)
 
@@ -288,8 +360,10 @@ class BaseModel:
         return state, metrics
 
     def _graphed(self, graph: bool) -> bool:
-        """Whether ``train_step_n`` runs its chunk as a CUDA graph."""
-        return graph and self.use_graphs and self.device.type == "cuda"
+        """Whether ``train_step_n`` runs its chunk as a CUDA graph: not
+        under gloo, whose collectives a graph cannot capture."""
+        return (graph and self.use_graphs and self.device.type == "cuda"
+                and (self.mesh is None or self.mesh.capturable))
 
     def _capture_chunk(self, state: TrainState) -> "_ChunkGraph":
         """The graph of a chunk that starts at ``state.step``, to be run

@@ -156,7 +156,7 @@ class ConsistencyModel(BaseModel):
     def draw_index(self, n: int, generator: torch.Generator) -> torch.Tensor:
         """n pair indices ~ p(i), by Gumbel-max over log p: on the device,
         without a host sync, so a CUDA graph can capture it."""
-        u = torch.rand((n, self._logp.shape[0]), generator=generator, device=self.device)
+        u = self.batch_draw(torch.rand, (n, self._logp.shape[0]), generator)
         return torch.argmax(self._logp - torch.log(-torch.log(u)), dim=1)
 
     def train_step(self, state: TrainState, batch, i: Optional[torch.Tensor] = None,
@@ -171,7 +171,7 @@ class ConsistencyModel(BaseModel):
         if i is None:
             i = self.draw_index(n, gen)
         if noise is None:
-            noise = torch.randn(x.shape, generator=gen, device=self.device)
+            noise = self.batch_draw(torch.randn, x.shape, gen)
         y = labels.to(self.device, non_blocking=True).long() if self.num_classes else None
         self.modules.train()
         try:
@@ -184,9 +184,6 @@ class ConsistencyModel(BaseModel):
         return state, metrics
 
     # --------------------------------------------------------------- sampling
-    def _default_labels(self, n: int) -> torch.Tensor:
-        return torch.arange(n, device=self.device) * self.num_classes // n
-
     def refinement_sigmas(self, steps: int) -> np.ndarray:
         """The descending float32 levels of the ``steps - 1`` refinements:
         evenly spaced in grid index strictly between sigma_max and
@@ -205,7 +202,7 @@ class ConsistencyModel(BaseModel):
         steps = int(hp.sample_steps) if steps is None else int(steps)
         smin, smax = float(hp.sigma_min), float(hp.sigma_max)
         shape = (n, self.height, self.width, self.channels)
-        draw = noise_source(shape, generator, noises, self.device)
+        draw = noise_source(self, shape, generator, noises)
         x = draw() * smax
         f = self._f_ema(x, torch.full((n,), smax, device=self.device), y)
         if steps <= 1:

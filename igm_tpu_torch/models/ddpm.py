@@ -30,6 +30,7 @@ entropy and smallest share (``moe/load_entropy``, ``moe/min_share``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional, Sequence
 
@@ -232,10 +233,9 @@ class DDPM(BaseModel):
         n = imgs.shape[0]
         gen = state.generator
         if t is None:
-            t = torch.randint(0, self.timesteps, (n,), generator=gen,
-                              device=self.device)
+            t = self.batch_draw(functools.partial(torch.randint, 0, self.timesteps), (n,), gen)
         if noise is None:
-            noise = torch.randn(imgs.shape, generator=gen, device=self.device)
+            noise = self.batch_draw(torch.randn, imgs.shape, gen)
         y = draw_labels(self, labels, n, gen, drop)
         self.modules.train()
         try:
@@ -281,7 +281,7 @@ class DDPM(BaseModel):
         return self.sample(n_s, generator)
 
     def _noise(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
-        return torch.randn(shape, generator=generator, device=self.device)
+        return self.batch_draw(torch.randn, shape, generator)
 
     # --------------------------------------------------------------- sampling
     def _denoise(self, x: torch.Tensor, t: torch.Tensor,
@@ -359,11 +359,6 @@ class DDPM(BaseModel):
             x = self.p_sample(x, tb, generator, y=y, guidance=guidance,
                               noise=None if noises is None else noises[i])
         return x
-
-    def _default_labels(self, n: int) -> torch.Tensor:
-        """Contiguous class blocks: with n a multiple of the grid row the
-        sample grid shows one class per row."""
-        return torch.arange(n, device=self.device) * self.num_classes // n
 
     @torch.no_grad()
     def sample(self, n: int, generator: Optional[torch.Generator] = None,

@@ -35,6 +35,7 @@ draws as tensors and ``student_sample`` its initial draw as ``noises``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -178,10 +179,10 @@ class ProgressiveDistillation(DDPM):
         n = imgs.shape[0]
         gen = state.generator
         if i is None:
-            i = torch.randint(1, int(self.hparams["student_steps"]) + 1, (n,), generator=gen,
-                              device=self.device)
+            i = self.batch_draw(functools.partial(
+                torch.randint, 1, int(self.hparams["student_steps"]) + 1), (n,), gen)
         if noise is None:
-            noise = torch.randn(imgs.shape, generator=gen, device=self.device)
+            noise = self.batch_draw(torch.randn, imgs.shape, gen)
         self.modules.train()
         try:
             state, _, metrics = self.optimizers.grad_step(
@@ -199,7 +200,7 @@ class ProgressiveDistillation(DDPM):
         """N deterministic DDIM steps on the times the student was distilled
         for, the phase grid's even entries from T-1 down to 0."""
         seq = self._phase_grid()[::2][::-1].tolist()
-        x = noise_source(self._sample_shape(n), generator, noises, self.device)()
+        x = noise_source(self, self._sample_shape(n), generator, noises)()
         for t_cur, t_next in zip(seq[:-1], seq[1:]):
             tb = torch.full((n,), t_cur, dtype=torch.long, device=self.device)
             eps = self._eps(x, tb.float())

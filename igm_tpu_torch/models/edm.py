@@ -159,9 +159,9 @@ class EDM(BaseModel):
         gen = state.generator
         hp = self.hparams
         if sigma_draw is None:
-            sigma_draw = torch.randn(n, generator=gen, device=self.device)
+            sigma_draw = self.batch_draw(torch.randn, (n,), gen)
         if noise is None:
-            noise = torch.randn(x.shape, generator=gen, device=self.device)
+            noise = self.batch_draw(torch.randn, x.shape, gen)
         y = draw_labels(self, labels, n, gen, drop)
         sigma = torch.exp(float(hp.p_mean) + float(hp.p_std) * sigma_draw)
         self.modules.train()
@@ -175,9 +175,6 @@ class EDM(BaseModel):
         return state, metrics
 
     # --------------------------------------------------------------- sampling
-    def _default_labels(self, n: int) -> torch.Tensor:
-        return torch.arange(n, device=self.device) * self.num_classes // n
-
     @torch.no_grad()
     def heun_sample(self, n: int, steps: Optional[int] = None, y=None,
                     guidance: float = 1.0, generator: Optional[torch.Generator] = None,
@@ -191,7 +188,7 @@ class EDM(BaseModel):
                                float(hp.rho))
         shape = (n, self.height, self.width, self.channels)
         if noise is None:
-            noise = torch.randn(shape, generator=generator, device=self.device)
+            noise = self.batch_draw(torch.randn, shape, generator)
         x = noise * float(sigmas[0])
         for s_cur, s_next in zip(sigmas[:-2], sigmas[1:-1]):
             ds = float(s_next - s_cur)                        # float32, as the scan's

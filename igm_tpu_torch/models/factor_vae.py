@@ -25,6 +25,11 @@ The draws (the two halves' N(0, I) noise and the permutations) come from
 ``state.generator`` on the device, in that order, unless given: a
 permutation per latent dimension is the ``argsort`` of uniform noise down
 that column, so the step stays capturable.
+
+Under data parallelism (``batch_blocks = 2``) a rank holds its rows of
+each half; the noise is drawn at the global halves and the permutations
+over the global second half: ``z`` is all-gathered, permuted as one
+process permutes it, and the rank keeps its rows.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from torch import nn
 from ..config import instantiate
 from ..core.optim import OptimizerSet, adam
 from ..core.state import TrainState
+from ..parallel.mesh import all_gather_rows
 from ..networks.base import frozen_stats
 from ..networks.basic import MLPEncoder
 from ..utils.distributions import get_decode_dist
@@ -60,6 +66,7 @@ def permute_dims(z: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 class FactorVAE(BaseModel):
     weights_module = "decoder"
+    batch_blocks = 2
 
     def __init__(self, datamodule: Any, encoder: Any = None, decoder: Any = None,
                  loss_mode: str = "lsgan", adv_weight: float = 1, latent_dim: int = 10,
@@ -119,21 +126,25 @@ class FactorVAE(BaseModel):
     def train_step(self, state: TrainState, batch, eps1: Optional[torch.Tensor] = None,
                    eps2: Optional[torch.Tensor] = None, perm: Optional[torch.Tensor] = None):
         """``eps1``/``eps2`` (the halves' noise, (N/2, L)) and ``perm``
-        ((N/2, L), :func:`permute_dims`) replace the draws."""
+        ((N/2, L) over the global half, :func:`permute_dims`) replace the
+        draws."""
         imgs1, imgs2 = torch.chunk(self.preprocess(batch[0]), 2, dim=0)
         gen, latent = state.generator, int(self.hparams.latent_dim)
         if eps1 is None:
             eps1 = self.latent_noise(imgs1.shape[0], gen)
         if eps2 is None:
             eps2 = self.latent_noise(imgs2.shape[0], gen)
-        if perm is None:
-            perm = draw_permutations(imgs2.shape[0], latent, gen, self.device)
+        world = 1 if self.mesh is None else self.mesh.world
+        if perm is None:      # over the global second half
+            perm = draw_permutations(imgs2.shape[0] * world, latent, gen, self.device)
         state, _, aux = self.optimizers.grad_step(state, "ae",
                                                   lambda: self.ae_loss(imgs1, eps1))
         metrics = dict(aux["metrics"])
         with torch.no_grad():        # the encoder after the AE step, its output detached
             z2, _, _ = reparameterize(self.modules["encoder"](imgs2, True), eps2)
-            perm_z = permute_dims(z2, perm)
+            if self.mesh is not None:
+                z2 = all_gather_rows(self.mesh, z2)
+            perm_z = self.batch_rows(permute_dims(z2, perm))
         state, _, d_metrics = self.optimizers.grad_step(
             state, "d", lambda: self.d_loss(perm_z, aux["z1"]))
         metrics.update(d_metrics)

@@ -108,9 +108,9 @@ class FlowMatching(BaseModel):
         n = x1.shape[0]
         gen = state.generator
         if t is None:
-            t = torch.rand(n, generator=gen, device=self.device)
+            t = self.batch_draw(torch.rand, (n,), gen)
         if noise is None:
-            noise = torch.randn(x1.shape, generator=gen, device=self.device)
+            noise = self.batch_draw(torch.randn, x1.shape, gen)
         y = draw_labels(self, labels, n, gen, drop)
         self.modules.train()
         try:
@@ -142,9 +142,6 @@ class FlowMatching(BaseModel):
         v_y, v_null = torch.chunk(v2, 2)
         return v_null + guidance * (v_y - v_null)
 
-    def _default_labels(self, n: int) -> torch.Tensor:
-        return torch.arange(n, device=self.device) * self.num_classes // n
-
     @torch.no_grad()
     def ode_sample(self, n: int, steps: Optional[int] = None, y=None,
                    guidance: float = 1.0, generator: Optional[torch.Generator] = None,
@@ -153,7 +150,7 @@ class FlowMatching(BaseModel):
         ``sample_steps``) fixed steps; ``x0`` replaces the initial draw."""
         steps = int(self.hparams.sample_steps) if steps is None else int(steps)
         shape = (n, self.height, self.width, self.channels)
-        x = torch.randn(shape, generator=generator, device=self.device) if x0 is None else x0
+        x = self.batch_draw(torch.randn, shape, generator) if x0 is None else x0
         dt = np.float32(1.0 / steps)
         heun = self.hparams.sampler == "heun"
         for i in range(steps):

@@ -23,6 +23,7 @@ epoch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -100,11 +101,10 @@ class InfoGAN(BaseModel):
     def draw_codes(self, n: int, generator: Optional[torch.Generator] = None):
         """(discrete indices (n, discrete_dim), continuous codes, noise)."""
         hp = self.hparams
-        dis = torch.randint(0, hp.discrete_value, (n, hp.discrete_dim), generator=generator,
-                            device=self.device)
-        cont = torch.rand((n, hp.continuous_dim), generator=generator,
-                          device=self.device) * 2.0 - 1.0
-        z = torch.randn((n, hp.noise_dim), generator=generator, device=self.device)
+        dis = self.batch_draw(functools.partial(torch.randint, 0, hp.discrete_value),
+                              (n, hp.discrete_dim), generator)
+        cont = self.batch_draw(torch.rand, (n, hp.continuous_dim), generator) * 2.0 - 1.0
+        z = self.batch_draw(torch.randn, (n, hp.noise_dim), generator)
         return dis, cont, z
 
     def make_latent(self, dis: torch.Tensor, cont: torch.Tensor, z: torch.Tensor):

@@ -332,7 +332,7 @@ class MADE(BaseModel):
         img = (torch.full((n, d), -1.0, device=self.device) if init_flat is None
                else init_flat.to(self.device).float().clone())
         if gumbels is None:
-            gumbels = gumbel_noise((d, n, N_CLASS), generator, self.device)
+            gumbels = gumbel_noise((d, n, N_CLASS), generator, self.device, self.mesh, axis=1)
         for i in range(d):
             logits = self.net.pixel_logits(img, i)
             value = torch.argmax(logits + gumbels[i], dim=-1).float() / 255.0

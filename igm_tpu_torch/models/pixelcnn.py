@@ -351,6 +351,9 @@ class PixelCNN(BaseModel):
         img = (torch.full((n, self.height, self.width, self.channels), -1.0,
                           device=self.device)
                if init_img is None else init_img.to(self.device).float())
+        if gumbels is None:          # batch axis 2: on a mesh, the global batch's draw
+            gumbels = gumbel_noise((self.height, self.width, img.shape[0], self.channels,
+                                    N_CLASS), generator, self.device, self.mesh, axis=2)
         return self.net.sample_rows(img, self.input_normalize, cond, generator, gumbels)
 
     @torch.no_grad()

@@ -212,7 +212,7 @@ class RealNVP(BaseModel):
         return (-(log_prior + ld_flow + ld_pre) / (self.dims * LOG2) + 8.0).mean()
 
     def _noise(self, imgs_raw, generator) -> torch.Tensor:
-        return torch.rand(imgs_raw.shape, generator=generator, device=self.device)
+        return self.batch_draw(torch.rand, imgs_raw.shape, generator)
 
     # ------------------------------------------------------------------ train
     def train_step(self, state: TrainState, batch, u: Optional[torch.Tensor] = None):
@@ -238,8 +238,9 @@ class RealNVP(BaseModel):
         latents ``z`` (n, H/2, W/2, 4C), drawn from ``generator`` when not
         given; on the card a CUDA graph per batch (``use_graphs``)."""
         if z is None:
-            z = torch.randn((n, self.height // 2, self.width // 2, 4 * self.channels),
-                            generator=generator, device=self.device)
+            z = self.batch_draw(torch.randn,
+                                (n, self.height // 2, self.width // 2, 4 * self.channels),
+                                generator)
         return self.graphed("sample", self._decode, z)
 
     def _decode(self, z: torch.Tensor) -> torch.Tensor:

@@ -178,12 +178,12 @@ class ScoreSDE(BaseModel):
         n = x.shape[0]
         gen = state.generator
         if t is None:
-            t = torch.rand(n, generator=gen, device=self.device)
+            t = self.batch_draw(torch.rand, (n,), gen)
             if self.hparams.sde != "ve":
                 lo = float(self.hparams.t_eps)
                 t = t * (1.0 - lo) + lo
         if noise is None:
-            noise = torch.randn(x.shape, generator=gen, device=self.device)
+            noise = self.batch_draw(torch.randn, x.shape, gen)
         self.modules.train()
         try:
             state, _, metrics = self.optimizers.grad_step(
@@ -218,7 +218,7 @@ class ScoreSDE(BaseModel):
         m_corr = int(hp.corrector_steps) if corrector_steps is None else int(corrector_steps)
         r = float(hp.snr)
         shape = (n, self.height, self.width, self.channels)
-        draw = noise_source(shape, generator, noises, self.device)
+        draw = noise_source(self, shape, generator, noises)
         if hp.sde != "ve":
             return self._pc_sample_vp(n, steps, m_corr, r, draw)
         grid = ve_sigma_grid(steps, float(hp.sigma_min), float(hp.sigma_max))
@@ -271,7 +271,7 @@ class ScoreSDE(BaseModel):
         hp = self.hparams
         steps = int(hp.sample_steps) if steps is None else int(steps)
         shape = (n, self.height, self.width, self.channels)
-        x = noise_source(shape, generator, noises, self.device)()
+        x = noise_source(self, shape, generator, noises)()
         if hp.sde != "ve":
             return self._ode_sample_vp(n, steps, x)
         grid = ve_sigma_grid(steps, float(hp.sigma_min), float(hp.sigma_max))

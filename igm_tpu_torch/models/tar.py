@@ -43,6 +43,7 @@ from ..core.optim import OptimizerSet, adam, step_lr
 from ..core.state import TrainState
 from ..networks.attention import MultiHeadDotProductAttention
 from ..networks.base import Dense, Embed, LayerNorm
+from ..parallel.mesh import batch_draw
 from .base import BaseModel, ValidationResult, gumbel_noise
 
 LOG2 = math.log(2.0)
@@ -50,13 +51,14 @@ FFN = 1024                       # igm_tpu's TARNet hard-codes the FFN width
 
 
 def _dropout(x: torch.Tensor, rate: float, train: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Optional[torch.Generator], mesh=None) -> torch.Tensor:
     """Flax ``nn.Dropout``: ``where(kept, x / keep, 0)``, the keep mask drawn
-    from ``generator``."""
+    from ``generator`` (on a data-axis mesh at the global batch, this rank's
+    rows kept)."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = batch_draw(mesh, torch.rand, x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -81,6 +83,13 @@ class TransformerEncoderLayer(nn.Module):
         self.Dense_0 = Dense(d_model, dim_feedforward, dtype=dtype)
         self.Dense_1 = Dense(dim_feedforward, d_model, dtype=dtype)
         self.LayerNorm_1 = LayerNorm(d_model, 1e-5, dtype)
+        self.mesh = None
+
+    def bind_mesh(self, mesh) -> None:
+        """A data-axis mesh: x then holds this rank's rows of the global
+        batch, and the dropout masks are the global batch's (None: one
+        process)."""
+        self.mesh = mesh
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -89,11 +98,11 @@ class TransformerEncoderLayer(nn.Module):
         x = x.to(self.dtype) if self.dtype is not None else x
         a = self.MultiHeadDotProductAttention_0(x, train=train, generator=generator,
                                                 seed=attn_seed, decode=decode)
-        a = _dropout(a, self.dropout, train, generator)
+        a = _dropout(a, self.dropout, train, generator, self.mesh)
         x = self.LayerNorm_0(x + a)
         f = F.relu(self.Dense_0(x))
-        f = _dropout(f, self.dropout, train, generator)
-        f = _dropout(self.Dense_1(f), self.dropout, train, generator)
+        f = _dropout(f, self.dropout, train, generator, self.mesh)
+        f = _dropout(self.Dense_1(f), self.dropout, train, generator, self.mesh)
         return self.LayerNorm_1(x + f)
 
 
@@ -267,7 +276,8 @@ class TAR(BaseModel):
         net = self.net
         tokens = init_tokens.to(self.device).long().clone()
         if gumbels is None:
-            gumbels = gumbel_noise((s - 1, n, self.n_tokens), generator, self.device)
+            gumbels = gumbel_noise((s - 1, n, self.n_tokens), generator, self.device,
+                                   self.mesh, axis=1)
         net.init_cache(n, s)
         try:
             for i in range(s - 1):

@@ -16,6 +16,7 @@ accepted.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -25,6 +26,7 @@ from ..config import instantiate
 from ..core.optim import OptimizerSet, adam
 from ..core.state import TrainState
 from ..ops.vq import quantize
+from ..parallel.mesh import all_reduce_
 from .base import BaseModel, ValidationResult
 
 
@@ -39,7 +41,10 @@ class VectorQuantizer(nn.Module):
     ``cluster_sum`` are buffers, where ``igm_tpu`` keeps its ``codebook``
     mutable collection, so they ride the state_dict and the checkpoints;
     each training forward moves every used code toward the mean of the
-    encoder vectors assigned to it, with Laplace-smoothed counts.
+    encoder vectors assigned to it, with Laplace-smoothed counts.  Bound to
+    a data-axis mesh (``bind_mesh``), the batch's counts and sums are summed
+    over the ranks first, so every rank moves the codebook as one process
+    on the global batch does.
     """
 
     def __init__(self, num_embeddings: int, latent_dim: int, ema: bool = False,
@@ -54,6 +59,10 @@ class VectorQuantizer(nn.Module):
             self.register_buffer("cluster_sum", torch.empty(k, d))
         else:
             self.embedding = nn.Parameter(torch.empty(k, d))
+        self.mesh = None
+
+    def bind_mesh(self, mesh) -> None:
+        self.mesh = mesh
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         k = self.num_embeddings
@@ -84,6 +93,8 @@ class VectorQuantizer(nn.Module):
         onehot = torch.nn.functional.one_hot(idx.long(), k).float()   # (M, K)
         counts = onehot.sum(dim=0)
         sums = onehot.T @ flat.float()
+        if self.mesh is not None:
+            counts, sums = all_reduce_(self.mesh, [counts, sums], mean=False)
         cs = g * self.cluster_size + (1.0 - g) * counts
         csum = g * self.cluster_sum + (1.0 - g) * sums
         total = cs.sum()
@@ -179,9 +190,9 @@ class VQVAE(BaseModel):
         learned prior over its codes (the trained prior over this latent
         space is ``experiment=latent_ddpm/*``); this keeps the generic
         sampling tools runnable, as ``igm_tpu``'s override does."""
-        idx = torch.randint(0, int(self.hparams.num_embeddings),
-                            (n, self.latent_h * self.latent_w), generator=generator,
-                            device=self.device)
+        idx = self.batch_draw(functools.partial(torch.randint, 0,
+                                                int(self.hparams.num_embeddings)),
+                              (n, self.latent_h * self.latent_w), generator)
         quant = self.codebook()[idx].reshape(n, self.latent_h, self.latent_w,
                                              int(self.hparams.latent_dim))
         imgs = self.modules["decoder"](quant)

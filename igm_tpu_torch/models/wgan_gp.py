@@ -100,7 +100,7 @@ class WGAN(BaseModel):
         if z is None:
             z = self.latent_noise(n, state.generator)
         if lerp is None:
-            lerp = torch.rand((n, 1, 1, 1), generator=state.generator, device=self.device)
+            lerp = self.batch_draw(torch.rand, (n, 1, 1, 1), state.generator)
         if state.step % self.phase_period == self.hparams.n_critic:
             state, _, metrics = self.optimizers.grad_step(state, "g", lambda: self.g_loss(z))
         else:

@@ -83,6 +83,12 @@ class MultiHeadDotProductAttention(nn.Module):
         self.cached_key: Optional[torch.Tensor] = None
         self.cached_value: Optional[torch.Tensor] = None
         self.cache_index = 0
+        self.mesh = None
+
+    def bind_mesh(self, mesh) -> None:
+        """A data-axis mesh: x then holds this rank's rows of the global
+        batch (None: one process)."""
+        self.mesh = mesh
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         return t.reshape(*t.shape[:-1], self.num_heads, self.head_dim)
@@ -102,7 +108,10 @@ class MultiHeadDotProductAttention(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 seed: Optional[torch.Tensor] = None, decode: bool = False) -> torch.Tensor:
         """x: (N, S, d) -> (N, S, d).  ``seed`` replaces the draw of the
-        ``dropout``/``hashdrop`` modes."""
+        ``dropout``/``hashdrop`` modes.  On a data-axis mesh (``bind_mesh``) x holds
+        this rank's rows of the global batch: the hash's per-(b, h) seed
+        ``seed + b*H + h`` takes the global b, by passing the kernels
+        ``seed + rank * N * H`` (mod 2**32, as they reduce it)."""
         q, k, v = (self._heads(getattr(self, n)(x)) for n in ("query", "key", "value"))
         dtype = q.dtype
         if decode:
@@ -116,6 +125,8 @@ class MultiHeadDotProductAttention(nn.Module):
         elif mode in ("dropout", "hashdrop"):
             if active and seed is None:
                 seed = draw_seed(generator, x.device)
+            if active and self.mesh is not None:
+                seed = seed + self.mesh.rank * x.shape[0] * self.num_heads
             fn = dropout_flash_attention if mode == "dropout" else hash_dropout_attention
             kwargs = {} if mode == "dropout" else {"mask": causal_mask(q.shape[1], x.device),
                                                    "dtype": dtype}

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
+
 
 def _uniform(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     bound = 1.0 / math.sqrt(max(fan_in, 1))
@@ -232,6 +234,17 @@ def _fast_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     return mean, var
 
 
+def _global_stats(x: torch.Tensor, dims, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_fast_stats` over the global batch of a data-axis mesh: the
+    sums of x and x^2 over this rank's rows, summed over the ranks (one
+    differentiable all-reduce), over the global count."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    count = x.numel() // x.shape[-1] * mesh.world
+    sums = all_reduce_sum(mesh, torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]))
+    mean, mean_sq = sums[0] / count, sums[1] / count
+    return mean, torch.clamp(mean_sq - mean * mean, min=0.0)
+
+
 def _normalize(x, mean, var, eps: float, scale=None, bias=None) -> torch.Tensor:
     """Flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
     mul = torch.rsqrt(var + eps)
@@ -249,7 +262,10 @@ class BatchNorm(nn.Module):
     (Flax's ``batch_stats``) to ``0.9 * old + 0.1 * batch``, the biased
     variance where torch would take the unbiased one; in eval mode it reads
     the buffers.  ``update_stats = False`` keeps the train-mode output and
-    leaves the buffers as they are."""
+    leaves the buffers as they are.  Bound to a data-axis mesh
+    (``bind_mesh``), train mode takes the global batch's statistics: the
+    mean and E[x^2] summed over the ranks before the normalisation and the
+    running-average update."""
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
         super().__init__()
@@ -259,6 +275,10 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.mesh = None
+
+    def bind_mesh(self, mesh) -> None:
+        self.mesh = mesh
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -270,7 +290,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         if not train:
             return _normalize(x, self.mean, self.var, self.epsilon, self.scale, self.bias)
-        mean, var = _fast_stats(x, tuple(range(x.ndim - 1)))
+        dims = tuple(range(x.ndim - 1))
+        mean, var = (_fast_stats(x, dims) if self.mesh is None
+                     else _global_stats(x, dims, self.mesh))
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum

@@ -54,8 +54,8 @@ from .base import FlaxDense
 from .moe import SwitchMoE
 from .unet import Embed, sinusoidal_pos_emb
 
-PARALLEL_REFUSED = ("is parallelism, which the port has not reached yet "
-                    "(ROADMAP Queue 1 item 8)")
+PARALLEL_REFUSED = ("is ROADMAP Queue 1 slice 7c (sequence and pipeline "
+                    "parallelism), not ported yet")
 
 
 def _sincos_2d(h: int, w: int, dim: int) -> np.ndarray:

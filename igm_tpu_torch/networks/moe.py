@@ -24,6 +24,11 @@ tensors (no host synchronisation, so a CUDA graph can capture the step).
 Initialisation mirrors Flax's: ``lecun_normal`` on the 3-D expert leaves
 counts E into the fan-in (``w_up`` std 1/sqrt(E d), ``w_dn`` 1/sqrt(E h)),
 the router lecun_normal over d, zero biases.
+
+Under data parallelism of more than one rank the capacity and the slots
+would have to count the global batch's tokens (a cumulative sum across the
+ranks): ``bind_mesh`` refuses such a mesh until ROADMAP slice 7d gives the
+MoE global routing.
 """
 from __future__ import annotations
 
@@ -50,6 +55,13 @@ class SwitchMoE(nn.Module):
         self.b_up = nn.Parameter(torch.empty(experts, hidden))
         self.w_dn = nn.Parameter(torch.empty(experts, hidden, dim))
         self.b_dn = nn.Parameter(torch.empty(experts, dim))
+
+    def bind_mesh(self, mesh) -> None:
+        if mesh is not None and mesh.world > 1:
+            raise NotImplementedError(
+                "the Switch-MoE under data parallelism (more than one rank) needs global "
+                "routing (the capacity and slots over the global batch's tokens), "
+                "ROADMAP Queue 1 slice 7d, not ported yet")
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         e = self.experts

@@ -41,7 +41,9 @@ def train(config: Any, device: str | torch.device | None = None):
     for cb_conf in (config.get("callbacks") or {}).values():
         if isinstance(cb_conf, dict) and "_target_" in cb_conf:
             callbacks.append(instantiate(cb_conf))
-    logger = instantiate(config.logger) if config.get("logger") else None
+    # under data parallelism rank 0 alone writes the logs
+    rank0 = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+    logger = instantiate(config.logger) if config.get("logger") and rank0 else None
 
     trainer = instantiate(config.trainer, callbacks=callbacks, logger=logger)
     if config.get("seed") is not None:

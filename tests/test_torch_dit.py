@@ -125,13 +125,13 @@ def test_dit_flash_refuses_tokens_off_the_128_block():
 
 def test_dit_refuses_parallel_meshes():
     for kw in (dict(pipe_mesh=object()), dict(sp_mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Queue 1 slice 7c"):
             DiT(channels=3, **SMALL, **kw)
     m = DDPM({"width": 8, "height": 8, "channels": 3}, network="dit", hidden_dim=32,
              depth=1, heads=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 slice 7c"):
         m.enable_sequence_parallel(None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 slice 7c"):
         m.enable_pipeline(None)
 
 

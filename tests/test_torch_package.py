@@ -105,6 +105,7 @@ def test_compose_and_instantiate_without_jax_in_a_fresh_process():
         from igm_tpu_torch.data.packaged import load_real_digits
         assert load_real_digits()[0].shape == (1797, 8, 8)
         from igm_tpu_torch.core.checkpoint import read_checkpoint  # noqa: F401
+        import igm_tpu_torch.parallel, igm_tpu_torch.parallel.launch  # noqa: F401
         bad = [m for m in sys.modules
                if m.split(".")[0] in {FORBIDDEN!r} + ("sklearn", "matplotlib")]
         assert not bad, bad

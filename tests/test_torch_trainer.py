@@ -104,7 +104,7 @@ def test_trainer_takes_one_device_only():
     Trainer(mesh={"data": -1, "model": 1})
     with pytest.raises(NotImplementedError):
         Trainer(mesh={"data": -1, "model": 2})
-    with pytest.raises(NotImplementedError):
-        Trainer(devices=4)
+    with pytest.raises(ValueError, match="launch them"):
+        Trainer(devices=4)          # its ranks: python -m igm_tpu_torch.train trainer.devices=4
     with pytest.raises(ValueError):
         Trainer(steps_per_execution="sometimes")
