@@ -90,7 +90,10 @@ and prints no result line):
           the fused-block kernel (and of the Block's GroupNorm+Mish); no
           other path launches it.
   dit     the DiT backbone, its Switch-MoE, EDM and flow matching, counters
-          zeroed just before and read just after: full-width DiT forwards
+          zeroed just before and read just after: the MoE DiT's routing at
+          batch 4, card against CPU (igm_tpu_torch/tools/moe_routing.py:
+          the tokens whose expert or kept slot differs, with their top-1
+          router-logit margins); full-width DiT forwards
           (384 wide, 8 deep, 6 heads, batch 8, f32, TF32 off) on the card
           against the same weights on the CPU, the xla, flash and scan arms
           and an MoE DiT (8 experts every 2nd block, scatter); one f32
@@ -259,15 +262,25 @@ and prints no result line):
           sample_sharded: on the NCCL rank bit for bit the one-process
           sampler, over the two gloo ranks bit for bit one process on each
           half of x_T and within PARALLEL_SAMPLE_MEAN_ATOL (mean absolute)
-          of one process on 64.
+          of one process on 64; (d) the model axis and the MoE's global
+          routing on the same two gloo ranks, 2 eager steps each against
+          one process on the global batch (PARALLEL_MODEL_AXIS): FSDP
+          (1, 2) on the full-width flagship at 256 bit for bit, exactly
+          25 + 25 + 6 + 6 hand launches a rank a step, each rank's state
+          under one process's; tensor (1, 2) on the full-width DiT in f32
+          at 32 and the f32 MoE DiT at 16 on two data ranks (the same
+          dropped tokens as one process) within PARALLEL_TOL.
   parallel_cards  (--only, on a host of more than one card; the default run
-          leaves it out) one NCCL rank a card, spawned: the flagship's eager
-          step on 256 rows a rank against one process on card 0 on the whole
-          global batch (as phase parallel's (b)), 3 graphed steps with the
-          all-reduces inside the graph (every rank's state equal bit for
-          bit), the graphed step's ms a rank against one card's at 256;
-          then the train CLI with trainer.devices=-1 for 2 epochs of 64
-          rows a rank (rank 0's checkpoints at the steps one process reaches).
+          leaves it out) one NCCL rank a card, spawned, each mesh of
+          CARDS_CASES in turn (the data axis, FSDP (2, 2) on the flagship,
+          tensor (2, 2) and composed (1, 2, 2) on the bf16 DiT, the MoE DiT
+          on four data ranks): the eager step against one process on card 0
+          on the whole global batch, 3 graphed steps with the collectives
+          inside the graph (every rank's whole state equal bit for bit),
+          the graphed step's ms a rank, images/s, state bytes and peak
+          memory against one card's on the global batch; then the train
+          CLI with trainer.devices=-1 for 2 epochs of 64 rows a rank (rank
+          0's checkpoints at the steps one process reaches).
 The sampling and training paths run their denoiser and train steps as CUDA
 graphs (the counters add a graph's launches at every replay), and the CLI
 runs resolve steps_per_execution=auto, whose probe trains 1 + AUTO_TIMED
@@ -2330,12 +2343,33 @@ def dit_samplers() -> tuple[dict, tuple, tuple]:
     return out, dit_l, unet_l
 
 
+# the MoE routing readings at batch 4: dit_reference's draws (seed 21, the
+# dense DiT's weights drawn first), then MOE_ROUTING_SEEDS other draws
+MOE_ROUTING_SEEDS = range(1)
+
+
+def dit_moe_routing() -> dict:
+    """The Switch-MoE DiT's routing at batch 4, card against CPU
+    (``igm_tpu_torch.tools.moe_routing``): the tokens whose expert or kept
+    slot differs, each with its top-1 router-logit margin."""
+    from igm_tpu_torch.tools.moe_routing import routing_gap
+    rows = [routing_gap(4, 21, dense_first=True)]
+    rows += [routing_gap(4, seed) for seed in MOE_ROUTING_SEEDS]
+    for row in rows:
+        emit("dit", run="moe_routing", **row)
+        check(row["finite"], "dit moe routing: the card's forward is not finite")
+    _release()
+    return {"readings": rows, "tokens_differing": sum(r["tokens_differing"] for r in rows),
+            "expert_flips": sum(r["expert_flips"] for r in rows)}
+
+
 def phase_dit() -> dict:
     """The DiT, its MoE, EDM and flow matching; the caller zeroes the
     counters before it.  Returns the launches of the DiT runs (all 0) and
     of EDM's and flow's UNet runs apart."""
     t0 = time.perf_counter()
-    out = {"reference": dit_reference(), "train_reference": dit_train_reference()}
+    out = {"moe_routing": dit_moe_routing(), "reference": dit_reference(),
+           "train_reference": dit_train_reference()}
     dit_l = counts()
     unet_l = dit_unet_launches()
     dit_l = tuple(a + b for a, b in zip(dit_l, dit_cli()))
@@ -4903,8 +4937,9 @@ def phase_chain() -> dict:
 
 
 # ------------------------------------------------------------ phase parallel
-# the data axis (igm_tpu_torch/parallel): (a) one NCCL rank in this process,
-# graphed; (b) two gloo ranks spawned on this card, eager; (c) sample_sharded
+# igm_tpu_torch/parallel: (a) one NCCL rank in this process, graphed; (b)
+# two gloo ranks spawned on this card, eager; (c) sample_sharded; (d) the
+# model axis and the MoE's global routing on (b)'s ranks
 PARALLEL_STEPS = 3                   # (a): graphed K = 1 steps from one state
 PARALLEL_TIMED = 16                  # steps a turn of (a)'s a-b-b-a timing
 PARALLEL_DP_STEPS = 2                # (b): steps a model
@@ -4929,6 +4964,23 @@ PARALLEL_SAMPLE_N, PARALLEL_SAMPLE_STEPS = 64, 50
 # picks its algorithms at the half batch and bf16 rounds the activations
 # (tests/test_torch_parallel_dp.py holds the CPU's float32 to 1e-5)
 PARALLEL_TOL = {"flagship": (5e-4, 1e-2), "tar": (1e-4, 2e-3), "vqvae_ema": (1e-5, 1e-5)}
+# (d) the model axis and the Switch-MoE's global routing, the same two gloo
+# ranks: name, overrides, global batch, make_mesh keywords, hand-kernel
+# launches a step.  FSDP on one data rank is the one-process step bit for
+# bit; tensor parallelism sums each row layer's two halves (f32, TF32 off);
+# the MoE routes the global batch's tokens from two ranks' halves
+PARALLEL_MODEL_AXIS = (
+    ("fsdp_flagship", ["experiment=ddpm/cifar10"], TRAIN_BATCH, dict(model=2),
+     PARALLEL_MODELS[0][3]),
+    ("tensor_dit", ["experiment=ddpm/cifar10_dit", "model.compute_dtype=float32"], 32,
+     dict(model=2, mode="tensor"), {}),
+    ("moe_dit", ["experiment=ddpm/cifar10_dit", "model.compute_dtype=float32",
+                 *DIT_MOE_OVERRIDES], 16, dict(), {}),
+)
+# (the card showed, H100 80GB HBM3, 700.00 W: tensor 0 and 5.3e-7, the
+# MoE 1.1e-7 and 4.9e-7; DiT weights moved off adaLN-Zero, _mesh_state)
+PARALLEL_TOL.update({"fsdp_flagship": (0.0, 0.0), "tensor_dit": (1e-6, 5e-6),
+                     "moe_dit": (1e-6, 5e-6)})
 # (c): DDIM-50 over 64 images, two ranks of 32 against one process on 64:
 # bit for bit against one process on each half of the same x_T, which is
 # what one process gives at a batch of 32.  Against the batch of 64 the
@@ -4948,19 +5000,43 @@ def _parallel_model(overrides, device="cuda"):
     return model
 
 
+def _mesh_state(model, mesh, overrides):
+    """``model``'s train state on ``mesh`` (None: one process) from
+    init_state(0); a DiT's (its adaLN gates start at 0 and would hide the
+    blocks and the MoE's routing from a step) from the whole init moved by
+    0.05 N(0, 1), seed 1, the same on every rank."""
+    import torch
+    weights = None
+    if "experiment=ddpm/cifar10_dit" in overrides:
+        model.init_state(0)
+        gen = torch.Generator().manual_seed(1)
+        names = {k for k, _ in model.modules.named_parameters()}
+        weights = {k: (v.cpu() + 0.05 * torch.randn(v.shape, generator=gen).to(v.dtype)
+                       if k in names else v.cpu())
+                   for k, v in model.modules.state_dict().items()}
+    model.set_mesh(mesh)
+    state = model.init_state(0)
+    if weights is not None:
+        state.load_state_dict({**state.full_state_dict(), "params": weights})
+    return state
+
+
 def _dp_steps(model, state, batch, steps: int) -> dict:
     """``steps`` eager train steps on ``batch`` as the trainer runs them
     (``train_step_n``; under gloo eagerly): each step's metrics (averaged
     over the ranks on a mesh) and hand-kernel launches, each update's
     gradients after the reduction over the ranks, the state_dict after."""
     import torch
+    from igm_tpu_torch.parallel.sharding import gather_whole
     opts = model.optimizers
     updates = []
     reduce = opts.reduce_grads
 
-    def recorded(gs):
-        out = reduce(gs)
-        updates.append([g.detach().float().cpu() for g in out])
+    def recorded(gs, params=()):
+        out = reduce(gs, params)
+        whole = [g if getattr(p, "_igm_leaf", None) is None
+                 else gather_whole(model.mesh, p._igm_leaf, g) for g, p in zip(out, params)]
+        updates.append([g.detach().float().cpu() for g in whole])
         return out
 
     opts.reduce_grads = recorded
@@ -4973,8 +5049,44 @@ def _dp_steps(model, state, batch, steps: int) -> dict:
         launches.append(since(before))
         metrics.append({k: float(v) for k, v in m.items()})
     del opts.reduce_grads
+    params = state.full_state_dict()["params"]
     return {"metrics": metrics, "launches": launches, "updates": updates,
-            "state": {k: v.detach().cpu() for k, v in model.modules.state_dict().items()}}
+            "state": {k: v.detach().cpu() for k, v in params.items()}}
+
+
+def _state_bytes(state) -> int:
+    """The bytes of every tensor a train state keeps between steps on this
+    rank: parameters, buffers, optimizer state, the EMA shadow."""
+    import torch
+
+    def walk(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.numel() * obj.element_size()
+        if isinstance(obj, dict):
+            return sum(walk(v) for v in obj.values())
+        if isinstance(obj, (list, tuple)):
+            return sum(walk(v) for v in obj)
+        return 0
+    saved = state.state_dict()
+    return walk(saved["params"]) + walk(saved["opt_states"])
+
+
+def _moe_dropped(model) -> list:
+    """Forward hooks on the model's Switch-MoE blocks: each forward appends
+    the global batch's dropped tokens, from the routed fractions it
+    returns (the global ``f`` on a mesh) and the capacity."""
+    seen = []
+
+    def hook(moe, args, out):
+        n = args[0].shape[0] * args[0].shape[1] * (1 if moe.mesh is None else moe.mesh.world)
+        routed = (out[2].detach().double() * n).round()
+        seen.append(int(n - routed.clamp(max=moe.capacity(n)).sum().item()))
+
+    from igm_tpu_torch.networks.moe import SwitchMoE
+    for module in model.modules.modules():
+        if isinstance(module, SwitchMoE):
+            module.register_forward_hook(hook)
+    return seen
 
 
 def _parallel_rank(device, out_dir: str) -> None:
@@ -4999,6 +5111,20 @@ def _parallel_rank(device, out_dir: str) -> None:
         torch.save(record, out / f"{name}.rank{mesh.rank}.pt")
         del model, state
         _release()
+    for name, overrides, batch, mesh_kw, _ in PARALLEL_MODEL_AXIS:
+        axis_mesh = make_mesh(devices=device, **mesh_kw)
+        model = _parallel_model(overrides, device)
+        state = _mesh_state(model, axis_mesh, overrides)
+        rows = torch.from_numpy(axis_mesh.local_rows(batch)).to(device)
+        local = tuple(b[0][rows] for b in _chain_batches(model, batch, 1, 21))
+        dropped = _moe_dropped(model)
+        record = _dp_steps(model, state, local, PARALLEL_DP_STEPS)
+        record.update(jax="jax" in sys.modules, dropped=dropped, bytes=_state_bytes(state),
+                      sharded=sum(leaf.sharded for leaf in (model.sharding.leaves
+                                                            if model.sharding else [])))
+        torch.save(record, out / f"{name}.rank{torch.distributed.get_rank()}.pt")
+        del model, state
+        _release()
     model = _parallel_model(["experiment=ddpm/cifar10"], device)
     gen = torch.Generator(device).manual_seed(0)
     before = counts()
@@ -5013,13 +5139,13 @@ def _rel_err(got: float, want: float) -> float:
 
 
 def parallel_compare(name: str, ranks: list, ref: dict, per_step: dict,
-                     run: str = "two_ranks") -> dict:
+                     run: str = "two_ranks", tol=None) -> dict:
     """(b): every rank ends in the same state bit for bit and reports the
     same metrics; against one process, each metric and each update's
     reduced gradients within PARALLEL_TOL; each rank's launches a step
     exactly the one-process step's, which are the model's own."""
     import torch
-    metric_tol, grad_tol = PARALLEL_TOL[name]
+    metric_tol, grad_tol = PARALLEL_TOL[name] if tol is None else tol
     check(not any(r["jax"] for r in ranks), f"parallel {name}: a rank imported jax")
     for r in ranks[1:]:
         diff = same_bits(r["state"], ranks[0]["state"], name)
@@ -5129,11 +5255,13 @@ def phase_parallel() -> dict:
         del fresh
         # (b)'s references: one process on the whole global batch
         refs = {}
-        for name, overrides, batch, _ in PARALLEL_MODELS:
+        for name, overrides, batch, *_ in PARALLEL_MODELS + PARALLEL_MODEL_AXIS:
             ref_model = _parallel_model(overrides)
-            state = ref_model.init_state(0)
+            state = _mesh_state(ref_model, None, overrides)
             glob = tuple(b[0] for b in _chain_batches(ref_model, batch, 1, 21))
+            dropped = _moe_dropped(ref_model)
             refs[name] = _dp_steps(ref_model, state, glob, PARALLEL_DP_STEPS)
+            refs[name].update(dropped=dropped, bytes=_state_bytes(state))
             del ref_model, state, glob
             _release()
         spawner.join()
@@ -5156,6 +5284,32 @@ def phase_parallel() -> dict:
         recs = [torch.load(tmp / f"{name}.rank{r}.pt", weights_only=False)
                 for r in range(PARALLEL_WORLD)]
         out[name] = parallel_compare(name, recs, refs[name], per_step)
+        for rec in recs:
+            for step in rec["launches"]:
+                launches = add(launches, step)
+    for name, _, batch, mesh_kw, per_step in PARALLEL_MODEL_AXIS:
+        recs = [torch.load(tmp / f"{name}.rank{r}.pt", weights_only=False)
+                for r in range(PARALLEL_WORLD)]
+        out[name] = parallel_compare(name, recs, refs[name], per_step, run="model_axis")
+        out[name].update(mesh=mesh_kw, batch=batch, sharded_leaves=recs[0]["sharded"],
+                         state_bytes_by_rank=[r["bytes"] for r in recs],
+                         one_process_state_bytes=refs[name]["bytes"])
+        if name == "fsdp_flagship":     # one data rank: nothing summed in another order
+            diff = same_bits(recs[0]["state"], refs[name]["state"])
+            check(not diff, f"parallel {name}: the state differs from one process at {diff[:4]}")
+            check(recs[0]["metrics"] == refs[name]["metrics"],
+                  f"parallel {name}: the metrics differ from one process")
+            check(all(r["bytes"] < refs[name]["bytes"] for r in recs),
+                  f"parallel {name}: a rank keeps the whole state")
+            out[name]["bit_for_bit"] = True
+        if name == "moe_dit":
+            check(recs[0]["dropped"] == refs[name]["dropped"] and sum(recs[0]["dropped"]) > 0,
+                  f"parallel {name}: dropped {recs[0]['dropped']}, one process "
+                  f"{refs[name]['dropped']}")
+            out[name]["dropped_tokens_by_forward"] = recs[0]["dropped"]
+        emit("parallel", run=f"model_axis_{name}_summary",
+             **{k: v for k, v in out[name].items() if k not in ("metrics",
+                                                               "metrics_one_process")})
         for rec in recs:
             for step in rec["launches"]:
                 launches = add(launches, step)
@@ -5185,53 +5339,78 @@ def phase_parallel() -> dict:
 
 
 # ------------------------------------------------------ phase parallel_cards
-# the data axis over every card of the host (--only parallel_cards; the
-# default run needs one card and leaves it out): one NCCL rank a card
-CARDS_BATCH = 256                    # rows a rank: the global batch is this x cards
+# every card of the host (--only parallel_cards; the default run needs one
+# card and leaves it out): one NCCL rank a card, graphed
+CARDS_BATCH = 256                    # rows a batch rank: the global batch is this x its ranks
 CARDS_STEPS = 3                      # graphed steps checked after the eager one
 CARDS_TIMED = 20
 CARDS_FIT_EPOCHS = 2
 CARDS_FIT_BATCH = 64                 # rows a rank in the CLI fit
+# name, overrides, make_mesh keywords, rows a batch rank, tolerance key
+CARDS_CASES = (
+    ("data_flagship", ["experiment=ddpm/cifar10"], dict(), CARDS_BATCH, "flagship"),
+    ("fsdp_flagship", ["experiment=ddpm/cifar10"], dict(model=2), CARDS_BATCH, "flagship"),
+    ("tensor_dit", ["experiment=ddpm/cifar10_dit"], dict(model=2, mode="tensor"),
+     CARDS_BATCH, "dit_bf16"),
+    ("composed_dit", ["experiment=ddpm/cifar10_dit"], dict(fsdp=2, model=2, mode="tensor"),
+     CARDS_BATCH, "dit_bf16"),
+    ("moe_dit", ["experiment=ddpm/cifar10_dit", *DIT_MOE_OVERRIDES], dict(), 64, "dit_bf16"),
+)
+# bf16 DiT steps on a mesh against one card on the global batch: cuBLAS
+# picks its GEMMs at the rank's rows and bf16 rounds the partial sums of a
+# row layer before they are added.  Four cards showed (H100 80GB HBM3,
+# 700.00 W, the weights of _mesh_state): metrics 1.6e-5 (tensor, composed)
+# and 0 (the MoE) apart, gradients 1.8e-3 and 8.4e-4 of the largest
+PARALLEL_TOL["dit_bf16"] = (1e-4, 1e-2)
 
 
 def _cards_rank(device, out_dir: str) -> None:
-    """One NCCL rank of phase parallel_cards: the flagship from
-    init_state(0), its rows of the seeded global batch; one eager step
-    recorded (the reduced gradients), CARDS_STEPS graphed steps (the
-    all-reduces inside the graph), then CARDS_TIMED graphed steps timed."""
+    """One NCCL rank of phase parallel_cards, each case of CARDS_CASES in
+    turn on its mesh: the model from init_state(0), its rows of the seeded
+    global batch; one eager step recorded (the reduced gradients, whole),
+    CARDS_STEPS graphed steps (the collectives inside the graph), then
+    CARDS_TIMED graphed steps timed; the state's bytes and the peak memory."""
     import torch
     from igm_tpu_torch.parallel.mesh import make_mesh
     from igm_tpu_torch.utils.platform import set_numerics
     set_numerics()
-    mesh = make_mesh(devices=device)
-    model = _parallel_model(["experiment=ddpm/cifar10"], device)
-    model.set_mesh(mesh)
-    state = model.init_state(0)
-    glob = _chain_batches(model, CARDS_BATCH * mesh.world, 1, 23)
-    rows = torch.from_numpy(mesh.local_rows(CARDS_BATCH * mesh.world)).to(device)
-    local = tuple(b[0][rows] for b in glob)
-    record = _dp_steps(model, state, local, 1)
-    chunk = tuple(b[None] for b in local)
-    record["graphed_metrics"] = [
-        {k: float(v) for k, v in model.train_step_n(state, chunk)[1].items()}
-        for _ in range(CARDS_STEPS)]
-    record["ms_per_step"] = _graphed_ms(model, state, chunk, CARDS_TIMED)
-    record["graphs"] = len(state.graphs)
-    record["jax"] = "jax" in sys.modules
-    torch.save(record, Path(out_dir) / f"rank{mesh.rank}.pt")
+    for name, overrides, mesh_kw, rows_per, _ in CARDS_CASES:
+        torch.cuda.reset_peak_memory_stats(device)
+        mesh = make_mesh(devices=device, **mesh_kw)
+        model = _parallel_model(overrides, device)
+        state = _mesh_state(model, mesh, overrides)
+        glob = _chain_batches(model, rows_per * mesh.world, 1, 23)
+        rows = torch.from_numpy(mesh.local_rows(rows_per * mesh.world)).to(device)
+        local = tuple(b[0][rows] for b in glob)
+        record = _dp_steps(model, state, local, 1)
+        chunk = tuple(b[None] for b in local)
+        record["graphed_metrics"] = [
+            {k: float(v) for k, v in model.train_step_n(state, chunk)[1].items()}
+            for _ in range(CARDS_STEPS)]
+        record["ms_per_step"] = _graphed_ms(model, state, chunk, CARDS_TIMED)
+        record.update(graphs=len(state.graphs), jax="jax" in sys.modules,
+                      bytes=_state_bytes(state), global_batch=rows_per * mesh.world,
+                      peak_bytes=torch.cuda.max_memory_allocated(device),
+                      graphed_state=state.full_state_dict()["params"])
+        torch.save(record, Path(out_dir) / f"{name}.rank{torch.distributed.get_rank()}.pt")
+        del model, state, glob, local, chunk
+        _release()
 
 
 def phase_parallel_cards() -> dict:
-    """Every card of the host, one NCCL rank each (spawned): the flagship's
-    eager step on CARDS_BATCH rows a rank against one process on card 0 on
-    the whole global batch (metrics and reduced gradients within
-    PARALLEL_TOL["flagship"], launches a step exactly the one-process
-    step's); CARDS_STEPS graphed steps with the all-reduces in the graph,
-    every rank's state equal bit for bit; the graphed step's ms a rank
-    against one card's at CARDS_BATCH (images/s of the host); then the
-    train CLI with trainer.devices=-1 (every card) for CARDS_FIT_EPOCHS
-    epochs of CARDS_FIT_BATCH rows a rank on the synthetic set: rank 0's
-    checkpoints, an epoch's each, at the steps one process would reach."""
+    """Every card of the host, one NCCL rank each (spawned), each case of
+    CARDS_CASES (the data axis, FSDP (2, 2) and the flagship, tensor
+    (2, 2) and composed (1, 2, 2) on the DiT in bf16, the MoE DiT on four
+    data ranks): the eager step against one process on card 0 on the
+    whole global batch (metrics and reduced gradients within
+    PARALLEL_TOL, launches a step exactly the one-process step's); then
+    CARDS_STEPS graphed steps with the collectives in the graph, every
+    rank's whole state equal bit for bit; the graphed step's ms, the
+    images/s, each rank's state bytes and peak memory against one card's
+    on the global batch; then the train CLI with trainer.devices=-1 (every
+    card) for CARDS_FIT_EPOCHS epochs of CARDS_FIT_BATCH rows a rank on
+    the synthetic set: rank 0's checkpoints, an epoch's each, at the steps
+    one process would reach."""
     import shutil
     import torch
     from igm_tpu_torch.parallel import launch
@@ -5239,37 +5418,44 @@ def phase_parallel_cards() -> dict:
     check(cards > 1, f"parallel_cards needs more than one card, found {cards}")
     out = {"cards": cards}
     tmp = Path(tempfile.mkdtemp(prefix="parallel-cards-"))
+    t0 = time.perf_counter()
     launch.spawn(_cards_rank, cards, torch.device("cuda"), (str(tmp),),
-                 timeout=PARALLEL_TIMEOUT_S)
-    recs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(cards)]
-    for r in recs[1:]:
-        diff = same_bits(r["state"], recs[0]["state"])
-        check(not diff, f"parallel_cards: the ranks' states differ at {diff[:4]}")
-        check(r["graphed_metrics"] == recs[0]["graphed_metrics"],
-              "parallel_cards: the ranks' metrics differ")
-    check(all(r["graphs"] == 1 for r in recs), "parallel_cards: a rank did not capture one graph")
-    model = _parallel_model(["experiment=ddpm/cifar10"])
-    state = model.init_state(0)
-    glob = tuple(b[0] for b in _chain_batches(model, CARDS_BATCH * cards, 1, 23))
-    ref = _dp_steps(model, state, glob, 1)
-    out["flagship"] = parallel_compare("flagship", recs, ref, PARALLEL_MODELS[0][3],
-                                       run=f"{cards}_cards")
-    del model, state, glob
-    _release()
-    one = _parallel_model(["experiment=ddpm/cifar10"])
-    one_state = one.init_state(0)
-    chunk = _chain_batches(one, CARDS_BATCH, 1, 23)
-    for _ in range(2):
-        one.train_step_n(one_state, chunk)
-    one_ms = _graphed_ms(one, one_state, chunk, CARDS_TIMED)
-    ms = [r["ms_per_step"] for r in recs]
-    out["graphed"] = dict(rows_a_rank=CARDS_BATCH, ms_per_step_by_rank=ms,
-                          one_card_ms_per_step=one_ms,
-                          images_per_s=CARDS_BATCH * cards / (max(ms) / 1e3),
-                          one_card_images_per_s=CARDS_BATCH / (one_ms / 1e3))
-    emit("parallel_cards", run="graphed", **out["graphed"])
-    del one, one_state, chunk
-    _release()
+                 timeout=PARALLEL_TIMEOUT_S * len(CARDS_CASES))
+    out["seconds_ranks"] = time.perf_counter() - t0
+    for name, overrides, mesh_kw, rows_per, tol in CARDS_CASES:
+        recs = [torch.load(tmp / f"{name}.rank{r}.pt", weights_only=False)
+                for r in range(cards)]
+        for r in recs[1:]:
+            diff = same_bits(r["graphed_state"], recs[0]["graphed_state"])
+            check(not diff, f"parallel_cards {name}: the ranks' states differ at {diff[:4]}")
+        check(all(r["graphs"] == 1 for r in recs),
+              f"parallel_cards {name}: a rank did not capture one graph")
+        n = recs[0]["global_batch"]
+        torch.cuda.reset_peak_memory_stats()
+        model = _parallel_model(overrides)
+        state = _mesh_state(model, None, overrides)
+        glob = tuple(b[0] for b in _chain_batches(model, n, 1, 23))
+        ref = _dp_steps(model, state, glob, 1)
+        per_step = PARALLEL_MODELS[0][3] if "flagship" in name else {}
+        row = parallel_compare(name, recs, ref, per_step, run=f"{cards}_cards",
+                               tol=PARALLEL_TOL[tol])
+        chunk = tuple(b[None] for b in glob)
+        for _ in range(2):
+            model.train_step_n(state, chunk)
+        one_ms = _graphed_ms(model, state, chunk, CARDS_TIMED)
+        ms = [r["ms_per_step"] for r in recs]
+        row.update(mesh=mesh_kw, global_batch=n, ms_per_step_by_rank=ms,
+                   one_card_ms_per_step_global_batch=one_ms,
+                   images_per_s=n / (max(ms) / 1e3), one_card_images_per_s=n / (one_ms / 1e3),
+                   state_bytes_by_rank=[r["bytes"] for r in recs],
+                   one_card_state_bytes=_state_bytes(state),
+                   peak_bytes_by_rank=[r["peak_bytes"] for r in recs],
+                   one_card_peak_bytes=torch.cuda.max_memory_allocated())
+        out[name] = row
+        emit("parallel_cards", run=f"graphed_{name}",
+             **{k: v for k, v in row.items() if k not in ("metrics", "metrics_one_process")})
+        del model, state, glob, chunk
+        _release()
     shutil.rmtree(tmp, ignore_errors=True)
     fit = Path(tempfile.mkdtemp(prefix="parallel-cards-fit-"))
     from igm_tpu_torch.config import compose, instantiate

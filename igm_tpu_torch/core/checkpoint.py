@@ -74,9 +74,11 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState) -> None:
+    def save(self, step: int, state) -> None:
+        """``state``: a TrainState, or a ``state_dict`` of one (the whole
+        state a sharded run gathered)."""
         self.wait()
-        snapshot = _to_host(state.state_dict())
+        snapshot = _to_host(state.state_dict() if isinstance(state, TrainState) else state)
         self._thread = threading.Thread(target=self._write, args=(int(step), snapshot),
                                         daemon=True)
         self._thread.start()

@@ -39,11 +39,18 @@ state counts each optimizer's updates (``TrainState.counts``), and a model
 may update one optimizer twice a step (AAE) or on some steps only (AGE,
 the GANs).
 
-Data parallelism: on a data-axis mesh (``OptimizerSet.mesh``, bound by
+Data parallelism: on a mesh (``OptimizerSet.mesh``, bound by
 ``BaseModel.set_mesh``) every update first averages its gradients over the
-ranks, one flattened buffer a dtype and one all-reduce a buffer, before
-``clip_by_global_norm`` and the step (``parallel.mesh.all_reduce_``);
-under NCCL inside the step's CUDA graph.  The average, not the sum,
+batch ranks, one flattened buffer a dtype and one all-reduce a buffer,
+before ``clip_by_global_norm`` and the step (``parallel.mesh.all_reduce_``);
+under NCCL inside the step's CUDA graph.  On a model axis the parameters
+are shards (``parallel.sharding``): a shard's gradient comes out of the
+gather's backward already summed over ``fsdp`` where that axis gathered it
+(then the all-reduce runs over ``data`` alone); Adam and RMSprop are
+elementwise, so a shard's update is the one-process update of its
+elements; ``clip_by_global_norm`` sums each shard's squares over its axes;
+and ``CastAdam``'s stochastic rounding hashes each element's index in the
+whole parameter.  The average, not the sum,
 because every loss the port's models differentiate is a mean over the
 batch (or a function of batch statistics that are themselves taken over
 the global batch), so that the mean of the ranks' losses is the global
@@ -76,6 +83,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import all_reduce_
+from ..parallel.sharding import element_index, grad_axes, shard_axes
 from .state import TrainState, _params
 
 Schedule = Callable[[int], float]
@@ -109,10 +117,12 @@ def _int32(c: int) -> int:
     return c - (1 << 32) if c >= 1 << 31 else c
 
 
-def hash_noise_u16(shape, seed, device=None) -> torch.Tensor:
+def hash_noise_u16(shape, seed, device=None, index: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """``igm_tpu``'s ``_hash_noise_u16`` (``core/optim.py:114-128``) bit for
     bit: per element, 16 bits of a multiply-xor hash of its linear index
-    (row-major in ``shape``) and ``seed`` (an int, or an integer tensor,
+    (row-major in ``shape``, or ``index``'s int32 values: a shard's indices
+    in the whole tensor) and ``seed`` (an int, or an integer tensor,
     holding a value in [0, 2**31)).  int32 tensors carry the uint32
     arithmetic: products wrap mod 2**32 as uint32 ones do, and the right
     shifts are made logical by a mask.  Returns int32 values in [0, 65535]."""
@@ -124,29 +134,48 @@ def hash_noise_u16(shape, seed, device=None) -> torch.Tensor:
         n *= int(d)
     if n >= 1 << 31:
         raise ValueError(f"hash_noise_u16: {n} elements, the index is 32 bits")
-    h = torch.arange(n, dtype=torch.int32, device=device) * _int32(0x9E3779B1) ^ seed
+    if index is None:
+        index = torch.arange(n, dtype=torch.int32, device=device)
+    h = index.reshape(-1) * _int32(0x9E3779B1) ^ seed
     h = (h ^ ((h >> 16) & 0xFFFF)) * _int32(0x85EBCA77)
     h = h ^ ((h >> 13) & 0x7FFFF)
     return (h & 0xFFFF).reshape(shape)
 
 
-def stochastic_round_bf16(x: torch.Tensor, seed) -> torch.Tensor:
+def stochastic_round_bf16(x: torch.Tensor, seed,
+                          index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """float32 -> bfloat16 with ``igm_tpu``'s unbiased stochastic rounding
     (``core/optim.py:131-144``): the hash noise added below the bfloat16
     mantissa of the float32 bits, then truncated.  ``seed`` is the uint32
     seed ``igm_tpu`` draws from its key (``randint(key, (), 0, 2**31-1)``),
-    given here as an int or an integer tensor on ``x``'s device."""
+    given here as an int or an integer tensor on ``x``'s device; ``index``
+    (a shard's) each element's index in the whole tensor."""
     bits = x.float().contiguous().view(torch.int32)
-    rounded = (bits + hash_noise_u16(x.shape, seed, x.device)) & _int32(0xFFFF0000)
+    rounded = (bits + hash_noise_u16(x.shape, seed, x.device, index)) & _int32(0xFFFF0000)
     return rounded.view(torch.float32).to(torch.bfloat16)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        mesh=None, params: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: ``g`` when the global norm is below
     ``max_norm``, else ``(g / norm) * max_norm``, selected on the device
     (no host branch).  Not ``torch.nn.utils.clip_grad_norm_``, which scales
-    by ``max_norm / (norm + 1e-6)`` clamped at 1."""
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    by ``max_norm / (norm + 1e-6)`` clamped at 1.  On a model axis a shard
+    parameter's (``params``) squares are summed over the axes its shard
+    spans, one all-reduce a set of axes."""
+    squares = [g.float().square().sum() for g in grads]
+    if mesh is not None and params:
+        by_axes: Dict[tuple, List[int]] = {}
+        for i, p in enumerate(params):
+            axes = shard_axes(p)
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            summed = all_reduce_(mesh, [squares[i] for i in idx], mean=False,
+                                 group=mesh.group_of(*axes))
+            for i, t in zip(idx, summed):
+                squares[i] = t
+    norm = torch.stack(squares).sum().sqrt()
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 
@@ -240,7 +269,8 @@ class CastAdam(torch.optim.Optimizer):
                 if p.dtype == torch.float32:
                     p.add_(update)
                 elif seed is not None:
-                    p.copy_(stochastic_round_bf16(p.float() + update, seed))
+                    p.copy_(stochastic_round_bf16(p.float() + update, seed,
+                                                  element_index(p)))
                 else:
                     p.copy_(p.float() + update.to(p.dtype).float())
         return None
@@ -498,10 +528,25 @@ class OptimizerSet:
         state.counts[opt_name] = state.counts.get(opt_name, 0) + 1
         return state
 
-    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """An update's gradients averaged over the data axis's ranks (one
-        flattened buffer a dtype); as they are in one process."""
-        return grads if self.mesh is None else all_reduce_(self.mesh, grads)
+    def reduce_grads(self, grads: List[torch.Tensor], params: Sequence[torch.Tensor] = ()
+                     ) -> List[torch.Tensor]:
+        """An update's gradients averaged over the batch ranks (one
+        flattened buffer a dtype); as they are in one process.  A shard
+        ``params[i]`` gathered over ``fsdp`` sums over ``data`` alone (its
+        gather's backward summed over ``fsdp``)."""
+        if self.mesh is None:
+            return grads
+        by_axes: Dict[tuple, List[int]] = {}
+        for i in range(len(grads)):
+            axes = grad_axes(params[i]) if i < len(params) else ()
+            by_axes.setdefault(axes, []).append(i)
+        out = list(grads)
+        for axes, idx in by_axes.items():
+            group = self.mesh.group_of(*axes) if axes else None
+            for i, g in zip(idx, all_reduce_(self.mesh, [grads[i] for i in idx],
+                                             group=group)):
+                out[i] = g
+        return out
 
     def _apply(self, opt_name: str, opt: torch.optim.Optimizer,
                params: List[torch.Tensor], grads, count: Optional[int] = None,
@@ -530,9 +575,9 @@ class OptimizerSet:
                 else:
                     group["lr"].fill_(tx.lr_at(count))
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        grads = self.reduce_grads(grads)
+        grads = self.reduce_grads(grads, params)
         if tx.clip_norm is not None:
-            grads = clip_by_global_norm(grads, tx.clip_norm)
+            grads = clip_by_global_norm(grads, tx.clip_norm, self.mesh, params)
         for p, g in zip(params, grads):
             p.grad = g
         if sr_seeds is None:

@@ -16,7 +16,10 @@ are updated in place, and the state holds the rest:
 - ``generator``: one ``torch.Generator`` on the model's device, from which
   every training draw is made (the counterpart of the threaded PRNG key);
 - ``graphs``: the captured train steps (``core.graphs.StepGraph``) by
-  signature, valid while the tensors they were captured on are.  Not saved.
+  signature, valid while the tensors they were captured on are.  Not saved;
+- ``sharding``: on a mesh with a model axis, the modules' sharding
+  (``parallel.sharding.Sharding``): the parameters, buffers, optimizer
+  moments and EMA shadow hold this rank's shards.
 
 ``state_dict``/``load_state_dict`` give and take all but the graphs, the
 modules' parameters included.  Loading writes into the existing tensors
@@ -25,7 +28,10 @@ same layout), so captured graphs stay valid; where an optimizer's state is
 built anew (a fresh state, or another layout) the graphs are dropped, to be
 captured again on the new tensors.  ``counts`` is not saved: loading reads
 it back from each optimizer's own step count.  ``snapshot`` is a copy of
-``state_dict`` that a later ``load_state_dict`` returns to.
+``state_dict`` that a later ``load_state_dict`` returns to.  On a model
+axis ``state_dict`` gives the rank's shards and ``full_state_dict`` (every
+rank calls it) the whole state, as one process holds it; ``load_state_dict``
+takes either, slicing a whole tensor to the rank's shard.
 """
 from __future__ import annotations
 
@@ -117,6 +123,7 @@ class TrainState:
     counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     graphs: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False,
                                                compare=False)
+    sharding: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     def state_dict(self) -> Dict[str, Any]:
         """Live references, not copies: a checkpoint copies what it keeps."""
@@ -129,6 +136,12 @@ class TrainState:
             "generator": self.generator.get_state(),
         }
 
+    def full_state_dict(self) -> Dict[str, Any]:
+        """:meth:`state_dict` with every sharded tensor gathered whole (a
+        collective on a model axis: every rank calls it)."""
+        saved = self.state_dict()
+        return saved if self.sharding is None else self.sharding.gather_state_dict(saved, self.opt_states)
+
     def snapshot(self) -> Dict[str, Any]:
         """A copy of :meth:`state_dict` on the same devices."""
         return _clone(self.state_dict())
@@ -137,6 +150,8 @@ class TrainState:
         if set(saved["opt_states"]) != set(self.opt_states):
             raise ValueError(f"checkpoint holds optimizers {sorted(saved['opt_states'])}, "
                              f"the state {sorted(self.opt_states)}")
+        if self.sharding is not None:
+            saved = self.sharding.shard_state_dict(saved, self.opt_states)
         self.modules.load_state_dict(saved["params"], strict=True)
         for name, value in saved["opt_states"].items():
             current = self.opt_states[name]

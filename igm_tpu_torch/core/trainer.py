@@ -41,11 +41,14 @@
   step, with the data order and random stream an uninterrupted run would
   have had.
 
-Data parallelism (``igm_tpu_torch.parallel``): ``devices`` N > 1 is a
+Parallelism (``igm_tpu_torch.parallel``): ``devices`` N > 1 is a
 launch of N ranks (``python -m igm_tpu_torch.train trainer.devices=N``
 spawns them; ``torchrun`` with ``IGM_MULTIHOST=1``), one per card, each
-running this trainer over ``parallel.make_mesh``'s data axis (``mesh.data``
--1 takes them all).  ``datamodule.batch_size`` is the global batch, as in
+running this trainer over ``parallel.make_mesh``'s mesh (``mesh.data`` -1
+takes every rank over ``mesh.fsdp * mesh.model``; ``mesh.model`` > 1 and
+``mesh.fsdp`` > 1 are ``igm_tpu``'s model axes, ``mesh.mode`` ``fsdp`` or
+``tensor`` how they shard the state, which is born sharded; N must be the
+mesh's ranks).  ``datamodule.batch_size`` is the global batch, as in
 ``igm_tpu``, rounded down to a multiple of the ranks (times the blocks a
 step splits its batch into).  Rank 0 alone prepares the data directory,
 the others waiting at a barrier; every rank runs the same epoch order and
@@ -59,12 +62,13 @@ checkpoints (a barrier after each save), the logs and ``perf/*``
 ``mfu`` are one card's), and runs validation, the epoch hooks and the
 callbacks over the whole validation batch as one process does, while the
 others wait at a barrier; every rank builds the same seeded state and
-reads a resume.  Under gloo (the CPU, or ranks sharing a card) the steps
-run eagerly.  ``devices`` 1 (the default) is one process without a
-process group, as before.  A model axis (``mesh.model``/``mesh.fsdp`` >
-1, ``mesh.mode=tensor``: slice 7b), ``mesh.stage`` > 1,
-``mesh.mode=pipeline`` and ``mesh.sequence`` (slice 7c) raise
-``NotImplementedError``.
+reads a resume.  On a model axis every rank gathers the whole state for a
+checkpoint (rank 0 writes it in the one-process format) and for rank 0's
+validation, and a resume slices the whole checkpoint onto the shards.
+Under gloo (the CPU, or ranks sharing a card) the steps run eagerly.
+``devices`` 1 (the default) is one process without a process group, as
+before.  ``mesh.stage`` > 1, ``mesh.mode=pipeline`` and ``mesh.sequence``
+(slice 7c) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -77,7 +81,7 @@ import numpy as np
 import torch
 
 from ..data.loader import DevicePrefetcher, chunk_batches, epoch_batches, global_batch
-from ..parallel.mesh import MODEL_AXES_REFUSED, barrier, make_mesh
+from ..parallel.mesh import barrier, make_mesh
 from .logging import MetricAccumulator, NoOpLogger, TensorBoardLogger
 
 log = logging.getLogger(__name__)
@@ -167,17 +171,15 @@ class Trainer:
         mode = mesh_cfg.pop("mode", "fsdp")
         if mode not in ("fsdp", "tensor", "pipeline"):
             raise ValueError(f"mesh.mode must be fsdp|tensor|pipeline, got {mode!r}")
-        model_axis = int(mesh_cfg.pop("model", 1) or 1)
-        fsdp_axis = int(mesh_cfg.pop("fsdp", 1) or 1)
-        if model_axis > 1 or fsdp_axis > 1 or mode == "tensor":
-            raise NotImplementedError(f"mesh={mesh}: {MODEL_AXES_REFUSED}")
+        self.mesh_axes = dict(model=int(mesh_cfg.pop("model", 1) or 1),
+                              fsdp=int(mesh_cfg.pop("fsdp", 1) or 1), mode=mode)
         mesh_cfg.pop("microbatches", None)
         if (int(mesh_cfg.pop("stage", 1) or 1) > 1 or mode == "pipeline"
                 or mesh_cfg.pop("sequence", False)):
             raise NotImplementedError(f"mesh={mesh}: {STAGES_REFUSED}")
         if mesh_cfg:
             raise NotImplementedError(f"mesh keys {sorted(mesh_cfg)} are not ported")
-        self.mesh = None                 # the data-axis mesh, made in fit
+        self.mesh = None                 # the mesh, made in fit
         if isinstance(steps_per_execution, str):
             if steps_per_execution != "auto":
                 raise ValueError(f"steps_per_execution must be an int or 'auto', got "
@@ -220,10 +222,11 @@ class Trainer:
     def fit(self, model, datamodule) -> None:
         self.model = model
         self.datamodule = datamodule
-        mesh = self.mesh = make_mesh(self.mesh_data, devices=model.device)
-        if self.devices not in (-1, mesh.world):
-            raise ValueError(f"trainer.devices={self.devices}, but {mesh.world} rank(s) run")
-        self.rank0 = mesh.rank == 0
+        mesh = self.mesh = make_mesh(self.mesh_data, devices=model.device, **self.mesh_axes)
+        if self.devices not in (-1, mesh.ranks):
+            raise ValueError(f"trainer.devices={self.devices}, but the mesh "
+                             f"{mesh.shape} has {mesh.ranks} rank(s)")
+        self.rank0 = not mesh.grouped or torch.distributed.get_rank() == 0
         if self.rank0:            # the others read what rank 0 wrote into data_dir
             datamodule.prepare_data()
         barrier(mesh)
@@ -330,38 +333,46 @@ class Trainer:
             log.info("epoch %d done in %.1fs (%.0f imgs/s) %s", epoch, epoch_time,
                      imgs_per_sec, {k: round(v, 4) for k, v in acc.compute().items()})
 
-            if self.rank0:           # validation and the hooks: the whole batch, one process
-                with model.sharded(None):
-                    if ((epoch + 1) % self.check_val_every_n_epoch == 0
-                            or epoch == self.max_epochs - 1):
-                        self._run_validation(val_arrays, batch_size, epoch)
-                    model.on_train_epoch_end(self)
-                    for cb in self.callbacks:
-                        if hasattr(cb, "on_train_epoch_end"):
-                            cb.on_train_epoch_end(self, model)
-            barrier(mesh)
-            if self.ckpt_manager is not None and (epoch + 1) % self.ckpt_every_n_epochs == 0:
-                if self.rank0:
-                    self.ckpt_manager.save(state.step, state)
+            with model.unsharded():       # every rank: the whole modules
+                if self.rank0:       # validation and the hooks: the whole batch, one process
+                    with model.sharded(None):
+                        if ((epoch + 1) % self.check_val_every_n_epoch == 0
+                                or epoch == self.max_epochs - 1):
+                            self._run_validation(val_arrays, batch_size, epoch)
+                        model.on_train_epoch_end(self)
+                        for cb in self.callbacks:
+                            if hasattr(cb, "on_train_epoch_end"):
+                                cb.on_train_epoch_end(self, model)
                 barrier(mesh)
+            if self.ckpt_manager is not None and (epoch + 1) % self.ckpt_every_n_epochs == 0:
+                self._save(state)
                 last_saved = state.step
 
         if profiler is not None:
             self._stop_profile(profiler, device)
         self.state = state
         if self.ckpt_manager is not None:
-            if last_saved != state.step and self.rank0:
-                self.ckpt_manager.save(state.step, state)
+            if last_saved != state.step:
+                self._save(state)
             self.ckpt_manager.wait()
             barrier(mesh)
-        if self.rank0:
-            with model.sharded(None):
-                for cb in self.callbacks:
-                    if hasattr(cb, "on_train_end"):
-                        cb.on_train_end(self, model)
-        barrier(mesh)
+        with model.unsharded():
+            if self.rank0:
+                with model.sharded(None):
+                    for cb in self.callbacks:
+                        if hasattr(cb, "on_train_end"):
+                            cb.on_train_end(self, model)
+            barrier(mesh)
         self.logger.finalize()
         log.info("fit finished in %.1fs", time.perf_counter() - t_train)
+
+    def _save(self, state) -> None:
+        """Rank 0 writes the whole state (on a model axis gathered by every
+        rank first), the others waiting for it."""
+        whole = state.full_state_dict()
+        if self.rank0:
+            self.ckpt_manager.save(state.step, whole)
+        barrier(self.mesh)
 
     # --------------------------------------------------- steps per execution
     @staticmethod
@@ -410,7 +421,7 @@ class Trainer:
         k = self.resolve_chain_k(t_step, steps_per_epoch)
         if self.mesh is not None and self.mesh.grouped:
             k_rank0 = torch.tensor([k], device=self.mesh.device)
-            torch.distributed.broadcast(k_rank0, src=0, group=self.mesh.group)
+            torch.distributed.broadcast(k_rank0, src=0, group=self.mesh.world_group)
             k = int(k_rank0.item())
         log.info("auto: the K = 1 step took %.3f ms; dispatch %.1f us -> K = %d",
                  1e3 * t_step, 1e6 * DISPATCH_S, k)
@@ -495,9 +506,10 @@ class Trainer:
         datamodule = datamodule or self.datamodule
         if self.state is None:
             raise RuntimeError("call fit() first")
-        if self.rank0:
-            with self.model.sharded(None):
-                self._run_validation(datamodule.val_arrays(), int(datamodule.batch_size),
-                                     self.current_epoch)
-        barrier(self.mesh)
+        with self.model.unsharded():
+            if self.rank0:
+                with self.model.sharded(None):
+                    self._run_validation(datamodule.val_arrays(), int(datamodule.batch_size),
+                                         self.current_epoch)
+            barrier(self.mesh)
         return dict(self.callback_metrics)

@@ -36,6 +36,11 @@ onto buffers (:func:`flax_mutables_to_torch`).  Layouts:
   ``block_mode="scan"`` stacks the blocks into one ``blocks/<leaf>`` tree
   of ``(depth, ...)`` leaves: each is split along axis 0 onto
   ``DiTBlock_<i>/<leaf>``.
+- The other way, :func:`flax_layout` states one of the port's parameters
+  or buffers in its Flax leaf's layout (:class:`FlaxLayout`): the Flax
+  path's names and shape, and the views between the two layouts.  The
+  sharding specs are ``igm_tpu``'s, computed on that layout
+  (``parallel/sharding.py``).
 - MADE (``igm_tpu/models/made.py``): the port keeps its kernels in Flax's
   ``(in, out)`` layout (the stochastic rounding's counter is the element's
   index there), so ``[net/]layers_<i>/kernel`` and ``[net/]out_layer/kernel``
@@ -62,6 +67,7 @@ onto buffers (:func:`flax_mutables_to_torch`).  Layouts:
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import numpy as np
@@ -152,3 +158,104 @@ def flax_mutables_to_torch(mutables: dict[str, np.ndarray]) -> dict[str, torch.T
             del parts[1]
         out[".".join(parts)] = torch.from_numpy(np.array(value, np.float32, order="C"))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FlaxLayout:
+    """How a torch leaf lies against its Flax leaf: ``kind`` one of
+    ``same``, ``dense`` ((out, in) against (in, out)), ``conv`` (OIHW
+    against HWIO), ``conv_transpose`` ((in, out, kh, kw) against the
+    flipped HWIO kernel), ``qkv`` ((H*D, d) against DenseGeneral's (d, H,
+    D)), ``qkv_bias`` ((H*D,) against (H, D)) and ``out`` ((d, H*D)
+    against (H, D, d)); ``heads`` H for the last three."""
+    kind: str = "same"
+    heads: int = 0
+
+    def flax_shape(self, shape) -> tuple:
+        """The Flax leaf's shape of a torch leaf of ``shape``."""
+        shape, h = tuple(int(d) for d in shape), self.heads
+        if self.kind == "dense":
+            return shape[::-1]
+        if self.kind == "conv":
+            return (shape[2], shape[3], shape[1], shape[0])
+        if self.kind == "conv_transpose":
+            return (shape[2], shape[3], shape[0], shape[1])
+        if self.kind == "qkv":
+            return (shape[1], h, shape[0] // h)
+        if self.kind == "qkv_bias":
+            return (h, shape[0] // h)
+        if self.kind == "out":
+            return (h, shape[1] // h, shape[0])
+        return shape
+
+    def to_flax(self, t: torch.Tensor) -> torch.Tensor:
+        """A torch-layout tensor in the Flax layout (a view where one is)."""
+        h = self.heads
+        if self.kind == "dense":
+            return t.t()
+        if self.kind == "conv":
+            return t.permute(2, 3, 1, 0)
+        if self.kind == "conv_transpose":
+            return t.permute(2, 3, 0, 1).flip(0, 1)
+        if self.kind == "qkv":
+            return t.t().reshape(t.shape[1], h, t.shape[0] // h)
+        if self.kind == "qkv_bias":
+            return t.reshape(h, t.shape[0] // h)
+        if self.kind == "out":
+            return t.t().reshape(h, t.shape[1] // h, t.shape[0])
+        return t
+
+    def from_flax(self, a: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`to_flax`.  ``dense`` and ``conv`` take any
+        shape (a tensor-parallel shard's too)."""
+        if self.kind == "dense":
+            return a.t()
+        if self.kind == "conv":
+            return a.permute(3, 2, 0, 1)
+        if self.kind == "conv_transpose":
+            return a.flip(0, 1).permute(2, 3, 0, 1)
+        if self.kind == "qkv":
+            return a.reshape(a.shape[0], -1).t()
+        if self.kind == "qkv_bias":
+            return a.reshape(-1)
+        if self.kind == "out":
+            return a.reshape(-1, a.shape[-1]).t()
+        return a
+
+
+def flax_names(key: str) -> list:
+    """The Flax path names of a torch ``state_dict`` key, as the specs read
+    them: the key's parts, ``weight`` named ``kernel`` (the wrapper level
+    that ``flax_key_to_torch`` drops does not enter a spec)."""
+    parts = key.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return parts
+
+
+def flax_layout(key: str, tensor: torch.Tensor, module: torch.nn.Module,
+                parent: torch.nn.Module | None = None) -> FlaxLayout:
+    """The layout of ``tensor``, ``module``'s parameter or buffer under the
+    ``state_dict`` key ``key`` (relative to a model's ``modules``, e.g.
+    ``denoise.DiTBlock_0.qkv.weight``); ``parent`` is the module that holds
+    ``module`` (an attention's ``query`` Dense is DenseGeneral).  The
+    inverse of :func:`_convert`'s rules."""
+    name = key.rsplit(".", 1)[-1]
+    attention = (parent is not None
+                 and type(parent).__name__ == "MultiHeadDotProductAttention")
+    own = key.rsplit(".", 2)[-2] if key.count(".") else ""
+    if attention and own in _QKV + ("out",):
+        heads = int(parent.num_heads)
+        if name == "weight":
+            return FlaxLayout("out" if own == "out" else "qkv", heads)
+        if name == "bias" and own in _QKV:
+            return FlaxLayout("qkv_bias", heads)
+    if name != "weight":
+        return FlaxLayout()
+    if tensor.ndim == 4:
+        return FlaxLayout("conv_transpose" if type(module).__name__ == "ConvTranspose"
+                          else "conv")
+    if tensor.ndim == 2 and not _FLAX_LAYOUT.match(key.replace(".", "/")[:-len("weight")]
+                                                  + "kernel"):
+        return FlaxLayout("dense")
+    return FlaxLayout()

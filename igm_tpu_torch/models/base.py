@@ -56,10 +56,10 @@ the host but ``state.step`` and ``state.counts``, and take its branch from
 ``state.step % phase_period`` alone; every branch returns the same metric
 keys (NaN for what it does not compute).
 
-Data parallelism (``igm_tpu_torch.parallel``): :meth:`BaseModel.set_mesh`
-binds a data-axis mesh of several ranks (or of one NCCL rank) to the model,
-its optimizers and the modules that take batch statistics (Flax's
-BatchNorm, the EMA codebook; the Switch-MoE refuses more than one rank).
+Parallelism (``igm_tpu_torch.parallel``): :meth:`BaseModel.set_mesh`
+binds a mesh of several ranks (or of one NCCL rank) to the model, its
+optimizers and the modules that take batch statistics (Flax's BatchNorm,
+the EMA codebook) or route over the batch (the Switch-MoE).
 A train step then runs on this rank's rows of the global batch, and every
 training draw with a batch axis goes through :meth:`BaseModel.batch_draw`:
 made at the global batch size from ``state.generator`` (the same on every
@@ -68,7 +68,12 @@ metrics over the ranks, so every rank holds the global batch's; under
 gloo, which a CUDA graph cannot capture, it runs the steps eagerly.
 :meth:`BaseModel.sharded` binds a mesh for a block (``sample_sharded``) or,
 with None, unbinds it (validation on rank 0 alone).  Without a mesh (one
-process) every draw is made as before, at the batch it is given.
+process) every draw is made as before, at the batch it is given.  On a
+mesh with a model axis, ``init_params`` shards the freshly drawn modules
+on the host (``parallel.sharding``: ``self.sharding``), so every state
+``make_state`` builds is born sharded; :meth:`BaseModel.unsharded` gives
+every rank the whole modules for a block (rank 0's validation, a
+sampler).
 """
 from __future__ import annotations
 
@@ -184,8 +189,10 @@ class BaseModel:
         # the model's own captured graphs (the samplers' denoiser), valid
         # while its parameters stay where they are
         self._graphs: dict = {}
-        # the data-axis mesh of several ranks (set_mesh); None: one process
+        # the mesh of several ranks (set_mesh); None: one process
         self.mesh: Optional[Mesh] = None
+        # the model axis's sharded modules (parallel.sharding); None: whole
+        self.sharding = None
 
     def save_hyperparameters(self, **kwargs: Any) -> None:
         for k, v in kwargs.items():
@@ -197,26 +204,49 @@ class BaseModel:
         device."""
         generator = torch.Generator().manual_seed(int(seed))
         self._graphs.clear()            # the move below gives new tensors
+        if self.sharding is not None:   # a new draw of the whole modules
+            self.sharding.remove()
+            self.sharding.whole_modules()
+            self.sharding = None
         self.modules.to("cpu")
         for module in self.modules.modules():
             if hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
+        if self.mesh is not None and self.mesh.sharded:
+            from ..parallel.sharding import shard_modules
+            self.sharding = shard_modules(self, self.mesh)   # on the host
         self.modules.to(self.device)
 
     # ------------------------------------------------------- data parallel
     def set_mesh(self, mesh: Optional[Mesh]) -> None:
-        """Bind a data-axis mesh (``parallel.make_mesh``) to the model, its
+        """Bind a mesh (``parallel.make_mesh``) to the model, its
         optimizers and the modules that take batch statistics; a mesh
         without a process group (one process) binds nothing.  The modules
-        and optimizers ``init_state`` makes are bound when it makes them."""
+        and optimizers ``init_state`` makes are bound when it makes them,
+        and on a model axis sharded."""
         self.mesh = mesh if mesh is not None and mesh.grouped else None
         self._bind_mesh()
 
     def _bind_mesh(self) -> None:
-        self.optimizers.mesh = self.mesh
+        """Every module with a ``bind_mesh(mesh, blocks)`` learns the mesh
+        (None: one process) and the row blocks a step splits its batch
+        into (``batch_blocks``).  While the modules are whole on a model
+        axis (``unsharded``), they see the mesh in ``fsdp`` mode: no layer
+        is tensor-parallel then."""
+        self.optimizers.mesh = mesh = self.mesh
+        if mesh is not None and self.sharding is not None and not self.sharding.active:
+            mesh = dataclasses.replace(mesh, mode="fsdp")
         for module in self.modules.modules():
             if hasattr(module, "bind_mesh"):
-                module.bind_mesh(self.mesh)
+                module.bind_mesh(mesh, self.batch_blocks)
+
+    def unsharded(self):
+        """Within: the whole modules and EMA shadow on every rank (a
+        collective: every rank enters it), as one process holds them; the
+        model axis's shards after.  Nothing without a model axis."""
+        if self.sharding is None:
+            return contextlib.nullcontext()
+        return self.sharding.whole()
 
     @contextlib.contextmanager
     def sharded(self, mesh: Optional[Mesh]):
@@ -256,7 +286,7 @@ class BaseModel:
         generator = torch.Generator(device=self.device).manual_seed(int(seed) + 1)
         return TrainState(modules=self.modules,
                           opt_states=self.optimizers.init(self.modules),
-                          generator=generator)
+                          generator=generator, sharding=self.sharding)
 
     def preprocess(self, imgs: torch.Tensor) -> torch.Tensor:
         """uint8 NHWC -> float in [0,1] (convert) or [-1,1] (normalize), on
@@ -409,6 +439,7 @@ class BaseModel:
         """With ``ema_decay > 0``: the shadow of ``modules[name]``'s
         parameters under ``state.opt_states["ema"]``, a copy of them."""
         if self.ema_decay > 0:
+            self._ema_of = name
             state.opt_states["ema"] = {
                 k: p.detach().clone() for k, p in self.modules[name].named_parameters()}
 

@@ -117,7 +117,7 @@ class DDPM(BaseModel):
         Adam, as in ``igm_tpu``.  The DiT keywords (``depth``, ``heads``,
         ``patch``, ``attention``, ``block_mode``, ``moe_*``) are ignored with
         the unet backbone; ``pipe_mesh`` and ``sp_mesh`` are refused
-        (parallelism, ROADMAP Queue 1 item 8).
+        (parallelism, ROADMAP Queue 1 item 7, slice 7c).
         """
         super().__init__(datamodule, device)
         if parameterization not in ("eps", "v"):

@@ -85,7 +85,7 @@ class TransformerEncoderLayer(nn.Module):
         self.LayerNorm_1 = LayerNorm(d_model, 1e-5, dtype)
         self.mesh = None
 
-    def bind_mesh(self, mesh) -> None:
+    def bind_mesh(self, mesh, blocks: int = 1) -> None:
         """A data-axis mesh: x then holds this rank's rows of the global
         batch, and the dropout masks are the global batch's (None: one
         process)."""

@@ -61,7 +61,7 @@ class VectorQuantizer(nn.Module):
             self.embedding = nn.Parameter(torch.empty(k, d))
         self.mesh = None
 
-    def bind_mesh(self, mesh) -> None:
+    def bind_mesh(self, mesh, blocks: int = 1) -> None:
         self.mesh = mesh
 
     def reset_parameters(self, generator: torch.Generator) -> None:

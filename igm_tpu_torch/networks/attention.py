@@ -85,7 +85,7 @@ class MultiHeadDotProductAttention(nn.Module):
         self.cache_index = 0
         self.mesh = None
 
-    def bind_mesh(self, mesh) -> None:
+    def bind_mesh(self, mesh, blocks: int = 1) -> None:
         """A data-axis mesh: x then holds this rank's rows of the global
         batch (None: one process)."""
         self.mesh = mesh

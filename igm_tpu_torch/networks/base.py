@@ -277,7 +277,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self.mesh = None
 
-    def bind_mesh(self, mesh) -> None:
+    def bind_mesh(self, mesh, blocks: int = 1) -> None:
         self.mesh = mesh
 
     def reset_parameters(self, generator: torch.Generator) -> None:

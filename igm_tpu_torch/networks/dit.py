@@ -35,8 +35,15 @@ every ``_Modulation`` and the ``head`` kernel (adaLN-Zero: the network
 outputs exactly 0 at init), N(0, 1/dim) for ``class_emb``
 (``num_classes + 1`` rows, the last the null token).
 
-The pipeline and sequence-parallel meshes of ``igm_tpu`` (``pipe_mesh``,
-``sp_mesh``) are parallelism, ROADMAP Queue 1 item 8: refused here.
+Tensor parallelism (``mesh.mode=tensor``, ``parallel/tensor.py``): a
+block bound to such a mesh (``bind_mesh``) computes with its
+rank's shards of the column layers (``qkv``, ``Dense_0``,
+``_Modulation_0/Dense_0``) and row layers (``proj``, ``Dense_1``), which
+the model's sharding put in the modules: the local heads' attention
+where the model axis divides the heads, else every head's from the
+gathered ``qkv``.  The pipeline and sequence-parallel meshes of
+``igm_tpu`` (``pipe_mesh``, ``sp_mesh``) are parallelism, ROADMAP Queue 1
+item 7 (slice 7c): refused here.
 """
 from __future__ import annotations
 
@@ -50,7 +57,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.causal_attention import flash_full_attention
-from .base import FlaxDense
+from ..parallel.mesh import MODEL_AXIS
+from ..parallel.tensor import TensorParallel, copy_to_model, gather_features, reduce_from_model
+from .base import FlaxDense, compute_dtype
 from .moe import SwitchMoE
 from .unet import Embed, sinusoidal_pos_emb
 
@@ -83,8 +92,20 @@ class _Modulation(nn.Module):
         self.n_chunks = n_chunks
         self.Dense_0 = FlaxDense(dim, dim * n_chunks, dtype=dtype, zero_kernel=True)
 
-    def forward(self, c: torch.Tensor) -> tuple:
-        return torch.chunk(self.Dense_0(F.silu(c))[:, None, :], self.n_chunks, dim=-1)
+    def forward(self, c: torch.Tensor, tp=None) -> tuple:
+        if tp is None:
+            y = self.Dense_0(F.silu(c))
+        else:       # column-parallel: every rank needs every modulation vector
+            y = gather_features(self.Dense_0(copy_to_model(F.silu(c), tp)), tp, partial=False)
+        return torch.chunk(y[:, None, :], self.n_chunks, dim=-1)
+
+
+def _row(layer: FlaxDense, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel layer: the rank's input features' product, summed
+    over the model group, then the bias, once."""
+    dt = compute_dtype(x, layer.weight, layer.dtype)
+    y = reduce_from_model(F.linear(x.to(dt), layer.weight.to(dt)), tp)
+    return y if layer.bias is None else y + layer.bias.to(dt)
 
 
 def _layernorm_f32(x: torch.Tensor) -> torch.Tensor:
@@ -169,15 +190,36 @@ class DiTBlock(nn.Module):
         # (``igm_tpu`` sows them into its "moe" collection)
         self.moe_aux: Optional[torch.Tensor] = None
         self.moe_load: Optional[torch.Tensor] = None
+        # the model axis's share (parallel/tensor.py); None: the whole block
+        self.tp = None
+
+    def bind_mesh(self, mesh, blocks: int = 1) -> None:
+        """On a model axis in ``tensor`` mode, compute with the rank's
+        Megatron shards of the column and row layers, which the model's
+        sharding put in the modules (the width must divide by the axis);
+        else the whole block."""
+        self.tp = None
+        if mesh is None or not mesh.sharded or mesh.mode != "tensor":
+            return
+        m = mesh.size(MODEL_AXIS)
+        if self.dim % m:
+            raise ValueError(f"mesh.mode=tensor: the DiT width {self.dim} does not split "
+                             f"over the model axis of {m}")
+        self.tp = TensorParallel.of(mesh, self.heads)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        d, h = self.dim, self.heads
+        d, h, tp = self.dim, self.heads, self.tp
         hd = d // h
-        s_a, g_a, gate_a, s_m, g_m, gate_m = self._Modulation_0(c)
+        s_a, g_a, gate_a, s_m, g_m, gate_m = self._Modulation_0(c, tp)
 
         a = _layernorm_f32(x) * (1.0 + g_a) + s_a
-        qkv = self.qkv(a)
+        qkv = self.qkv(a if tp is None else copy_to_model(a, tp))
         b, n, _ = qkv.shape
+        if tp is not None:
+            if tp.whole_heads:
+                h = h // tp.size
+            else:       # a head split between ranks: every head, from the whole qkv
+                qkv = gather_features(qkv, tp, partial=True)
         # head-grouped packing: each head's q, k, v are one 3*hd block
         q, k, v = torch.split(qkv.reshape(b, n, h, 3 * hd), hd, dim=-1)
         if self.attn == "flash":
@@ -187,14 +229,23 @@ class DiTBlock(nn.Module):
                            preserve_rng_state=False)
         else:
             o = attention_core(q, k, v)
-        o = self.proj(o.to(self.dtype or torch.float32).reshape(b, n, d))
+        o = o.to(self.dtype or torch.float32).reshape(b, n, h * hd)
+        if tp is None:
+            o = self.proj(o)
+        else:
+            if not tp.whole_heads:      # the rank's features of proj's input
+                o = o.chunk(tp.size, dim=-1)[tp.rank]
+            o = _row(self.proj, o, tp)
         x = x + gate_a * o
 
         m = _layernorm_f32(x) * (1.0 + g_m) + s_m
         if hasattr(self, "moe"):
             m, self.moe_aux, self.moe_load = self.moe(m)
-        else:
+        elif tp is None:
             m = self.Dense_1(F.gelu(self.Dense_0(m), approximate="tanh"))
+        else:
+            m = _row(self.Dense_1, F.gelu(self.Dense_0(copy_to_model(m, tp)),
+                                          approximate="tanh"), tp)
         return x + gate_m * m
 
 

@@ -25,10 +25,27 @@ Initialisation mirrors Flax's: ``lecun_normal`` on the 3-D expert leaves
 counts E into the fan-in (``w_up`` std 1/sqrt(E d), ``w_dn`` 1/sqrt(E h)),
 the router lecun_normal over d, zero biases.
 
-Under data parallelism of more than one rank the capacity and the slots
-would have to count the global batch's tokens (a cumulative sum across the
-ranks): ``bind_mesh`` refuses such a mesh until ROADMAP slice 7d gives the
-MoE global routing.
+Global routing on the data axis (``bind_mesh``): on a mesh of ``world``
+batch ranks, rank r's tokens are the r-th block of the one-process token
+order (``Mesh.local_rows`` with one block), and the routing is the
+one-process routing of the global batch:
+
+- the capacity is ``ceil(cf * n_global / E)``, ``n_global`` the global
+  batch's tokens;
+- a token's slot is its rank among the rank's tokens routed to its expert
+  plus the tokens the lower ranks routed there: an exclusive prefix over
+  the ranks of their per-expert counts, from one all-gather of E counts
+  (inside the step, so a CUDA graph captures it under NCCL);
+- the rank's buffer keeps ``E * cap`` slots, filled by its own tokens
+  only: the expert MLP works token by token, so no token moves;
+- ``aux = E * sum_e f_e * p_e`` takes the global ``f`` and ``p``: the
+  counts and probability sums are summed over the ranks by
+  ``all_reduce_sum``, whose backward is the same sum, so the gradient
+  averaged over the ranks is the global aux's (as BatchNorm's statistics);
+  ``load`` is the global ``f``.
+
+Expert parallelism (``mesh.mode=tensor`` on an MoE DiT) is ROADMAP Queue 1
+slice 7d's expert half: ``bind_mesh`` refuses it.
 """
 from __future__ import annotations
 
@@ -38,7 +55,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_gather_into, all_reduce_sum
 from .base import FlaxDense, lecun_normal_
+
+TENSOR_REFUSED = ("mesh.mode=tensor on a Switch-MoE DiT shards its experts over the model "
+                  "axis: expert parallelism, ROADMAP Queue 1 slice 7d's expert half, not "
+                  "ported yet")
 
 
 class SwitchMoE(nn.Module):
@@ -55,13 +77,20 @@ class SwitchMoE(nn.Module):
         self.b_up = nn.Parameter(torch.empty(experts, hidden))
         self.w_dn = nn.Parameter(torch.empty(experts, hidden, dim))
         self.b_dn = nn.Parameter(torch.empty(experts, dim))
+        # the data-axis mesh routed over (None: one process)
+        self.mesh = None
 
-    def bind_mesh(self, mesh) -> None:
-        if mesh is not None and mesh.world > 1:
-            raise NotImplementedError(
-                "the Switch-MoE under data parallelism (more than one rank) needs global "
-                "routing (the capacity and slots over the global batch's tokens), "
-                "ROADMAP Queue 1 slice 7d, not ported yet")
+    def bind_mesh(self, mesh, blocks: int = 1) -> None:
+        """Route over ``mesh``'s batch ranks (None: this process's tokens).
+        Refused: the tensor mode of a model axis (expert parallelism), and
+        a step that splits its batch into ``blocks > 1`` row blocks (rank
+        r's tokens are then not the r-th block of the global order)."""
+        if mesh is not None and mesh.sharded and mesh.mode == "tensor":
+            raise NotImplementedError(TENSOR_REFUSED)
+        if mesh is not None and mesh.grouped and blocks != 1:
+            raise ValueError(f"the Switch-MoE routes over the global batch, which a step "
+                             f"of {blocks} blocks does not hand out in order")
+        self.mesh = mesh if mesh is not None and mesh.grouped else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         e = self.experts
@@ -78,7 +107,8 @@ class SwitchMoE(nn.Module):
         """[B, T, d] -> ([B, T, d], aux (), load (E,))."""
         b, t, d = x.shape
         e, n = self.experts, b * t
-        cap = self.capacity(n)
+        mesh = self.mesh
+        cap = self.capacity(n * (1 if mesh is None else mesh.world))
         xf = x.reshape(n, d)
 
         probs = torch.softmax(self.router(xf.float()), dim=-1)      # [n, e] f32
@@ -91,6 +121,13 @@ class SwitchMoE(nn.Module):
         # 65,536 rows and 8 columns took 10.5 ms a call on an H100)
         onehot_t = (idx[None, :] == torch.arange(e, device=x.device)[:, None]).float()
         pos_t = torch.cumsum(onehot_t, dim=1) * onehot_t - onehot_t
+        if mesh is not None:
+            # the tokens the lower ranks routed to each expert come first
+            counts = onehot_t.sum(dim=1)
+            every = torch.empty(mesh.world * e, dtype=counts.dtype, device=x.device)
+            all_gather_into(every, counts, mesh.group)
+            before = every.view(mesh.world, e)[:mesh.rank].sum(dim=0)
+            pos_t = pos_t + before[:, None] * onehot_t
         keep = ((pos_t < cap).float() * onehot_t).t()                  # [n, e]
         pos_i = (pos_t * onehot_t).sum(dim=0).long()
         kept = keep.sum(dim=-1)
@@ -121,6 +158,12 @@ class SwitchMoE(nn.Module):
             combine = dispatch * gate[:, None, None]
             out = torch.einsum("nec,ecd->nd", combine.to(cdt), out_e)
 
-        load = onehot.mean(dim=0)
-        aux = e * torch.sum(load * probs.mean(dim=0))
+        if mesh is None:
+            load = onehot.mean(dim=0)
+            mean_p = probs.mean(dim=0)
+        else:           # the global batch's fractions and mean probabilities
+            n_global = n * mesh.world
+            load = all_reduce_sum(mesh, onehot_t.sum(dim=1)) / n_global
+            mean_p = all_reduce_sum(mesh, probs.sum(dim=0)) / n_global
+        aux = e * torch.sum(load * mean_p)
         return out.reshape(b, t, d).to(x.dtype), aux, load

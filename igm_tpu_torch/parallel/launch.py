@@ -81,10 +81,11 @@ def init_from_env(device: torch.device) -> torch.device:
 
 
 def leave_group() -> None:
-    """Leave the process group once a rank's work is done.  A CUDA graph
-    that captured an NCCL collective keeps the communicator's destruction
-    waiting while the graph lives, and the port's graphs sit in reference
-    cycles with their models: collect them first.  (A rank that raises
+    """Leave the process group (and the mesh's subgroups: the model, fsdp
+    and batch groups) once a rank's work is done.  A CUDA graph that
+    captured an NCCL collective, on any of them, keeps the communicator's
+    destruction waiting while the graph lives, and the port's graphs sit
+    in reference cycles with their models: collect them first.  (A rank that raises
     does not come here: it exits, and its launch ends the others.)"""
     gc.collect()
     dist.destroy_process_group()

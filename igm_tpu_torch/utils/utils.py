@@ -1,8 +1,10 @@
 """Logging helpers: the parts of ``igm_tpu/utils/utils.py`` the zoo calls
-(``get_logger``, ``count_params``).  One process, so no rank guard."""
+(``get_logger``, ``count_params``).  No rank guard: the training entry
+logs on every rank."""
 from __future__ import annotations
 
 import logging
+import math
 
 from torch import nn
 
@@ -22,5 +24,9 @@ def get_logger(name: str = "igm_tpu_torch", level: int = logging.INFO) -> loggin
 
 
 def count_params(module: nn.Module) -> int:
-    """The number of parameter elements of ``module``."""
-    return sum(p.numel() for p in module.parameters())
+    """The number of parameter elements of ``module`` (a model axis's
+    shard counts its whole parameter's)."""
+    def whole(p) -> int:
+        leaf = getattr(p, "_igm_leaf", None)
+        return p.numel() if leaf is None else math.prod(leaf.shape)
+    return sum(whole(p) for p in module.parameters())

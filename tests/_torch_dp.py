@@ -73,8 +73,8 @@ def run(model, batch, steps: int, mesh=None, weights=None, draws=None) -> dict:
     updates, reduced = [], []
     reduce, apply = opts.reduce_grads, opts._apply
 
-    def recorded_reduce(gs):
-        out = reduce(gs)
+    def recorded_reduce(gs, *args):
+        out = reduce(gs, *args)
         reduced.append([g.detach().clone().cpu() for g in out])
         return out
 

@@ -4,9 +4,11 @@ group and with a world-1 gloo group, ``Mesh.local_rows``, ``shard_batch``,
 ``divisor`` rounding against igm_tpu's, the world-1 group's train step
 against the ungrouped one bit for bit, the launch decisions of the
 training CLI (N ranks spawned, ``IGM_MULTIHOST=1`` joining torchrun's
-group, a multirun refused), and the refusals of what the port has not
-reached: a model axis (slice 7b), sequence and pipeline parallelism
-(slice 7c) and the Switch-MoE under more than one rank (slice 7d).
+group, a multirun refused), the model axes' configuration (a model or
+fsdp axis builds, or raises igm_tpu's ValueError where the ranks do not
+make it), and the refusals of what the port has not reached: sequence
+and pipeline parallelism (slice 7c) and expert parallelism, tensor mode
+on a Switch-MoE (slice 7d's expert half).
 """
 import sys
 from pathlib import Path
@@ -53,8 +55,9 @@ def test_make_mesh_without_a_group_is_one_process():
         make_mesh(data=2, devices="cpu")
     with pytest.raises(ValueError, match="one device"):
         make_mesh(devices=["cpu", "cpu"])
-    for kw in (dict(model=2), dict(fsdp=2)):
-        with pytest.raises(NotImplementedError, match="slice 7b"):
+    for kw, match in ((dict(model=2), "model axis 2 does not divide 1 devices"),
+                      (dict(fsdp=2), "fsdp axis requires a model axis")):
+        with pytest.raises(ValueError, match=match):
             make_mesh(devices="cpu", **kw)
 
 
@@ -160,11 +163,25 @@ def test_world_one_group_step_equals_the_ungrouped_step(group):
 
 
 def test_moe_refuses_more_than_one_rank():
+    """The Switch-MoE routes over a many-rank data axis (global routing,
+    tests/test_torch_parallel_model.py); what it refuses is expert
+    parallelism: mesh.mode=tensor on an MoE DiT (slice 7d's expert half),
+    and a step that hands its rows out in several blocks."""
     moe = SwitchMoE(8, 16, 2)
     moe.bind_mesh(None)
-    moe.bind_mesh(Mesh(1, 0, CPU, "nccl", object()))
-    with pytest.raises(NotImplementedError, match="slice 7d"):
-        moe.bind_mesh(Mesh(2, 0, CPU, "gloo", object()))
+    assert moe.mesh is None
+    for mesh in (Mesh(1, 0, CPU, "nccl", object()), Mesh(2, 0, CPU, "gloo", object())):
+        moe.bind_mesh(mesh)
+        assert moe.mesh is mesh
+    with pytest.raises(ValueError, match="2 blocks"):
+        moe.bind_mesh(Mesh(2, 0, CPU, "gloo", object()), blocks=2)
+    model = dp.build(["experiment=ddpm/cifar10_dit", "model.hidden_dim=32", "model.depth=2",
+                      "model.heads=2", "model.patch=4", "datamodule.width=8",
+                      "datamodule.height=8", "model.moe_experts=2"])
+    tensor = Mesh(1, 0, CPU, "gloo", object(), axes=(("data", 1), ("model", 2)),
+                  coords=(("data", 0), ("model", 0)), mode="tensor")
+    with pytest.raises(NotImplementedError, match="slice 7d's expert half"):
+        model.set_mesh(tensor)
 
 
 @pytest.mark.parametrize("mesh,slice_", [({"model": 2}, "7b"), ({"fsdp": 2}, "7b"),
@@ -172,8 +189,20 @@ def test_moe_refuses_more_than_one_rank():
                                          ({"mode": "pipeline"}, "7c"),
                                          ({"sequence": True}, "7c")])
 def test_trainer_refuses_what_the_port_has_not_reached(mesh, slice_):
-    with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
-        Trainer(mesh={"data": -1, **mesh})
+    """7c (sequence and pipeline parallelism) raises; 7b's model axes
+    build, and the mesh they ask for raises igm_tpu's ValueError where one
+    process cannot make it (a model or fsdp axis of 2)."""
+    if slice_ == "7c":
+        with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
+            Trainer(mesh={"data": -1, **mesh})
+        return
+    trainer = Trainer(mesh={"data": -1, **mesh})
+    if mesh.get("model", 1) > 1 or mesh.get("fsdp", 1) > 1:
+        with pytest.raises(ValueError, match="does not divide|requires a model axis"):
+            make_mesh(trainer.mesh_data, devices="cpu", **trainer.mesh_axes)
+    else:
+        built = make_mesh(trainer.mesh_data, devices="cpu", **trainer.mesh_axes)
+        assert (built.mode, built.world) == ("tensor", 1)
 
 
 def test_trainer_devices_needs_its_ranks():

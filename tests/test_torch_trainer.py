@@ -102,8 +102,11 @@ def test_train_main_trains_validates_checkpoints_and_resumes(tmp_path, monkeypat
 def test_trainer_takes_one_device_only():
     assert Trainer(steps_per_execution="auto").steps_per_execution == "auto"   # until fit
     Trainer(mesh={"data": -1, "model": 1})
-    with pytest.raises(NotImplementedError):
-        Trainer(mesh={"data": -1, "model": 2})
+    # a model axis builds; one process cannot make its two ranks (igm_tpu's error)
+    trainer = Trainer(mesh={"data": -1, "model": 2})
+    from igm_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="model axis 2 does not divide 1"):
+        make_mesh(trainer.mesh_data, devices="cpu", **trainer.mesh_axes)
     with pytest.raises(ValueError, match="launch them"):
         Trainer(devices=4)          # its ranks: python -m igm_tpu_torch.train trainer.devices=4
     with pytest.raises(ValueError):
