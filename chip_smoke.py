@@ -102,7 +102,8 @@ and prints no result line):
           flagship-width UNet (exactly 25 + 25 GroupNorm+Mish and 6 + 6
           linear attention); the train CLI on ddpm/cifar10_dit (DDIM
           validation), ddpm/cifar10_dit_v (DPM validation), edm/cifar10_dit
-          and flow/cifar10_dit (an epoch of 3 steps; flow's 2, then resumed) and the
+          and flow/cifar10_dit at full width and depth 2 (DIT_CLI; an epoch
+          of 3 steps; flow's 2, then resumed) and the
           sampling CLI from their checkpoints (--sampler ddim, dpm, heun,
           the ODE); one block's attention core forward and backward at the
           train step's shapes, the xla arm and SDPA; the train step at
@@ -269,14 +270,20 @@ and prints no result line):
           25 + 25 + 6 + 6 hand launches a rank a step, each rank's state
           under one process's; tensor (1, 2) on the full-width DiT in f32
           at 32 and the f32 MoE DiT at 16 on two data ranks (the same
-          dropped tokens as one process) within PARALLEL_TOL.
+          dropped tokens as one process) within PARALLEL_TOL; the pipeline
+          (data 1, stage 2) at 2 microbatches and tensor + sequence (1, 2)
+          on the full-width DiT in f32 at 32 (each rank's state under one
+          process's) within PARALLEL_TOL.
   parallel_cards  (--only, on a host of more than one card; the default run
           leaves it out) one NCCL rank a card, spawned, each mesh of
           CARDS_CASES in turn (the data axis, FSDP (2, 2) on the flagship,
           tensor (2, 2) and composed (1, 2, 2) on the bf16 DiT, the MoE DiT
-          on four data ranks): the eager step against one process on card 0
-          on the whole global batch, 3 graphed steps with the collectives
-          inside the graph (every rank's whole state equal bit for bit),
+          on four data ranks, the pipeline (1, 4) and (2, 2) at 4
+          microbatches and tensor + sequence (1, 4) and (2, 2) on the bf16
+          DiT): the eager step against one process on card 0 on the whole
+          global batch, 3 graphed steps with the collectives inside the
+          graph (the pipeline's eager: Mesh.capturable; every rank's whole
+          state equal bit for bit),
           the graphed step's ms a rank, images/s, state bytes and peak
           memory against one card's on the global batch; then the train
           CLI with trainer.devices=-1 for 2 epochs of 64 rows a rank (rank
@@ -1944,6 +1951,10 @@ DIT_STEP_BATCH = 2                   # card against CPU: train steps
 # the DiT experiment whose CLI fit is resumed (the others' resumes drive the
 # same trainer path, which phases train, latent, tar and families resume too)
 DIT_CLI_RESUME = "flow/cifar10_dit"
+# the CLIs' depth: they drive the trainer, checkpoints, resume and the
+# sampling CLI; the full-depth DiT step runs in dit_train_timed, chain and
+# parallel_cards (a depth cut that keeps the whole script under 600 s)
+DIT_CLI = ["model.depth=2"]
 # float32 with TF32 off on both sides: the same GEMMs and softmaxes summed in
 # another order over 8 blocks (a few ulps a layer); held to 1e-4 of the
 # output's largest value, the loss to 1e-4 of itself, and the gradients to
@@ -2110,8 +2121,9 @@ def dit_unet_launches() -> tuple:
 
 
 def dit_cli() -> tuple:
-    """The train CLI on the four DiT experiments (an epoch of 3 steps with
-    validation samples; DIT_CLI_RESUME 2, then resumed for one more), then the
+    """The train CLI on the four DiT experiments at depth 2 (DIT_CLI; an
+    epoch of 3 steps with validation samples; DIT_CLI_RESUME 2, then
+    resumed for one more), then the
     sampling CLI from their checkpoints: --sampler ddim, dpm, heun, and flow
     matching's default ODE.  Returns the launches (all 0)."""
     from PIL import Image
@@ -2131,7 +2143,7 @@ def dit_cli() -> tuple:
                            ["step_6.pt", "step_9.pt"])]
             for name, overrides, ckpts in stages:
                 t0 = time.perf_counter()
-                loss = _train_cli(tmp, *extra, *overrides, experiment=experiment)
+                loss = _train_cli(tmp, *DIT_CLI, *extra, *overrides, experiment=experiment)
                 got = sorted(p.name for p in (run / "checkpoints").iterdir())
                 check(loss is not None and math.isfinite(loss),
                       f"{experiment} {name}: loss {loss}")
@@ -2146,7 +2158,7 @@ def dit_cli() -> tuple:
                                     ("edm/cifar10_dit", "heun"), ("flow/cifar10_dit", None)):
             png = tmp / f"{experiment.replace('/', '_')}.png"
             t0 = time.perf_counter()
-            imgs = sample_main([f"experiment={experiment}", "--ckpt",
+            imgs = sample_main([f"experiment={experiment}", *DIT_CLI, "--ckpt",
                                 str(tmp / "logs" / "runs" / experiment / "checkpoints"),
                                 "--n", "16", "--out", str(png),
                                 *(["--sampler", sampler] if sampler else [])])
@@ -4976,11 +4988,18 @@ PARALLEL_MODEL_AXIS = (
      dict(model=2, mode="tensor"), {}),
     ("moe_dit", ["experiment=ddpm/cifar10_dit", "model.compute_dtype=float32",
                  *DIT_MOE_OVERRIDES], 16, dict(), {}),
+    # the pipeline: each rank one stage of 4 blocks, 2 microbatches of 16
+    ("pipeline_dit", ["experiment=ddpm/cifar10_dit", "model.compute_dtype=float32"], 32,
+     dict(stage=2, microbatches=2), {}),
+    # Megatron-SP on the tensor mesh: 128 of the 256 tokens a rank between GEMMs
+    ("sequence_dit", ["experiment=ddpm/cifar10_dit", "model.compute_dtype=float32"], 32,
+     dict(model=2, mode="tensor", sequence=True), {}),
 )
 # (the card showed, H100 80GB HBM3, 700.00 W: tensor 0 and 5.3e-7, the
 # MoE 1.1e-7 and 4.9e-7; DiT weights moved off adaLN-Zero, _mesh_state)
 PARALLEL_TOL.update({"fsdp_flagship": (0.0, 0.0), "tensor_dit": (1e-6, 5e-6),
-                     "moe_dit": (1e-6, 5e-6)})
+                     "moe_dit": (1e-6, 5e-6), "pipeline_dit": (1e-6, 1e-5),
+                     "sequence_dit": (1e-6, 1e-5)})
 # (c): DDIM-50 over 64 images, two ranks of 32 against one process on 64:
 # bit for bit against one process on each half of the same x_T, which is
 # what one process gives at a batch of 32.  Against the batch of 64 the
@@ -4998,6 +5017,22 @@ def _parallel_model(overrides, device="cuda"):
     model = instantiate(cfg.model, datamodule=cfg.datamodule, device=device)
     model.steps_per_epoch = 1000
     return model
+
+
+def _axis_model(overrides, device, mesh_kw):
+    """(the model of ``overrides``, its mesh from ``mesh_kw``): make_mesh's
+    keywords, and ``microbatches`` and ``sequence``, with which the model
+    is rebuilt for the pipeline or the sequence split, as the trainer
+    does (``Trainer.prepare_model``)."""
+    from igm_tpu_torch.parallel.mesh import make_mesh
+    kw = {k: v for k, v in mesh_kw.items() if k not in ("microbatches", "sequence")}
+    mesh = make_mesh(devices=device, **kw)
+    model = _parallel_model(overrides, device)
+    if mesh.mode == "pipeline":
+        model.enable_pipeline(mesh, mesh_kw.get("microbatches", 1))
+    if mesh_kw.get("sequence"):
+        model.enable_sequence_parallel(mesh)
+    return model, mesh
 
 
 def _mesh_state(model, mesh, overrides):
@@ -5112,14 +5147,15 @@ def _parallel_rank(device, out_dir: str) -> None:
         del model, state
         _release()
     for name, overrides, batch, mesh_kw, _ in PARALLEL_MODEL_AXIS:
-        axis_mesh = make_mesh(devices=device, **mesh_kw)
-        model = _parallel_model(overrides, device)
+        t0 = time.perf_counter()
+        model, axis_mesh = _axis_model(overrides, device, mesh_kw)
         state = _mesh_state(model, axis_mesh, overrides)
         rows = torch.from_numpy(axis_mesh.local_rows(batch)).to(device)
         local = tuple(b[0][rows] for b in _chain_batches(model, batch, 1, 21))
         dropped = _moe_dropped(model)
         record = _dp_steps(model, state, local, PARALLEL_DP_STEPS)
         record.update(jax="jax" in sys.modules, dropped=dropped, bytes=_state_bytes(state),
+                      seconds=time.perf_counter() - t0,
                       sharded=sum(leaf.sharded for leaf in (model.sharding.leaves
                                                             if model.sharding else [])))
         torch.save(record, out / f"{name}.rank{torch.distributed.get_rank()}.pt")
@@ -5268,6 +5304,7 @@ def phase_parallel() -> dict:
         if failed:
             raise failed[0]
         out["seconds_to_ranks_end"] = time.perf_counter() - t0
+        emit("parallel", run="ranks", seconds_to_ranks_end=out["seconds_to_ranks_end"])
         # (a)'s timing, the card quiet again: plain, NCCL, NCCL, plain
         ms = {"plain": [], "nccl": []}
         for key in ("plain", "nccl", "nccl", "plain"):
@@ -5292,6 +5329,7 @@ def phase_parallel() -> dict:
                 for r in range(PARALLEL_WORLD)]
         out[name] = parallel_compare(name, recs, refs[name], per_step, run="model_axis")
         out[name].update(mesh=mesh_kw, batch=batch, sharded_leaves=recs[0]["sharded"],
+                         rank_seconds=max(r["seconds"] for r in recs),
                          state_bytes_by_rank=[r["bytes"] for r in recs],
                          one_process_state_bytes=refs[name]["bytes"])
         if name == "fsdp_flagship":     # one data rank: nothing summed in another order
@@ -5302,6 +5340,9 @@ def phase_parallel() -> dict:
             check(all(r["bytes"] < refs[name]["bytes"] for r in recs),
                   f"parallel {name}: a rank keeps the whole state")
             out[name]["bit_for_bit"] = True
+        if name in ("pipeline_dit", "sequence_dit"):
+            check(all(r["bytes"] < refs[name]["bytes"] for r in recs),
+                  f"parallel {name}: a rank keeps the whole state")
         if name == "moe_dit":
             check(recs[0]["dropped"] == refs[name]["dropped"] and sum(recs[0]["dropped"]) > 0,
                   f"parallel {name}: dropped {recs[0]['dropped']}, one process "
@@ -5355,6 +5396,14 @@ CARDS_CASES = (
     ("composed_dit", ["experiment=ddpm/cifar10_dit"], dict(fsdp=2, model=2, mode="tensor"),
      CARDS_BATCH, "dit_bf16"),
     ("moe_dit", ["experiment=ddpm/cifar10_dit", *DIT_MOE_OVERRIDES], dict(), 64, "dit_bf16"),
+    ("pipeline_dit_1x4", ["experiment=ddpm/cifar10_dit"], dict(stage=4, microbatches=4),
+     CARDS_BATCH, "dit_bf16"),
+    ("pipeline_dit_2x2", ["experiment=ddpm/cifar10_dit"],
+     dict(data=2, stage=2, microbatches=4), CARDS_BATCH, "dit_bf16"),
+    ("sequence_dit_1x4", ["experiment=ddpm/cifar10_dit"],
+     dict(model=4, mode="tensor", sequence=True), CARDS_BATCH, "dit_bf16"),
+    ("sequence_dit_2x2", ["experiment=ddpm/cifar10_dit"],
+     dict(model=2, mode="tensor", sequence=True), CARDS_BATCH, "dit_bf16"),
 )
 # bf16 DiT steps on a mesh against one card on the global batch: cuBLAS
 # picks its GEMMs at the rank's rows and bf16 rounds the partial sums of a
@@ -5371,13 +5420,11 @@ def _cards_rank(device, out_dir: str) -> None:
     CARDS_STEPS graphed steps (the collectives inside the graph), then
     CARDS_TIMED graphed steps timed; the state's bytes and the peak memory."""
     import torch
-    from igm_tpu_torch.parallel.mesh import make_mesh
     from igm_tpu_torch.utils.platform import set_numerics
     set_numerics()
     for name, overrides, mesh_kw, rows_per, _ in CARDS_CASES:
         torch.cuda.reset_peak_memory_stats(device)
-        mesh = make_mesh(devices=device, **mesh_kw)
-        model = _parallel_model(overrides, device)
+        model, mesh = _axis_model(overrides, device, mesh_kw)
         state = _mesh_state(model, mesh, overrides)
         glob = _chain_batches(model, rows_per * mesh.world, 1, 23)
         rows = torch.from_numpy(mesh.local_rows(rows_per * mesh.world)).to(device)
@@ -5388,7 +5435,8 @@ def _cards_rank(device, out_dir: str) -> None:
             {k: float(v) for k, v in model.train_step_n(state, chunk)[1].items()}
             for _ in range(CARDS_STEPS)]
         record["ms_per_step"] = _graphed_ms(model, state, chunk, CARDS_TIMED)
-        record.update(graphs=len(state.graphs), jax="jax" in sys.modules,
+        record.update(graphs=len(state.graphs), capturable=mesh.capturable,
+                      jax="jax" in sys.modules,
                       bytes=_state_bytes(state), global_batch=rows_per * mesh.world,
                       peak_bytes=torch.cuda.max_memory_allocated(device),
                       graphed_state=state.full_state_dict()["params"])
@@ -5428,8 +5476,10 @@ def phase_parallel_cards() -> dict:
         for r in recs[1:]:
             diff = same_bits(r["graphed_state"], recs[0]["graphed_state"])
             check(not diff, f"parallel_cards {name}: the ranks' states differ at {diff[:4]}")
-        check(all(r["graphs"] == 1 for r in recs),
-              f"parallel_cards {name}: a rank did not capture one graph")
+        # a pipelined step is eager by rule (Mesh.capturable): no graph
+        want_graphs = [int(r["capturable"]) for r in recs]
+        check([r["graphs"] for r in recs] == want_graphs,
+              f"parallel_cards {name}: graphs {[r['graphs'] for r in recs]}, not {want_graphs}")
         n = recs[0]["global_batch"]
         torch.cuda.reset_peak_memory_stats()
         model = _parallel_model(overrides)
@@ -5444,7 +5494,8 @@ def phase_parallel_cards() -> dict:
             model.train_step_n(state, chunk)
         one_ms = _graphed_ms(model, state, chunk, CARDS_TIMED)
         ms = [r["ms_per_step"] for r in recs]
-        row.update(mesh=mesh_kw, global_batch=n, ms_per_step_by_rank=ms,
+        row.update(mesh=mesh_kw, global_batch=n, graphed=bool(recs[0]["capturable"]),
+                   ms_per_step_by_rank=ms,
                    one_card_ms_per_step_global_batch=one_ms,
                    images_per_s=n / (max(ms) / 1e3), one_card_images_per_s=n / (one_ms / 1e3),
                    state_bytes_by_rank=[r["bytes"] for r in recs],

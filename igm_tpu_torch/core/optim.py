@@ -50,7 +50,10 @@ gather's backward already summed over ``fsdp`` where that axis gathered it
 elementwise, so a shard's update is the one-process update of its
 elements; ``clip_by_global_norm`` sums each shard's squares over its axes;
 and ``CastAdam``'s stochastic rounding hashes each element's index in the
-whole parameter.  The average, not the sum,
+whole parameter.  On a pipeline mesh a block's leaf lives on its stage
+alone, and a replicated leaf's gradient is each stage's part of the whole
+(``parallel.pipeline``): it is summed over ``stage`` as it is averaged
+over ``data``, in one all-reduce.  The average, not the sum,
 because every loss the port's models differentiate is a mean over the
 batch (or a function of batch statistics that are themselves taken over
 the global batch), so that the mean of the ranks' losses is the global
@@ -538,7 +541,7 @@ class OptimizerSet:
             return grads
         by_axes: Dict[tuple, List[int]] = {}
         for i in range(len(grads)):
-            axes = grad_axes(params[i]) if i < len(params) else ()
+            axes = grad_axes(params[i], self.mesh) if i < len(params) else ()
             by_axes.setdefault(axes, []).append(i)
         out = list(grads)
         for axes, idx in by_axes.items():

@@ -67,8 +67,14 @@ checkpoint (rank 0 writes it in the one-process format) and for rank 0's
 validation, and a resume slices the whole checkpoint onto the shards.
 Under gloo (the CPU, or ranks sharing a card) the steps run eagerly.
 ``devices`` 1 (the default) is one process without a process group, as
-before.  ``mesh.stage`` > 1, ``mesh.mode=pipeline`` and ``mesh.sequence``
-(slice 7c) raise ``NotImplementedError``.
+before.  ``mesh.mode=pipeline`` (or ``mesh.stage`` > 1) builds
+``igm_tpu``'s ``(data, stage)`` pipeline mesh (``mesh.data`` -1: the
+ranks over ``mesh.stage``) and rebuilds the model's DiT for it
+(``enable_pipeline`` with ``mesh.microbatches``); every stage rank keeps
+its blocks' state alone, and the pipelined steps run eagerly (``Mesh.
+capturable``).  ``mesh.sequence=true`` adds Megatron-SP on the model axis
+(``enable_sequence_parallel``).  A model without the hook raises
+``igm_tpu``'s ``ValueError``.
 """
 from __future__ import annotations
 
@@ -87,8 +93,6 @@ from .logging import MetricAccumulator, NoOpLogger, TensorBoardLogger
 log = logging.getLogger(__name__)
 
 H100_BF16_DENSE_FLOPS = 989e12
-STAGES_REFUSED = ("sequence and pipeline parallelism are ROADMAP Queue 1 slice 7c, "
-                  "not ported yet")
 # the host's cost of one graphed execution beyond its device work (the
 # chunk's copy into the graph's inputs, the launch, the metrics' copy out):
 # the median of 40.4, 51.9 and 52.6 us, three runs on an H100 80GB HBM3 at
@@ -171,12 +175,17 @@ class Trainer:
         mode = mesh_cfg.pop("mode", "fsdp")
         if mode not in ("fsdp", "tensor", "pipeline"):
             raise ValueError(f"mesh.mode must be fsdp|tensor|pipeline, got {mode!r}")
+        stage = int(mesh_cfg.pop("stage", 1) or 1)
+        # igm_tpu's rule: mode=pipeline or a stage axis is the pipeline mesh
+        if mode == "pipeline" or stage > 1:
+            mode = "pipeline"
+            if stage <= 1:
+                raise ValueError("mesh.mode=pipeline needs mesh.stage > 1")
         self.mesh_axes = dict(model=int(mesh_cfg.pop("model", 1) or 1),
-                              fsdp=int(mesh_cfg.pop("fsdp", 1) or 1), mode=mode)
-        mesh_cfg.pop("microbatches", None)
-        if (int(mesh_cfg.pop("stage", 1) or 1) > 1 or mode == "pipeline"
-                or mesh_cfg.pop("sequence", False)):
-            raise NotImplementedError(f"mesh={mesh}: {STAGES_REFUSED}")
+                              fsdp=int(mesh_cfg.pop("fsdp", 1) or 1), mode=mode, stage=stage)
+        self.pipe_microbatches = int(mesh_cfg.pop("microbatches", 1) or 1)
+        # Megatron-SP on the model axis (composes with mode=tensor)
+        self.seq_parallel = bool(mesh_cfg.pop("sequence", False))
         if mesh_cfg:
             raise NotImplementedError(f"mesh keys {sorted(mesh_cfg)} are not ported")
         self.mesh = None                 # the mesh, made in fit
@@ -241,14 +250,16 @@ class Trainer:
         model.steps_per_epoch = steps_per_epoch
         if not self.rank0:
             self.logger = NoOpLogger()           # rank 0 alone writes the logs
+        self.prepare_model(model, mesh)
         model.set_mesh(mesh)
         blocks = model.batch_blocks
-        divisor = mesh.world * blocks if mesh.grouped else 1
+        # igm_tpu divides the batch by every device of the mesh
+        divisor = mesh.ranks * blocks if mesh.grouped else 1
         global_bs = global_batch(n_train, batch_size, divisor)
         rows = mesh.local_rows(global_bs, blocks) if mesh.grouped else None
         if mesh.grouped and not mesh.capturable and model.device.type == "cuda":
-            log.info("data parallel over %s: its collectives cannot be captured, so the "
-                     "train steps run eagerly", mesh.backend)
+            log.info("mesh %s over %s: its steps cannot be captured (gloo's collectives, "
+                     "or the pipeline's hops), so they run eagerly", mesh.shape, mesh.backend)
 
         hp = {f"model/{k}": v for k, v in model.hparams.items()
               if isinstance(v, (int, float, bool, str))}
@@ -365,6 +376,23 @@ class Trainer:
             barrier(mesh)
         self.logger.finalize()
         log.info("fit finished in %.1fs", time.perf_counter() - t_train)
+
+    def prepare_model(self, model, mesh) -> None:
+        """Rebuild the model for the pipeline mesh (``enable_pipeline`` with
+        ``mesh.microbatches``) and for ``mesh.sequence`` (``enable_sequence_
+        parallel``), before its state is made; ``igm_tpu``'s errors for a
+        model without the hook."""
+        if mesh.mode == "pipeline":
+            if not hasattr(model, "enable_pipeline"):
+                raise ValueError(f"mesh.mode=pipeline needs a model with enable_pipeline "
+                                 f"(the DiT-backboned families); {type(model).__name__} "
+                                 f"has none")
+            model.enable_pipeline(mesh, self.pipe_microbatches)
+        if self.seq_parallel:
+            if not hasattr(model, "enable_sequence_parallel"):
+                raise ValueError(f"mesh.sequence=true needs a model with "
+                                 f"enable_sequence_parallel; {type(model).__name__} has none")
+            model.enable_sequence_parallel(mesh)
 
     def _save(self, state) -> None:
         """Rank 0 writes the whole state (on a model axis gathered by every

@@ -73,7 +73,9 @@ mesh with a model axis, ``init_params`` shards the freshly drawn modules
 on the host (``parallel.sharding``: ``self.sharding``), so every state
 ``make_state`` builds is born sharded; :meth:`BaseModel.unsharded` gives
 every rank the whole modules for a block (rank 0's validation, a
-sampler).
+sampler).  On a pipeline mesh (a ``stage`` axis, ``parallel/pipeline.py``)
+the same sharding keeps each pipelined DiT block's leaves on its stage
+alone, and :meth:`BaseModel.unsharded` broadcasts them to every rank.
 """
 from __future__ import annotations
 
@@ -212,7 +214,7 @@ class BaseModel:
         for module in self.modules.modules():
             if hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
-        if self.mesh is not None and self.mesh.sharded:
+        if self.mesh is not None and (self.mesh.sharded or self.mesh.staged):
             from ..parallel.sharding import shard_modules
             self.sharding = shard_modules(self, self.mesh)   # on the host
         self.modules.to(self.device)
@@ -223,7 +225,7 @@ class BaseModel:
         optimizers and the modules that take batch statistics; a mesh
         without a process group (one process) binds nothing.  The modules
         and optimizers ``init_state`` makes are bound when it makes them,
-        and on a model axis sharded."""
+        and on a model or stage axis sharded."""
         self.mesh = mesh if mesh is not None and mesh.grouped else None
         self._bind_mesh()
 
@@ -231,8 +233,8 @@ class BaseModel:
         """Every module with a ``bind_mesh(mesh, blocks)`` learns the mesh
         (None: one process) and the row blocks a step splits its batch
         into (``batch_blocks``).  While the modules are whole on a model
-        axis (``unsharded``), they see the mesh in ``fsdp`` mode: no layer
-        is tensor-parallel then."""
+        or stage axis (``unsharded``), they see the mesh in ``fsdp`` mode:
+        no layer is tensor-parallel and no block stack pipelined then."""
         self.optimizers.mesh = mesh = self.mesh
         if mesh is not None and self.sharding is not None and not self.sharding.active:
             mesh = dataclasses.replace(mesh, mode="fsdp")

@@ -40,7 +40,7 @@ from torch import nn
 
 from ..core.optim import OptimizerSet, adam
 from ..core.state import TrainState
-from ..networks.dit import PARALLEL_REFUSED, DiT
+from ..networks.dit import DiT
 from ..networks.unet import Unet
 from ..ops import diffusion as gd
 from .base import BaseModel, ValidationResult, draw_labels
@@ -49,19 +49,23 @@ from .base import BaseModel, ValidationResult, draw_labels
 def build_denoiser(network: str, *, hidden_dim: int, channels: int, dim_mults,
                    dtype: torch.dtype | None, num_classes: int, remat: bool,
                    depth: int = 8, heads: int = 6, patch: int = 2, attention: str = "auto",
-                   block_mode: str = "unroll", moe_experts: int = 0, moe_every: int = 2,
+                   block_mode: str = "unroll", pipe_mesh=None, pipe_microbatches: int = 1,
+                   sp_mesh=None, moe_experts: int = 0, moe_every: int = 2,
                    moe_capacity: float = 1.25, moe_dispatch: str = "auto") -> nn.Module:
     """The conv ``Unet`` (``network="unet"``) or the ``DiT`` (``"dit"``,
-    ``hidden_dim`` its token width).  ``igm_tpu``'s ``pallas_gn`` and
-    parallel meshes are not among the keywords: the kernels always run on
-    the card, and ``DDPM`` refuses the meshes."""
+    ``hidden_dim`` its token width; ``pipe_mesh``, ``pipe_microbatches``
+    and ``sp_mesh`` its pipeline and sequence parallelism).  ``igm_tpu``'s
+    ``pallas_gn`` is not among the keywords: the kernels always run on the
+    card."""
     if network == "unet":
         return Unet(dim=hidden_dim, channels=channels, dim_mults=tuple(dim_mults),
                     num_classes=num_classes, dtype=dtype, remat=remat)
     if network == "dit":
         return DiT(dim=hidden_dim, depth=depth, heads=heads, patch=patch,
                    channels=channels, num_classes=num_classes, dtype=dtype, remat=remat,
-                   attn=attention, block_mode=block_mode, moe_experts=moe_experts,
+                   attn=attention, block_mode=block_mode, pipe_mesh=pipe_mesh,
+                   pipe_microbatches=pipe_microbatches, sp_mesh=sp_mesh,
+                   moe_experts=moe_experts,
                    moe_every=moe_every, moe_capacity=moe_capacity,
                    moe_dispatch=moe_dispatch)
     raise ValueError(f"network must be unet|dit, got {network!r}")
@@ -115,9 +119,9 @@ class DDPM(BaseModel):
         GroupNorm+Mish kernels always run.  ``remat`` recomputes each UNet
         ResnetBlock in the backward.  ``optim`` is accepted; the optimizer is
         Adam, as in ``igm_tpu``.  The DiT keywords (``depth``, ``heads``,
-        ``patch``, ``attention``, ``block_mode``, ``moe_*``) are ignored with
-        the unet backbone; ``pipe_mesh`` and ``sp_mesh`` are refused
-        (parallelism, ROADMAP Queue 1 item 7, slice 7c).
+        ``patch``, ``attention``, ``block_mode``, ``pipe_mesh``,
+        ``pipe_microbatches``, ``sp_mesh``, ``moe_*``) are ignored with the
+        unet backbone.
         """
         super().__init__(datamodule, device)
         if parameterization not in ("eps", "v"):
@@ -125,8 +129,6 @@ class DDPM(BaseModel):
                              f"got {parameterization!r}")
         if loss_type not in ("l1", "l2"):
             raise NotImplementedError(f"loss_type={loss_type!r}")
-        if pipe_mesh is not None or sp_mesh is not None:
-            raise NotImplementedError(f"pipe_mesh / sp_mesh: {PARALLEL_REFUSED}")
         self.num_classes = int(num_classes or 0)
         self.save_hyperparameters(hidden_dim=hidden_dim, timesteps=timesteps,
                                   loss_type=loss_type,
@@ -159,19 +161,44 @@ class DDPM(BaseModel):
             network, hidden_dim=hidden_dim, channels=self.denoise_channels,
             dim_mults=dim_mults, dtype=dtype, num_classes=self.num_classes,
             remat=bool(remat), depth=depth, heads=heads, patch=patch,
-            attention=attention, block_mode=block_mode, moe_experts=int(moe_experts),
+            attention=attention, block_mode=block_mode, pipe_mesh=pipe_mesh,
+            pipe_microbatches=int(pipe_microbatches), sp_mesh=sp_mesh,
+            moe_experts=int(moe_experts),
             moe_every=int(moe_every), moe_capacity=float(moe_capacity),
             moe_dispatch=str(moe_dispatch))})
         self.modules.eval()
         self.init_params(0)
 
     def enable_sequence_parallel(self, mesh) -> None:
-        """``igm_tpu``'s Megatron-SP rebuild of the DiT: refused."""
-        raise NotImplementedError(f"sequence parallelism {PARALLEL_REFUSED}")
+        """Rebuild the denoiser with Megatron-SP over ``mesh``'s model axis
+        (``networks/dit.py`` ``sp_mesh``): composes with ``mode=tensor`` on
+        the same ``(data, model)`` mesh (and runs on ``mode=fsdp`` too).
+        Trainer ``mesh.sequence=true`` calls this."""
+        self._rebuild_dit("sequence parallelism", sp_mesh=mesh)
 
     def enable_pipeline(self, mesh, microbatches: int = 1) -> None:
-        """``igm_tpu``'s GPipe rebuild of the DiT: refused."""
-        raise NotImplementedError(f"pipeline parallelism {PARALLEL_REFUSED}")
+        """Rebuild the denoiser for GPipe pipeline parallelism
+        (``parallel/pipeline.py``): the scan layout, its blocks split over
+        ``mesh``'s stages, ``microbatches`` a step.  Call it before
+        ``init_state`` on the mesh (the state is then born split).  Trainer
+        ``mesh.mode=pipeline`` calls this."""
+        self._rebuild_dit("pipeline parallelism", block_mode="scan", pipe_mesh=mesh,
+                          pipe_microbatches=int(microbatches))
+
+    def _rebuild_dit(self, what: str, **changes) -> None:
+        """``igm_tpu``'s ``den.clone(**changes)``: the denoiser rebuilt
+        with ``changes``, the parameters it had loaded into it."""
+        if self.hparams.get("network") != "dit":
+            raise ValueError(f"{what} needs network=dit "
+                             f"(got {self.hparams.get('network')!r})")
+        if self.sharding is not None:
+            raise ValueError(f"{what}: rebuild the denoiser before its state is sharded "
+                             f"(before set_mesh and init_state)")
+        den = self.modules["denoise"]
+        new = den.clone(**changes)
+        new.load_state_dict(den.state_dict())
+        self.modules["denoise"] = new.train(den.training).to(self.device)
+        self._graphs.clear()
 
     # hooks overridden by LatentDDPM (diffusion in a learned latent space)
     @property

@@ -41,9 +41,33 @@ rank's shards of the column layers (``qkv``, ``Dense_0``,
 ``_Modulation_0/Dense_0``) and row layers (``proj``, ``Dense_1``), which
 the model's sharding put in the modules: the local heads' attention
 where the model axis divides the heads, else every head's from the
-gathered ``qkv``.  The pipeline and sequence-parallel meshes of
-``igm_tpu`` (``pipe_mesh``, ``sp_mesh``) are parallelism, ROADMAP Queue 1
-item 7 (slice 7c): refused here.
+gathered ``qkv``.
+
+Pipeline parallelism (``pipe_mesh``, a mesh with a ``stage`` axis,
+``parallel/pipeline.py``): block ``i`` belongs to stage ``i // (depth /
+S)`` (its ``pipe_stage``, which the model's sharding reads), and the block
+stack runs through ``gpipe_apply`` in ``pipe_microbatches``
+microbatches; a batch they do not divide takes them one at a time (the
+sequential stack, ``igm_tpu``'s rule for init and eval probes).  On the
+stages before the last the head runs on detached parameters and ``c``:
+the last stage alone gives the head's gradient.  While the model's state
+is whole (``BaseModel.unsharded``) or no mesh is bound the stack runs
+sequentially on the rank.
+
+Sequence parallelism (``sp_mesh``, Megatron-SP, ``parallel/tensor.py``
+``split_tokens``/``gather_tokens``/``scatter_tokens``) on a bound mesh
+with a ``model`` axis: between blocks each model rank holds ``N/m`` of the
+tokens (the last padded with zero rows where ``m`` does not divide N, in
+the split storage only).  In ``tensor`` mode the block gathers the
+tokens before ``qkv`` and the MLP's ``Dense_0`` and reduce-scatters them
+after ``proj`` and ``Dense_1`` in place of the all-reduce; LayerNorm,
+modulation, gates and residuals run on the rank's tokens, and what they
+read whole (the modulation vectors, the row layers' biases) sums its
+gradient over the model group (``copy_to_model``).  The final LayerNorm
+runs on the rank's tokens; they are gathered before the head (whose FSDP
+leaves its own call gathers, their gradient then whole on every rank).
+In ``fsdp`` mode a block gathers the tokens at its entry and keeps the
+rank's part at its exit, and the head runs on all of them.
 """
 from __future__ import annotations
 
@@ -57,14 +81,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.causal_attention import flash_full_attention
-from ..parallel.mesh import MODEL_AXIS
-from ..parallel.tensor import TensorParallel, copy_to_model, gather_features, reduce_from_model
+from ..parallel.mesh import MODEL_AXIS, STAGE_AXIS
+from ..parallel.pipeline import block_stage, gpipe_apply
+from ..parallel.tensor import (TensorParallel, copy_to_model, gather_features, gather_tokens,
+                               reduce_from_model, scatter_tokens, split_tokens)
 from .base import FlaxDense, compute_dtype
-from .moe import SwitchMoE
+from .moe import SEQUENCE_REFUSED, SwitchMoE
 from .unet import Embed, sinusoidal_pos_emb
-
-PARALLEL_REFUSED = ("is ROADMAP Queue 1 slice 7c (sequence and pipeline "
-                    "parallelism), not ported yet")
 
 
 def _sincos_2d(h: int, w: int, dim: int) -> np.ndarray:
@@ -92,20 +115,37 @@ class _Modulation(nn.Module):
         self.n_chunks = n_chunks
         self.Dense_0 = FlaxDense(dim, dim * n_chunks, dtype=dtype, zero_kernel=True)
 
-    def forward(self, c: torch.Tensor, tp=None) -> tuple:
+    def forward(self, c: torch.Tensor, tp=None, seq=None) -> tuple:
+        """``tp``: column-parallel over the model group; ``seq``: the
+        vectors modulate the rank's tokens alone (sequence parallelism),
+        so their gradient is summed over ``seq``'s group."""
         if tp is None:
             y = self.Dense_0(F.silu(c))
         else:       # column-parallel: every rank needs every modulation vector
             y = gather_features(self.Dense_0(copy_to_model(F.silu(c), tp)), tp, partial=False)
+        if seq is not None:
+            y = copy_to_model(y, seq)
         return torch.chunk(y[:, None, :], self.n_chunks, dim=-1)
 
 
-def _row(layer: FlaxDense, x: torch.Tensor, tp) -> torch.Tensor:
+def _row(layer: FlaxDense, x: torch.Tensor, tp, seq: bool = False) -> torch.Tensor:
     """A row-parallel layer: the rank's input features' product, summed
-    over the model group, then the bias, once."""
+    over the model group, then the bias, once; ``seq``: the sum
+    reduce-scattered over the tokens (each rank its part) and the bias
+    added to them."""
     dt = compute_dtype(x, layer.weight, layer.dtype)
-    y = reduce_from_model(F.linear(x.to(dt), layer.weight.to(dt)), tp)
-    return y if layer.bias is None else y + layer.bias.to(dt)
+    y = F.linear(x.to(dt), layer.weight.to(dt))
+    y = scatter_tokens(y, tp) if seq else reduce_from_model(y, tp)
+    if layer.bias is None:
+        return y
+    return y + (copy_to_model(layer.bias, tp) if seq else layer.bias).to(dt)
+
+
+def _detached(module: nn.Module, *args):
+    """``module(*args)`` on its parameters detached: no gradient reaches
+    them."""
+    return torch.func.functional_call(
+        module, {k: v.detach() for k, v in module.named_parameters()}, args)
 
 
 def _layernorm_f32(x: torch.Tensor) -> torch.Tensor:
@@ -207,13 +247,22 @@ class DiTBlock(nn.Module):
                              f"over the model axis of {m}")
         self.tp = TensorParallel.of(mesh, self.heads)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor,
+                n_tokens: Optional[int] = None) -> torch.Tensor:
+        """``n_tokens``: Megatron-SP on the model group (tensor mode): ``x``
+        is the rank's part of the ``n_tokens`` tokens, and so is the
+        result."""
         d, h, tp = self.dim, self.heads, self.tp
         hd = d // h
-        s_a, g_a, gate_a, s_m, g_m, gate_m = self._Modulation_0(c, tp)
+        seq = n_tokens is not None and tp is not None
+        s_a, g_a, gate_a, s_m, g_m, gate_m = self._Modulation_0(c, tp, tp if seq else None)
 
         a = _layernorm_f32(x) * (1.0 + g_a) + s_a
-        qkv = self.qkv(a if tp is None else copy_to_model(a, tp))
+        if seq:
+            a = gather_tokens(a, tp, n_tokens, partial=True)
+        elif tp is not None:
+            a = copy_to_model(a, tp)
+        qkv = self.qkv(a)
         b, n, _ = qkv.shape
         if tp is not None:
             if tp.whole_heads:
@@ -235,7 +284,7 @@ class DiTBlock(nn.Module):
         else:
             if not tp.whole_heads:      # the rank's features of proj's input
                 o = o.chunk(tp.size, dim=-1)[tp.rank]
-            o = _row(self.proj, o, tp)
+            o = _row(self.proj, o, tp, seq)
         x = x + gate_a * o
 
         m = _layernorm_f32(x) * (1.0 + g_m) + s_m
@@ -244,8 +293,8 @@ class DiTBlock(nn.Module):
         elif tp is None:
             m = self.Dense_1(F.gelu(self.Dense_0(m), approximate="tanh"))
         else:
-            m = _row(self.Dense_1, F.gelu(self.Dense_0(copy_to_model(m, tp)),
-                                          approximate="tanh"), tp)
+            m = gather_tokens(m, tp, n_tokens, partial=True) if seq else copy_to_model(m, tp)
+            m = _row(self.Dense_1, F.gelu(self.Dense_0(m), approximate="tanh"), tp, seq)
         return x + gate_m * m
 
 
@@ -253,7 +302,12 @@ class DiT(nn.Module):
     """Patch-token diffusion transformer.  ``num_classes > 0`` adds the
     class table with a trailing null-token row; ``y`` is then required.
     ``moe_experts > 0`` makes every ``moe_every``-th block's MLP a
-    Switch-MoE; :meth:`take_moe_stats` hands over their last aux and load."""
+    Switch-MoE; :meth:`take_moe_stats` hands over their last aux and load.
+    ``block_mode="scan"`` is ``igm_tpu``'s stacked layout, which
+    ``interop`` splits onto the same per-block modules: the same
+    computation.  ``pipe_mesh`` (with ``block_mode="scan"``) and
+    ``sp_mesh``: pipeline and sequence parallelism (the module's
+    docstring)."""
 
     def __init__(self, dim: int = 384, depth: int = 8, heads: int = 6, patch: int = 2,
                  channels: int = 3, mlp_ratio: int = 4, num_classes: int = 0,
@@ -262,15 +316,30 @@ class DiT(nn.Module):
                  pipe_microbatches: int = 1, moe_experts: int = 0, moe_every: int = 2,
                  moe_capacity: float = 1.25, moe_dispatch: str = "auto", sp_mesh=None):
         super().__init__()
-        if pipe_mesh is not None:
-            raise NotImplementedError(f"pipe_mesh: pipeline parallelism {PARALLEL_REFUSED}")
-        if sp_mesh is not None:
-            raise NotImplementedError(f"sp_mesh: sequence parallelism {PARALLEL_REFUSED}")
+        self._config = dict(dim=dim, depth=depth, heads=heads, patch=patch, channels=channels,
+                            mlp_ratio=mlp_ratio, num_classes=num_classes, dtype=dtype,
+                            remat=remat, attn=attn, block_mode=block_mode,
+                            pipe_mesh=pipe_mesh, pipe_microbatches=pipe_microbatches,
+                            moe_experts=moe_experts, moe_every=moe_every,
+                            moe_capacity=moe_capacity, moe_dispatch=moe_dispatch,
+                            sp_mesh=sp_mesh)
         if block_mode not in ("unroll", "scan"):
             raise ValueError(f"block_mode must be unroll|scan, got {block_mode!r}")
-        if block_mode == "scan" and moe_experts:
+        if (block_mode == "scan" or pipe_mesh is not None) and moe_experts:
             raise ValueError("moe_experts needs the unrolled block layout "
                              "(block_mode='unroll')")
+        if pipe_mesh is not None and STAGE_AXIS not in pipe_mesh.axis_names:
+            raise ValueError("pipe_mesh needs a 'stage' axis")
+        if sp_mesh is not None and pipe_mesh is not None:
+            raise ValueError("sp_mesh and pipe_mesh are mutually exclusive")
+        if sp_mesh is not None and moe_experts:
+            raise NotImplementedError(SEQUENCE_REFUSED)
+        self.pipe_mesh, self.pipe_microbatches = pipe_mesh, int(pipe_microbatches)
+        self.sp_mesh = sp_mesh
+        # the mesh the model bound (bind_mesh); the pipeline runs while the
+        # blocks are split (the model's state is not whole)
+        self.mesh = None
+        self._pipelined = pipe_mesh is not None
         attn = "xla" if attn == "auto" else attn
         if attn not in ("xla", "remat", "flash"):
             raise ValueError(f"attn must be auto|xla|remat|flash, got {attn!r}")
@@ -287,11 +356,66 @@ class DiT(nn.Module):
                    else 0)
             block = DiTBlock(dim, heads, mlp_ratio, dtype, attn, moe, moe_capacity,
                              moe_dispatch)
+            if pipe_mesh is not None:
+                block.pipe_stage = block_stage(i, depth, pipe_mesh.size(STAGE_AXIS))
             self.add_module(f"DiTBlock_{i}", block)
             self.blocks.append(block)
         self._Modulation_0 = _Modulation(dim, 2, dtype)
         self.head = FlaxDense(dim, patch * patch * channels, zero_kernel=True)
         self._pos: dict = {}
+
+    def clone(self, **changes) -> "DiT":
+        """A new DiT of this one's keywords with ``changes`` (Flax's
+        ``Module.clone``), its parameters drawn anew."""
+        return DiT(**{**self._config, **changes})
+
+    def bind_mesh(self, mesh, blocks: int = 1) -> None:
+        """The model's mesh (None: one process): the pipeline runs on a
+        ``pipeline``-mode mesh (the blocks split between the stages), the
+        sequence split on one with a model axis."""
+        self.mesh = mesh
+        self._pipelined = (self.pipe_mesh is not None and mesh is not None
+                           and mesh.mode == "pipeline")
+
+    def _sequence(self) -> Optional[TensorParallel]:
+        """The model group that splits the tokens (None: no split)."""
+        if self.sp_mesh is None:
+            return None
+        if MODEL_AXIS not in self.sp_mesh.axis_names:
+            raise ValueError("sp_mesh needs a 'model' axis")
+        mesh = self.mesh
+        if mesh is None or mesh.size(MODEL_AXIS) < 2:
+            return None
+        return TensorParallel.of(mesh, self.blocks[0].heads)
+
+    def _block(self, block: "DiTBlock", tok, c, n_tokens=None):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, tok, c, n_tokens, use_reentrant=False,
+                              preserve_rng_state=False)
+        return block(tok, c, n_tokens)
+
+    def _blocks(self, tok: torch.Tensor, c: torch.Tensor, n: int,
+                seq: Optional[TensorParallel]) -> torch.Tensor:
+        """The block stack: through the pipeline, the sequence split over
+        ``seq``, or in order on the rank."""
+        if self._pipelined:
+            micro = self.pipe_microbatches
+            if tok.shape[0] % micro:      # igm_tpu's rule: the sequential stack
+                micro = 1
+            return gpipe_apply(lambda block, x, cc: self._block(block, x, cc), self.blocks,
+                               tok, c, self.pipe_mesh, micro)
+        if seq is None:
+            for block in self.blocks:
+                tok = self._block(block, tok, c)
+            return tok
+        tok = split_tokens(tok, seq)
+        for block in self.blocks:
+            if block.tp is not None:          # Megatron-SP inside the block
+                tok = self._block(block, tok, c, n)
+            else:                             # whole blocks: all tokens in, the rank's out
+                tok = split_tokens(self._block(block, gather_tokens(tok, seq, n, False), c),
+                                   seq)
+        return tok
 
     def _pos_table(self, gh: int, gw: int, device) -> torch.Tensor:
         """The (gh*gw, dim) position table on ``device``, built once per
@@ -334,15 +458,26 @@ class DiT(nn.Module):
                 raise ValueError("conditional DiT (num_classes>0) needs y")
             c = c + self.class_emb(y).to(c.dtype)
 
-        for block in self.blocks:
-            if self.remat and torch.is_grad_enabled():
-                tok = checkpoint(block, tok, c, use_reentrant=False,
-                                 preserve_rng_state=False)
-            else:
-                tok = block(tok, c)
+        n = gh * gw
+        seq = self._sequence()
+        tok = self._blocks(tok, c, n, seq)
+        if seq is not None and not self.blocks[0].tp:
+            tok, seq = gather_tokens(tok, seq, n, False), None   # fsdp: the head whole
 
-        s_f, g_f = self._Modulation_0(c)
-        tok = _layernorm_f32(tok) * (1.0 + g_f) + s_f
-        tok = self.head(tok.float())
+        if self._pipelined and self.pipe_mesh.coord(STAGE_AXIS) < self.pipe_mesh.size(
+                STAGE_AXIS) - 1:
+            # the last stage's head gives its gradient: here the same values, detached
+            s_f, g_f = _detached(self._Modulation_0, c.detach())
+            tok = _layernorm_f32(tok) * (1.0 + g_f) + s_f
+            tok = _detached(self.head, tok.float())
+        elif seq is not None:    # Megatron-SP: the final LayerNorm on the rank's tokens
+            s_f, g_f = self._Modulation_0(c, seq=seq)
+            tok = _layernorm_f32(tok) * (1.0 + g_f) + s_f
+            # the head (its FSDP leaves gathered by its own call) on all of them
+            tok = self.head(gather_tokens(tok, seq, n, False).float())
+        else:
+            s_f, g_f = self._Modulation_0(c)
+            tok = _layernorm_f32(tok) * (1.0 + g_f) + s_f
+            tok = self.head(tok.float())
         out = tok.reshape(b, gh, gw, p, p, cc).permute(0, 1, 3, 2, 4, 5)
         return out.reshape(b, hh, ww, cc)

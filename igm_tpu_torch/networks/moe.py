@@ -61,6 +61,9 @@ from .base import FlaxDense, lecun_normal_
 TENSOR_REFUSED = ("mesh.mode=tensor on a Switch-MoE DiT shards its experts over the model "
                   "axis: expert parallelism, ROADMAP Queue 1 slice 7d's expert half, not "
                   "ported yet")
+SEQUENCE_REFUSED = ("sequence parallelism (sp_mesh) on a Switch-MoE DiT routes its tokens "
+                    "over the model axis's split: ROADMAP Queue 1 slice 7d's expert half, "
+                    "not ported yet")
 
 
 class SwitchMoE(nn.Module):

@@ -43,9 +43,11 @@ leaf's Flax layout (:func:`_fsdp_spec`, :func:`_tp_spec`,
 :func:`leaf_spec`).  :attr:`Mesh.mode` is ``fsdp`` (every large leaf
 sharded over ``model``, gathered before use: ZeRO-3) or ``tensor``
 (Megatron column and row layers in the DiT blocks, FSDP elsewhere); on the
-3-D mesh the FSDP leaves shard over ``fsdp`` instead.  Every rank creates
-the process groups of the sets of axes that collectives run over
-(:meth:`Mesh.group_of`), all in the same order.
+3-D mesh the FSDP leaves shard over ``fsdp`` instead.  The pipeline mesh
+``(data, stage)`` (``mode=pipeline``, ``parallel/pipeline.py``) splits
+the DiT's blocks and their state over ``stage``; its batch axis is
+``data``.  Every rank creates the process groups of the sets of axes that
+collectives run over (:meth:`Mesh.group_of`), all in the same order.
 
 :class:`Mesh` without a process group is one process: nothing is reduced
 and every draw is made at the local (= global) batch size, exactly as
@@ -65,7 +67,8 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 FSDP_AXIS = "fsdp"
-MODES = ("fsdp", "tensor")
+STAGE_AXIS = "stage"
+MODES = ("fsdp", "tensor", "pipeline")
 
 # Leaves smaller than this stay replicated under FSDP (igm_tpu's rule):
 # sharding tiny tensors trades an all-gather for negligible memory.
@@ -80,8 +83,9 @@ class Mesh:
     ``(name, size)`` in order and ``coords`` this rank's coordinate on
     each (empty: the 1-D data mesh of ``world`` ranks); ``groups`` this
     rank's process group of each set of axes collectives run over
-    (:func:`_new_groups`); ``mode`` how a
-    model axis shards the state."""
+    (:func:`_new_groups`); ``mode`` how a model axis shards the state
+    (``fsdp``, ``tensor``), or ``pipeline`` for the ``(data, stage)``
+    mesh."""
     world: int
     rank: int
     device: torch.device
@@ -120,6 +124,12 @@ class Mesh:
         """Whether a model axis shards the train state."""
         return self.size(MODEL_AXIS) > 1
 
+    @property
+    def staged(self) -> bool:
+        """Whether a stage axis splits the DiT's blocks (and their state)
+        between ranks (``parallel/pipeline.py``)."""
+        return self.size(STAGE_AXIS) > 1
+
     def group_of(self, *axes: str) -> Any:
         """The process group of this rank and the ranks that differ from it
         only on ``axes``."""
@@ -140,9 +150,12 @@ class Mesh:
 
     @property
     def capturable(self) -> bool:
-        """Whether a CUDA graph can capture the mesh's collectives: NCCL's
-        can, gloo's run on the host and cannot."""
-        return self.backend != "gloo"
+        """Whether a CUDA graph captures a train step on the mesh: NCCL's
+        collectives can be captured, gloo's run on the host and cannot.  A
+        pipelined step (a stage axis) is eager by rule: its point-to-point
+        hops are driven from the host, one microbatch at a time, inside
+        the autograd engine's backward pass (``parallel/pipeline.py``)."""
+        return self.backend != "gloo" and not self.staged
 
     def local_rows(self, n: int, blocks: int = 1) -> np.ndarray:
         """The positions of this rank's rows in a global batch of ``n``:
@@ -203,10 +216,11 @@ def _coords(axes, rank: int) -> Dict[str, int]:
 
 
 def _new_groups(axes, rank: int, backend: str) -> Dict[Tuple[str, ...], Any]:
-    """The process groups :meth:`Mesh.group_of` is asked for: each axis,
-    the batch axes, the model axes (``fsdp`` and ``model``: a leaf's shard
-    spans them) and every axis; each holds the ranks that differ only on
-    those axes.  Every rank creates every group, in the same order, and
+    """The process groups :meth:`Mesh.group_of` is asked for: each axis
+    (``stage`` the pipeline's hops), the batch axes, the model axes
+    (``fsdp`` and ``model``: a leaf's shard spans them) where the mesh has
+    one, and every axis; each holds the ranks that differ only on those
+    axes.  Every rank creates every group, in the same order, and
     keeps those it belongs to."""
     names = [name for name, _ in axes]
     coords = [_coords(axes, g) for g in range(int(np.prod([s for _, s in axes])))]
@@ -214,7 +228,7 @@ def _new_groups(axes, rank: int, backend: str) -> Dict[Tuple[str, ...], Any]:
     wanted += [tuple(a for a in names if a in sets)
                for sets in ((DATA_AXIS, FSDP_AXIS), (FSDP_AXIS, MODEL_AXIS), names)]
     groups = {}
-    for subset in dict.fromkeys(wanted):
+    for subset in dict.fromkeys(w for w in wanted if w):
         others = [n for n in names if n not in subset]
         for key in sorted({tuple(c[n] for n in others) for c in coords}):
             members = [g for g, c in enumerate(coords) if tuple(c[n] for n in others) == key]
@@ -226,30 +240,52 @@ def _new_groups(axes, rank: int, backend: str) -> Dict[Tuple[str, ...], Any]:
 
 
 def make_mesh(data: int = -1, devices=None, model: int = 1, fsdp: int = 1,
-              mode: str = "fsdp") -> Mesh:
+              mode: str = "fsdp", stage: int = 1) -> Mesh:
     """This rank's mesh.  ``data=-1`` (or None) takes every rank of the
     process group over ``fsdp * model`` (one process when there is none);
     another value must equal that count.  ``model > 1`` builds the 2-D
     ``(data, model)`` mesh, ``fsdp > 1`` (with ``model > 1``) the 3-D
-    ``(data, fsdp, model)`` one, with ``igm_tpu``'s errors.  ``devices``
-    is the device this rank computes on (a device, its name, or a list of
-    one; None: the card).  ``mode``: ``fsdp`` or ``tensor``.
+    ``(data, fsdp, model)`` one, with ``igm_tpu``'s errors.  ``mode=
+    pipeline`` or ``stage > 1`` builds the ``(data, stage)`` pipeline mesh
+    instead (``parallel.pipeline.make_pipeline_mesh``; ``data=-1``: the
+    ranks over ``stage``), as ``igm_tpu``'s trainer does.  ``devices`` is
+    the device this rank computes on (a device, its name, or a list of
+    one; None: the card).  ``mode``: ``fsdp``, ``tensor`` or ``pipeline``.
 
     Under NCCL each communicator is made here by one eager all-reduce, so
     that the first captured step finds it."""
     if mode not in MODES:
         raise ValueError(f"mesh mode must be {'|'.join(MODES)}, got {mode!r}")
-    device = _one_device(devices)
     data = -1 if data is None else int(data)
     model, fsdp = max(1, int(model or 1)), max(1, int(fsdp or 1))
+    stage = max(1, int(stage or 1))
+    if mode == "pipeline" or stage > 1:
+        if stage <= 1:
+            raise ValueError("mesh.mode=pipeline needs mesh.stage > 1")
+        if model > 1 or fsdp > 1:
+            raise ValueError(f"the pipeline mesh is (data, stage): mesh.model={model} and "
+                             f"mesh.fsdp={fsdp} do not compose with it")
+        from .pipeline import make_pipeline_mesh
+        size = dist.get_world_size() if dist.is_initialized() else 1
+        return make_pipeline_mesh(stage, max(1, size // stage) if data == -1 else data,
+                                  devices)
+    device = _one_device(devices)
     size = dist.get_world_size() if dist.is_initialized() else 1
     axes = _axes(size, data, model, fsdp, dist.is_initialized())
     if not dist.is_initialized():
         return Mesh(1, 0, device, mode=mode)
+    return build_mesh(axes, device, mode)
+
+
+def build_mesh(axes: Sequence[Tuple[str, int]], device: torch.device, mode: str) -> Mesh:
+    """This rank's :class:`Mesh` of ``axes`` (the last innermost) over the
+    process group's ranks: its coordinates and groups; the batch axes are
+    ``data`` (times ``fsdp``)."""
     rank = dist.get_rank()
     backend = str(dist.get_backend())
     if backend == "nccl" and device.type != "cuda":
         raise ValueError(f"an NCCL rank computes on a CUDA device, got {device}")
+    axes = list(axes)
     coords = _coords(axes, rank)
     if len(axes) == 1:
         groups = {(DATA_AXIS,): dist.group.WORLD}
@@ -459,6 +495,17 @@ def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
         dist.reduce_scatter_tensor(out, x, group=group)
 
 
+def broadcast(x: torch.Tensor, group: Any, src: int) -> None:
+    """``x`` from ``group``'s rank ``src`` on every rank of the group, in
+    place (gloo ranks sharing a card: through host memory)."""
+    if _gloo_cuda(x, group):
+        host = x.cpu()
+        dist.broadcast(host, group=group, group_src=src)
+        x.copy_(host)
+        return
+    dist.broadcast(x, group=group, group_src=src)
+
+
 @torch.no_grad()
 def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """The ranks' ``x`` concatenated along the first axis in rank order:
@@ -538,8 +585,9 @@ def sample_sharded(model, mesh: Mesh, state, generator: Optional[torch.Generator
     sampler on them; the parts are all-gathered in rank order.  Tensor
     keywords with ``n`` rows (``y``, ``x_T``) are split the same way.
     ``state`` is accepted as ``igm_tpu``'s (the model samples from its own
-    modules and EMA shadow; on a model axis every rank gathers them whole
-    first).  ``n`` must divide by the batch ranks, as there."""
+    modules and EMA shadow; on a model or stage axis every rank gathers
+    them whole first, and the whole DiT runs its blocks in order).  ``n``
+    must divide by the batch ranks, as there."""
     del state
     if n % mesh.world:
         raise ValueError(f"sample batch {n} not divisible by data axes {mesh.world}")

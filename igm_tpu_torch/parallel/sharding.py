@@ -31,6 +31,12 @@ parameters, hold shards too: ZeRO-3.
   ``bind_mesh``); on the 3-D mesh its other dimension is gathered over
   ``fsdp`` as above.
 - Replicated leaves are as in one process.
+- On a pipeline mesh (``parallel/pipeline.py``) a leaf of a pipelined DiT
+  block lives on its block's stage alone (``Leaf.stage``): that stage's
+  ranks keep it whole, in the torch layout, and the others an empty
+  tensor, so their optimizer moments and EMA shadow are empty too.  Such
+  a leaf is never gathered for a forward (only its stage runs its block);
+  the whole-state paths broadcast it from its stage.
 
 :func:`shard_modules` shards a model's freshly drawn (full) modules on
 the host, before they reach the device, so the device never holds the
@@ -52,15 +58,16 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from ..interop import FlaxLayout, flax_layout, flax_names
-from .mesh import (DATA_AXIS, FSDP_AXIS, MODEL_AXIS, Mesh, all_gather_into, leaf_spec,
-                   reduce_scatter)
+from .mesh import (DATA_AXIS, FSDP_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh, all_gather_into,
+                   broadcast, leaf_spec, reduce_scatter)
 
 @dataclasses.dataclass(eq=False)
 class Leaf:
     """One parameter or persistent buffer of a model's ``modules``: its
     ``state_dict`` key, the module ``owner`` that holds it as ``name``,
     its torch shape, Flax layout and spec (one entry a Flax dimension) on
-    ``mesh``."""
+    ``mesh``; ``stage``: the stage that holds it on a pipeline mesh (None:
+    every stage)."""
     key: str
     owner: nn.Module
     name: str
@@ -69,6 +76,7 @@ class Leaf:
     layout: FlaxLayout
     spec: tuple
     mesh: Mesh
+    stage: Optional[int] = None
 
     @property
     def top(self) -> str:
@@ -80,8 +88,18 @@ class Leaf:
         return [(d, a) for d, a in enumerate(self.spec) if a is not None]
 
     @property
+    def staged(self) -> bool:
+        """Whether the leaf lives on one stage of a pipeline mesh."""
+        return self.stage is not None
+
+    @property
     def sharded(self) -> bool:
-        return bool(self.axes)
+        """Whether a rank holds less than the whole leaf."""
+        return bool(self.axes) or self.staged
+
+    def mine(self, mesh: Mesh) -> bool:
+        """Whether this rank's stage holds the (staged) leaf."""
+        return self.stage == mesh.coord(STAGE_AXIS)
 
     def kept(self, mesh: Mesh) -> Optional[Tuple[int, str]]:
         """The dimension a tensor-parallel leaf keeps sharded in its
@@ -99,7 +117,10 @@ class Leaf:
 
     def shard_of(self, full: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         """This rank's shard of a whole torch-layout tensor: the Flax view
-        narrowed on every sharded dimension, contiguous."""
+        narrowed on every sharded dimension, contiguous; of a staged leaf
+        the whole tensor on its stage, an empty one elsewhere."""
+        if self.staged:
+            return full.contiguous() if self.mine(mesh) else full.new_empty((0,))
         t = self.layout.to_flax(full)
         for d, a in self.axes:
             size = t.shape[d] // mesh.size(a)
@@ -123,12 +144,17 @@ def _megatron_dim(key: str) -> Optional[int]:
 
 def module_leaves(modules: nn.ModuleDict, mesh: Mesh) -> List[Leaf]:
     """Every parameter and persistent buffer of ``modules`` with its spec
-    on ``mesh``, in ``state_dict`` order."""
+    on ``mesh``, in ``state_dict`` order; on a pipeline mesh the leaves of
+    a module with a ``pipe_stage`` (a pipelined DiT block), itself or
+    above, are that stage's."""
     leaves = []
     parents: Dict[str, nn.Module] = {}
+    stages: Dict[str, Optional[int]] = {}
     for prefix, module in modules.named_modules():
         for child_name, child in module.named_children():
             parents[f"{prefix}.{child_name}" if prefix else child_name] = module
+        stage = getattr(module, "pipe_stage", None) if mesh.staged else None
+        stages[prefix] = stage if stage is not None else stages.get(prefix.rpartition(".")[0])
         items = [(n, t, False) for n, t in module._parameters.items() if t is not None]
         items += [(n, t, True) for n, t in module._buffers.items()
                   if t is not None and n not in module._non_persistent_buffers_set]
@@ -136,7 +162,8 @@ def module_leaves(modules: nn.ModuleDict, mesh: Mesh) -> List[Leaf]:
             key = f"{prefix}.{name}" if prefix else name
             layout = flax_layout(key, tensor, module, parents.get(prefix))
             spec = leaf_spec(mesh, flax_names(key), layout.flax_shape(tensor.shape))
-            leaves.append(Leaf(key, module, name, buffer, tensor.shape, layout, spec, mesh))
+            leaves.append(Leaf(key, module, name, buffer, tensor.shape, layout, spec, mesh,
+                               stages[prefix]))
     return leaves
 
 
@@ -160,9 +187,15 @@ def _assemble(parts: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
 
 def gather_whole(mesh: Mesh, leaf: Leaf, shard: torch.Tensor) -> torch.Tensor:
     """The whole torch-layout tensor of a leaf from its shards on every
-    rank (a collective over the leaf's axes; no gradient)."""
+    rank (a collective over the leaf's axes, or a broadcast from its stage
+    over the stage group; no gradient)."""
     if not leaf.sharded:
         return shard
+    if leaf.staged:
+        whole = (shard.detach().clone() if leaf.mine(mesh) else
+                 torch.empty(leaf.shape, dtype=shard.dtype, device=shard.device))
+        broadcast(whole, mesh.group_of(STAGE_AXIS), leaf.stage)
+        return whole
     axes = [a for a in mesh.axis_names if a in leaf.spec]
     dims = [leaf.spec.index(a) for a in axes]
     sizes = [mesh.size(a) for a in axes]
@@ -281,7 +314,7 @@ class Sharding:
                     p = nn.Parameter(shard, requires_grad=full.requires_grad)
                     p._igm_leaf = leaf
                     leaf.owner._parameters[leaf.name] = p
-        sharded = [leaf for leaf in self.leaves if leaf.sharded]
+        sharded = [leaf for leaf in self.leaves if leaf.axes]     # a staged leaf stays
         for prefix, module in self.model.modules.named_modules():
             mine = [leaf for leaf in sharded if leaf.key.startswith(prefix + ".")]
             if not prefix or not mine:
@@ -465,12 +498,16 @@ def element_index(p: torch.Tensor) -> Optional[torch.Tensor]:
     return leaf.shard_of(index, mesh)
 
 
-def grad_axes(p: torch.Tensor) -> Tuple[str, ...]:
-    """The axes over which an update still sums a parameter's gradient:
-    ``data`` alone for a leaf gathered over ``fsdp`` (its backward
-    reduce-scattered it there); () for the batch axes (every other
-    leaf)."""
+def grad_axes(p: torch.Tensor, mesh: Mesh) -> Tuple[str, ...]:
+    """The axes over which an update still sums a parameter's gradient on
+    ``mesh``: ``data`` alone for a leaf gathered over ``fsdp`` (its
+    backward reduce-scattered it there); ``data`` and ``stage`` for a leaf
+    every stage of a pipeline mesh holds (each stage's gradient is its
+    part of the whole, ``parallel/pipeline.py``); () for the batch axes
+    (every other leaf)."""
     leaf = getattr(p, "_igm_leaf", None)
+    if mesh.staged and (leaf is None or not leaf.staged):
+        return (DATA_AXIS, STAGE_AXIS)
     if leaf is not None and leaf.mesh.size(FSDP_AXIS) > 1:
         gathered = leaf.gathered(leaf.mesh)
         if gathered is not None and gathered[1] == FSDP_AXIS:
@@ -480,10 +517,12 @@ def grad_axes(p: torch.Tensor) -> Tuple[str, ...]:
 
 def shard_axes(p: torch.Tensor) -> Tuple[str, ...]:
     """The axes a parameter's shard spans (its gradient's too): () for a
-    replicated one."""
+    replicated one, ``stage`` for one that lives on one stage."""
     leaf = getattr(p, "_igm_leaf", None)
     if leaf is None:
         return ()
+    if leaf.staged:
+        return (STAGE_AXIS,)
     return tuple(a for a in leaf.mesh.axis_names if a in leaf.spec)
 
 

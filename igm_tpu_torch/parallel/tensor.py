@@ -21,6 +21,22 @@ when the model axis does not divide the heads (the head-grouped packing
 then splits a head between ranks: every rank computes the attention of all
 heads and keeps its features' slice for ``proj``, so the gradient is
 partial: its backward is a reduce-scatter).
+
+Sequence parallelism (Megatron-SP, Korthikanti et al. 2022) splits the
+tokens between the model group's ranks between the GEMMs: rank r holds
+tokens ``[r*k, (r+1)*k)`` of the sequence padded with zero rows to ``m*k``
+(``k = ceil(N/m)``; the padding lives in the split storage alone).
+
+- :func:`split_tokens` keeps the rank's part of a tensor every rank holds
+  whole; its backward all-gathers the parts' gradients (the whole
+  tensor's gradient on every rank);
+- :func:`gather_tokens` all-gathers the parts into the N tokens; its
+  backward takes the rank's part of the gradient, summed over the ranks
+  first (``partial``: a column layer's input, each rank's gradient from
+  its features alone: a reduce-scatter);
+- :func:`scatter_tokens` sums a row layer's partial outputs over the ranks
+  and keeps the rank's tokens (a reduce-scatter, in place of
+  :func:`reduce_from_model`'s all-reduce); its backward all-gathers.
 """
 from __future__ import annotations
 
@@ -109,3 +125,94 @@ def gather_features(x: torch.Tensor, tp: TensorParallel, partial: bool) -> torch
     order; ``partial``: the gradient is summed over the ranks (else each
     already holds the whole)."""
     return _GatherFeatures.apply(x, tp, partial)
+
+
+# ------------------------------------------------------------- sequence
+def _tokens(n: int, size: int) -> int:
+    """The tokens a rank holds of ``n`` split over ``size`` ranks."""
+    return -(-n // size)
+
+
+def _pad_tokens(x: torch.Tensor, total: int) -> torch.Tensor:
+    if x.shape[1] == total:
+        return x
+    pad = x.new_zeros((x.shape[0], total - x.shape[1], *x.shape[2:]))
+    return torch.cat([x, pad], dim=1)
+
+
+def _all_gather_tokens(x: torch.Tensor, tp: TensorParallel, n: int) -> torch.Tensor:
+    """(B, k, ...) parts -> (B, n, ...), the ranks' parts in order, the
+    padding dropped."""
+    x = x.contiguous()
+    out = torch.empty((tp.size * x.numel(),), dtype=x.dtype, device=x.device)
+    all_gather_into(out, x.reshape(-1), tp.group)
+    parts = out.view(tp.size, *x.shape)
+    return torch.cat(parts.unbind(0), dim=1)[:, :n]
+
+
+def _reduce_scatter_tokens(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """(B, n, ...) partial sums -> the rank's (B, k, ...) of their sum."""
+    k = _tokens(x.shape[1], tp.size)
+    x = _pad_tokens(x, k * tp.size)
+    parts = torch.stack(x.split(k, dim=1)).contiguous()        # (m, B, k, ...)
+    mine = torch.empty(parts.shape[1:], dtype=x.dtype, device=x.device)
+    reduce_scatter(mine.view(-1), parts.view(-1), tp.group)
+    return mine
+
+
+def _my_tokens(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    k = _tokens(x.shape[1], tp.size)
+    return _pad_tokens(x, k * tp.size)[:, tp.rank * k:(tp.rank + 1) * k].contiguous()
+
+
+class _SplitTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp: TensorParallel):
+        ctx.tp, ctx.n = tp, x.shape[1]
+        return _my_tokens(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_tokens(grad, ctx.tp, ctx.n), None
+
+
+class _GatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp: TensorParallel, n: int, partial: bool):
+        ctx.tp, ctx.partial = tp, partial
+        return _all_gather_tokens(x, tp, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tp = ctx.tp
+        mine = _reduce_scatter_tokens(grad, tp) if ctx.partial else _my_tokens(grad, tp)
+        return mine, None, None, None
+
+
+class _ScatterTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp: TensorParallel):
+        ctx.tp, ctx.n = tp, x.shape[1]
+        return _reduce_scatter_tokens(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_tokens(grad, ctx.tp, ctx.n), None
+
+
+def split_tokens(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The rank's part of the tokens (axis 1) of ``x``, which every rank of
+    the model group holds whole."""
+    return _SplitTokens.apply(x, tp)
+
+
+def gather_tokens(x: torch.Tensor, tp: TensorParallel, n: int,
+                  partial: bool) -> torch.Tensor:
+    """The ``n`` tokens from the ranks' parts; ``partial``: each rank's
+    gradient is its part of the whole (summed in the backward)."""
+    return _GatherTokens.apply(x, tp, n, partial)
+
+
+def scatter_tokens(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The rank's part of the tokens of ``x`` summed over the model group."""
+    return _ScatterTokens.apply(x, tp)

@@ -1,9 +1,10 @@
 """The port's train steps on a mesh with a model axis (FSDP, tensor
-parallelism, the composed mesh) and the Switch-MoE's global routing, in
-spawned ranks, recording what the model-axis parity tests compare: each
-step's metrics, the whole state after the steps (gathered from the
-shards: parameters, buffers, optimizer moments, the EMA shadow), each
-rank's persistent state bytes, and the routing the MoE blocks made.
+parallelism, the composed mesh, sequence parallelism with either) and the
+Switch-MoE's global routing, in spawned ranks, recording what the
+model-axis parity tests compare: each step's metrics, the whole state
+after the steps (gathered from the shards: parameters, buffers, optimizer
+moments, the EMA shadow), each rank's persistent state bytes, and the
+routing the MoE blocks made.
 
 Spawned ranks import this module: it imports no JAX and nothing of
 ``igm_tpu`` (each rank reports whether ``jax`` got into ``sys.modules``).
@@ -45,6 +46,8 @@ DIT = ["experiment=ddpm/cifar10_dit", "model.hidden_dim=32", "model.depth=2", "m
        "datamodule.channels=1", "model.ema_decay=0"]
 # every 2nd block a Switch-MoE of 4 experts whose capacity (cf 0.5) drops tokens
 MOE_DIT = [*DIT, "model.moe_experts=4", "model.moe_every=2", "model.moe_capacity=0.5"]
+# 12x12 images of 4x4 patches: 9 tokens, which a model axis of 2 does not divide
+DIT_9 = [*DIT, "datamodule.width=12", "datamodule.height=12"]
 
 # name: (overrides, global batch, steps, mesh keywords: make_mesh's over
 # the four ranks, or with pairs=True two-rank meshes (mesh_of))
@@ -61,6 +64,12 @@ CASES = {
     "composed_dit": (DIT, 8, 2, dict(data=1, fsdp=2, model=2, mode="tensor")),
     "moe_data2": (MOE_DIT, 8, 2, dict(data=2, pairs=True)),
     "moe_data4": (MOE_DIT, 8, 2, dict(data=4)),
+    # Megatron-SP: (1, 4) splits a head and 16 tokens 4 ways, (2, 2) 9 tokens
+    # 2 ways (one rank's part padded); fsdp + sequence gathers at each block
+    "sequence_tensor_dit": (DIT, 8, 2, dict(data=1, model=4, mode="tensor", sequence=True)),
+    "sequence_tensor_dit_9": (DIT_9, 8, 2, dict(data=2, model=2, mode="tensor",
+                                                 sequence=True)),
+    "sequence_fsdp_dit": (DIT_9, 8, 2, dict(data=2, model=2, sequence=True)),
 }
 
 
@@ -70,6 +79,7 @@ def mesh_of(device, data: int = -1, model: int = 1, mode: str = "fsdp",
     make a two-rank mesh of their own, ``(data 2)`` or ``(data 1, model
     2)``, two meshes at once; every rank creates every pair's groups, in
     the same order.  Else ``make_mesh`` over the four ranks."""
+    kw = {k: v for k, v in kw.items() if k not in ("sequence", "microbatches")}
     if not pairs:
         return make_mesh(data, devices=device, model=model, mode=mode, **kw)
     rank = dist.get_rank()
@@ -80,6 +90,18 @@ def mesh_of(device, data: int = -1, model: int = 1, mode: str = "fsdp",
     groups = {("data",): alone, ("model",): pair, ("data", "model"): pair}
     return Mesh(1, 0, torch.device(device), "gloo", alone, (("data", 1), ("model", model)),
                 (("data", 0), ("model", rank % 2)), groups, mode)
+
+
+def build_on(overrides, device, mesh, mesh_kw):
+    """The model of ``overrides`` made ready for ``mesh``: rebuilt for the
+    pipeline (``enable_pipeline`` with ``microbatches``) or for sequence
+    parallelism (``sequence``), as the trainer does."""
+    model = dp.build(overrides, device)
+    if mesh.mode == "pipeline":
+        model.enable_pipeline(mesh, mesh_kw.get("microbatches", 1))
+    if mesh_kw.get("sequence"):
+        model.enable_sequence_parallel(mesh)
+    return model
 
 
 def state_bytes(state) -> int:
@@ -232,7 +254,8 @@ def rank_main(device, jobs, samples, fits, out_dir: str, later: str) -> None:
     def run_jobs(jobs):
         for name, overrides, batch, steps, mesh_kw, weights, draws in jobs:
             mesh = mesh_of(device, **mesh_kw)
-            record = run(dp.build(overrides, device), batch, steps, mesh, weights, draws)
+            record = run(build_on(overrides, device, mesh, mesh_kw), batch, steps, mesh,
+                         weights, draws)
             torch.save(record, out / f"{name}.rank{rank}.pt")
 
     run_jobs(jobs)

@@ -31,6 +31,7 @@ from igm_tpu_torch.models.ddpm import DDPM  # noqa: E402
 from igm_tpu_torch.models.edm import EDM  # noqa: E402
 from igm_tpu_torch.models.flow_matching import FlowMatching  # noqa: E402
 from igm_tpu_torch.networks.dit import DiT  # noqa: E402
+from igm_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from tests._torch_parity import LR, _flatten, _perturb, check_train_step, dm as _dm  # noqa: E402
 
 torch.set_num_threads(1)
@@ -124,15 +125,34 @@ def test_dit_flash_refuses_tokens_off_the_128_block():
 
 
 def test_dit_refuses_parallel_meshes():
-    for kw in (dict(pipe_mesh=object()), dict(sp_mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 slice 7c"):
-            DiT(channels=3, **SMALL, **kw)
-    m = DDPM({"width": 8, "height": 8, "channels": 3}, network="dit", hidden_dim=32,
-             depth=1, heads=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 slice 7c"):
-        m.enable_sequence_parallel(None)
-    with pytest.raises(NotImplementedError, match="Queue 1 slice 7c"):
-        m.enable_pipeline(None)
+    """igm_tpu's errors for the pipeline and sequence meshes: a pipe_mesh
+    without a 'stage' axis, both meshes at once, the MoE with the stacked
+    layout, an sp_mesh without a 'model' axis (at the forward, where
+    igm_tpu's apply raises it); the MoE DiT on a sequence mesh is slice
+    7d's expert half; enable_sequence_parallel and enable_pipeline need
+    network=dit."""
+    cpu = torch.device("cpu")
+    data = Mesh(1, 0, cpu)
+    stage = Mesh(1, 0, cpu, axes=(("data", 1), ("stage", 2)), coords=(("data", 0), ("stage", 0)),
+                 mode="pipeline")
+    model = Mesh(1, 0, cpu, axes=(("data", 1), ("model", 2)), coords=(("data", 0), ("model", 0)))
+    with pytest.raises(ValueError, match="pipe_mesh needs a 'stage' axis"):
+        DiT(channels=3, block_mode="scan", pipe_mesh=data, **SMALL)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        DiT(channels=3, block_mode="scan", pipe_mesh=stage, sp_mesh=model, **SMALL)
+    with pytest.raises(ValueError, match="unrolled block layout"):
+        DiT(channels=3, block_mode="scan", moe_experts=2, **SMALL)
+    with pytest.raises(NotImplementedError, match="slice 7d's expert half"):
+        DiT(channels=3, sp_mesh=model, moe_experts=2, **SMALL)
+    net = DiT(channels=3, sp_mesh=data, **SMALL)
+    with pytest.raises(ValueError, match="sp_mesh needs a 'model' axis"):
+        net(torch.zeros(2, 8, 8, 3), torch.zeros(2))
+    m = DDPM({"width": 8, "height": 8, "channels": 3}, network="unet", hidden_dim=8,
+             dim_mults=(1,), device="cpu")
+    with pytest.raises(ValueError, match="needs network=dit"):
+        m.enable_sequence_parallel(model)
+    with pytest.raises(ValueError, match="needs network=dit"):
+        m.enable_pipeline(stage, 2)
 
 
 def test_dit_remat_equals_xla_exactly():

@@ -6,9 +6,10 @@ against the ungrouped one bit for bit, the launch decisions of the
 training CLI (N ranks spawned, ``IGM_MULTIHOST=1`` joining torchrun's
 group, a multirun refused), the model axes' configuration (a model or
 fsdp axis builds, or raises igm_tpu's ValueError where the ranks do not
-make it), and the refusals of what the port has not reached: sequence
-and pipeline parallelism (slice 7c) and expert parallelism, tensor mode
-on a Switch-MoE (slice 7d's expert half).
+make it), the pipeline and sequence keys (slice 7c: igm_tpu's errors
+where one process cannot make the mesh, or the model has no hook), and
+the refusal of what the port has not reached: expert parallelism, tensor
+mode on a Switch-MoE (slice 7d's expert half).
 """
 import sys
 from pathlib import Path
@@ -189,17 +190,41 @@ def test_moe_refuses_more_than_one_rank():
                                          ({"mode": "pipeline"}, "7c"),
                                          ({"sequence": True}, "7c")])
 def test_trainer_refuses_what_the_port_has_not_reached(mesh, slice_):
-    """7c (sequence and pipeline parallelism) raises; 7b's model axes
-    build, and the mesh they ask for raises igm_tpu's ValueError where one
-    process cannot make it (a model or fsdp axis of 2)."""
-    if slice_ == "7c":
-        with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
+    """The mesh keys of slices 7b and 7c build what igm_tpu's trainer
+    builds, and raise its ValueError where one process cannot make the mesh
+    asked for: a model or fsdp axis of 2 ("does not divide", "requires a
+    model axis"), a stage axis of 2 ("needs 2 devices"), mode=pipeline
+    without a stage ("needs mesh.stage > 1", at construction, as there).
+    mesh.sequence builds the data mesh, on which the DiT's step raises
+    igm_tpu's "sp_mesh needs a 'model' axis"; a model without the hook
+    raises "needs a model with enable_..."."""
+    if mesh.get("mode") == "pipeline":
+        with pytest.raises(ValueError, match=r"needs mesh.stage > 1"):
             Trainer(mesh={"data": -1, **mesh})
         return
     trainer = Trainer(mesh={"data": -1, **mesh})
     if mesh.get("model", 1) > 1 or mesh.get("fsdp", 1) > 1:
         with pytest.raises(ValueError, match="does not divide|requires a model axis"):
             make_mesh(trainer.mesh_data, devices="cpu", **trainer.mesh_axes)
+    elif mesh.get("stage", 1) > 1:
+        assert trainer.mesh_axes["mode"] == "pipeline"
+        with pytest.raises(ValueError, match=r"mesh \(1,2\) needs 2 devices, have 1"):
+            make_mesh(trainer.mesh_data, devices="cpu", **trainer.mesh_axes)
+    elif mesh.get("sequence"):
+        built = make_mesh(trainer.mesh_data, devices="cpu", **trainer.mesh_axes)
+        vae = dp.build(["experiment=vae/mnist_mlp", "networks.encoder.hidden_dims=[8]",
+                        "networks.decoder.hidden_dims=[8]"])
+        with pytest.raises(ValueError, match="needs a model with enable_sequence_parallel"):
+            trainer.prepare_model(vae, built)
+        model = dp.build(["experiment=ddpm/cifar10_dit", "model.hidden_dim=32",
+                          "model.depth=1", "model.heads=2", "model.patch=4",
+                          "datamodule.width=8", "datamodule.height=8"])
+        trainer.prepare_model(model, built)
+        model.set_mesh(built)
+        state = model.init_state(0)
+        batch = tuple(torch.from_numpy(a)[None] for a in dp.make_batch(model, 2, 0))
+        with pytest.raises(ValueError, match="sp_mesh needs a 'model' axis"):
+            model.train_step_n(state, batch)
     else:
         built = make_mesh(trainer.mesh_data, devices="cpu", **trainer.mesh_axes)
         assert (built.mode, built.world) == ("tensor", 1)

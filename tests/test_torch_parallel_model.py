@@ -19,14 +19,17 @@ every update's reduced gradients whole, two-rank meshes two at once
 - tensor parallelism (2, 2) on the tiny DiT (also with ``model.remat``),
   and (1, 4) on it, where a
   shard holds half a head; the composed (1, 2, 2) mesh;
+- sequence parallelism (Megatron-SP) with tensor parallelism at (1, 4)
+  (a head split too) and at (2, 2) on 9 tokens, which the model axis does
+  not divide; with FSDP at (2, 2) on 9 tokens;
 - the Switch-MoE DiT on 2 and on 4 data ranks, dropping tokens, and its
   ``sample_sharded``;
 - a one-process checkpoint restored on the (2, 2) tensor mesh;
 - the training CLI on 4 ranks, ``+trainer.mesh.model=2
   +trainer.mesh.mode=tensor``, which saves;
 - then, from igm_tpu-layout weights with igm_tpu's draws, the (2, 2)
-  tensor DiT and the MoE DiT on 2 data ranks, against ``jax.jit(
-  train_step)`` compiled here meanwhile.
+  tensor DiT, the MoE DiT on 2 data ranks and the three sequence-parallel
+  meshes, against ``jax.jit(train_step)`` compiled here meanwhile.
 """
 import sys
 import threading
@@ -75,6 +78,7 @@ FIT = [*mp.DIT, "datamodule.batch_size=8", "trainer.limit_train_batches=2",
        "trainer.limit_val_batches=0", "trainer.steps_per_execution=1", "model.lr=1e-4",
        "logger=null", "callbacks=null", "print_config=False"]
 FIT_LR = 1e-4
+SEQUENCE = [case for case in mp.CASES if case.startswith("sequence_")]
 
 
 def _igm_job(name: str, overrides, mesh_kw, seed: int):
@@ -128,7 +132,9 @@ def ranks(tmp_path_factory):
     try:
         for name, overrides, kw, seed in (
                 ("tensor_dit_igm", mp.DIT, dict(data=2, model=2, mode="tensor"), 1),
-                ("moe_igm", mp.MOE_DIT, dict(data=2, pairs=True), 2)):
+                ("moe_igm", mp.MOE_DIT, dict(data=2, pairs=True), 2),
+                *((f"{case}_igm", mp.CASES[case][0], mp.CASES[case][3], 3)
+                  for case in SEQUENCE)):
             job, want = _igm_job(name, overrides, kw, seed)
             igm_jobs.append(job)
             igm[name] = want
@@ -332,9 +338,12 @@ def test_cli_tensor_fit_resumes_in_one_process(ranks, tmp_path, monkeypatch):
                                    atol=2 * 4 * FIT_LR * (1 + 1e-3) + PARAM_ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("case", ["tensor_dit_igm", "moe_igm"])
+@pytest.mark.parametrize("case", ["tensor_dit_igm", "moe_igm",
+                                  *(f"{case}_igm" for case in SEQUENCE)])
 def test_mesh_matches_igm_tpu(ranks, case):
-    """The (2, 2) tensor DiT and the MoE DiT on two data ranks, from
+    """The (2, 2) tensor DiT, the MoE DiT on two data ranks and the
+    sequence-parallel meshes (tests/test_parallel.py's
+    test_sequence_parallel_matches_and_scatters holds igm_tpu's own), from
     igm_tpu's weights and draws: igm_tpu's one-device step on the global
     batch, the loss and the parameters after Adam where the gradient's
     sign is certain (tests/_torch_parity.py's tolerances), every
