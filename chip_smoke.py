@@ -273,21 +273,31 @@ and prints no result line):
           dropped tokens as one process) within PARALLEL_TOL; the pipeline
           (data 1, stage 2) at 2 microbatches and tensor + sequence (1, 2)
           on the full-width DiT in f32 at 32 (each rank's state under one
-          process's) within PARALLEL_TOL.
+          process's) within PARALLEL_TOL; expert parallelism, tensor (1, 2)
+          on the f32 MoE DiT at 16 and tensor + sequence (1, 2) on it (4 of
+          the 8 experts a block a rank, each rank's state under one
+          process's, the same dropped tokens) within PARALLEL_TOL.
   parallel_cards  (--only, on a host of more than one card; the default run
           leaves it out) one NCCL rank a card, spawned, each mesh of
           CARDS_CASES in turn (the data axis, FSDP (2, 2) on the flagship,
           tensor (2, 2) and composed (1, 2, 2) on the bf16 DiT, the MoE DiT
-          on four data ranks, the pipeline (1, 4) and (2, 2) at 4
-          microbatches and tensor + sequence (1, 4) and (2, 2) on the bf16
-          DiT): the eager step against one process on card 0 on the whole
+          on four data ranks, and tensor (2, 2) and tensor + sequence
+          (2, 2) on it (expert parallelism, 64 rows a batch rank), the
+          pipeline (1, 4) and (2, 2) at 4 microbatches and tensor +
+          sequence (1, 4) and (2, 2) on the bf16 DiT): the eager step
+          against one process on card 0 on the whole
           global batch, 3 graphed steps with the collectives inside the
           graph (the pipeline's eager: Mesh.capturable; every rank's whole
           state equal bit for bit),
           the graphed step's ms a rank, images/s, state bytes and peak
           memory against one card's on the global batch; then the train
           CLI with trainer.devices=-1 for 2 epochs of 64 rows a rank (rank
-          0's checkpoints at the steps one process reaches).
+          0's checkpoints at the steps one process reaches); the same fit
+          as two torchrun nodes of half the cards each on this host's
+          loopback (IGM_MULTIHOST=1, NCCL_DEBUG=INFO: the transports NCCL
+          chose), its checkpoints against the spawned fit's; and
+          igm_tpu_torch.tools.multihost_dryrun's five meshes as the same
+          two nodes.
 The sampling and training paths run their denoiser and train steps as CUDA
 graphs (the counters add a graph's launches at every replay), and the CLI
 runs resolve steps_per_execution=auto, whose probe trains 1 + AUTO_TIMED
@@ -4994,12 +5004,20 @@ PARALLEL_MODEL_AXIS = (
     # Megatron-SP on the tensor mesh: 128 of the 256 tokens a rank between GEMMs
     ("sequence_dit", ["experiment=ddpm/cifar10_dit", "model.compute_dtype=float32"], 32,
      dict(model=2, mode="tensor", sequence=True), {}),
+    # expert parallelism: 4 of the MoE's 8 experts a rank; then under
+    # Megatron-SP too (the MoE gathers the 256 tokens, reduce-scatters its output)
+    ("moe_tensor_dit", ["experiment=ddpm/cifar10_dit", "model.compute_dtype=float32",
+                        *DIT_MOE_OVERRIDES], 16, dict(model=2, mode="tensor"), {}),
+    ("moe_sequence_dit", ["experiment=ddpm/cifar10_dit", "model.compute_dtype=float32",
+                          *DIT_MOE_OVERRIDES], 16, dict(model=2, mode="tensor", sequence=True),
+     {}),
 )
 # (the card showed, H100 80GB HBM3, 700.00 W: tensor 0 and 5.3e-7, the
 # MoE 1.1e-7 and 4.9e-7; DiT weights moved off adaLN-Zero, _mesh_state)
 PARALLEL_TOL.update({"fsdp_flagship": (0.0, 0.0), "tensor_dit": (1e-6, 5e-6),
                      "moe_dit": (1e-6, 5e-6), "pipeline_dit": (1e-6, 1e-5),
-                     "sequence_dit": (1e-6, 1e-5)})
+                     "sequence_dit": (1e-6, 1e-5), "moe_tensor_dit": (1e-6, 5e-6),
+                     "moe_sequence_dit": (1e-6, 1e-5)})
 # (c): DDIM-50 over 64 images, two ranks of 32 against one process on 64:
 # bit for bit against one process on each half of the same x_T, which is
 # what one process gives at a batch of 32.  Against the batch of 64 the
@@ -5124,6 +5142,13 @@ def _moe_dropped(model) -> list:
     return seen
 
 
+def _expert_rows(model) -> list:
+    """The experts each Switch-MoE block holds on this rank (its stacked
+    ``w_up``'s leading size)."""
+    return [int(p.shape[0]) for k, p in model.modules.named_parameters()
+            if k.endswith("moe.w_up")]
+
+
 def _parallel_rank(device, out_dir: str) -> None:
     """One of (b)'s gloo ranks (spawned, sharing the card): each model of
     PARALLEL_MODELS from init_state(0), its rows of the seeded global
@@ -5155,7 +5180,7 @@ def _parallel_rank(device, out_dir: str) -> None:
         dropped = _moe_dropped(model)
         record = _dp_steps(model, state, local, PARALLEL_DP_STEPS)
         record.update(jax="jax" in sys.modules, dropped=dropped, bytes=_state_bytes(state),
-                      seconds=time.perf_counter() - t0,
+                      seconds=time.perf_counter() - t0, experts=_expert_rows(model),
                       sharded=sum(leaf.sharded for leaf in (model.sharding.leaves
                                                             if model.sharding else [])))
         torch.save(record, out / f"{name}.rank{torch.distributed.get_rank()}.pt")
@@ -5175,11 +5200,12 @@ def _rel_err(got: float, want: float) -> float:
 
 
 def parallel_compare(name: str, ranks: list, ref: dict, per_step: dict,
-                     run: str = "two_ranks", tol=None) -> dict:
+                     run: str = "two_ranks", tol=None, apart=()) -> dict:
     """(b): every rank ends in the same state bit for bit and reports the
-    same metrics; against one process, each metric and each update's
-    reduced gradients within PARALLEL_TOL; each rank's launches a step
-    exactly the one-process step's, which are the model's own."""
+    same metrics; against one process, each metric (but those ``apart``,
+    which the caller holds otherwise) and each update's reduced gradients
+    within PARALLEL_TOL; each rank's launches a step exactly the
+    one-process step's, which are the model's own."""
     import torch
     metric_tol, grad_tol = PARALLEL_TOL[name] if tol is None else tol
     check(not any(r["jax"] for r in ranks), f"parallel {name}: a rank imported jax")
@@ -5196,7 +5222,7 @@ def parallel_compare(name: str, ranks: list, ref: dict, per_step: dict,
               f"{ref['launches']}")
     got = ranks[0]
     metric_err = max(_rel_err(got["metrics"][i][k], v) for i, m in enumerate(ref["metrics"])
-                     for k, v in m.items() if math.isfinite(v))
+                     for k, v in m.items() if math.isfinite(v) and k not in apart)
     check(len(got["updates"]) == len(ref["updates"]), f"parallel {name}: update counts")
     grad_err = [max(float((g - w).abs().max()) for g, w in zip(gs, ws))
                 / max(float(w.abs().max()) for w in ws)
@@ -5289,22 +5315,30 @@ def phase_parallel() -> dict:
                             for r in range(PARALLEL_WORLD)]).cpu()
         want = want.cpu()
         del fresh
-        # (b)'s references: one process on the whole global batch
-        refs = {}
+        # (b)'s references: one process on the whole global batch, once for
+        # the cases of the same model and batch (the same steps on the same inputs)
+        refs, by_inputs = {}, {}
+        t_refs = time.perf_counter()
         for name, overrides, batch, *_ in PARALLEL_MODELS + PARALLEL_MODEL_AXIS:
-            ref_model = _parallel_model(overrides)
-            state = _mesh_state(ref_model, None, overrides)
-            glob = tuple(b[0] for b in _chain_batches(ref_model, batch, 1, 21))
-            dropped = _moe_dropped(ref_model)
-            refs[name] = _dp_steps(ref_model, state, glob, PARALLEL_DP_STEPS)
-            refs[name].update(dropped=dropped, bytes=_state_bytes(state))
-            del ref_model, state, glob
-            _release()
+            key = (tuple(overrides), batch)
+            if key not in by_inputs:
+                ref_model = _parallel_model(overrides)
+                state = _mesh_state(ref_model, None, overrides)
+                glob = tuple(b[0] for b in _chain_batches(ref_model, batch, 1, 21))
+                dropped = _moe_dropped(ref_model)
+                by_inputs[key] = _dp_steps(ref_model, state, glob, PARALLEL_DP_STEPS)
+                by_inputs[key].update(dropped=dropped, bytes=_state_bytes(state),
+                                      experts=_expert_rows(ref_model))
+                del ref_model, state, glob
+                _release()
+            refs[name] = by_inputs[key]
+        out["references_seconds"] = time.perf_counter() - t_refs
         spawner.join()
         if failed:
             raise failed[0]
         out["seconds_to_ranks_end"] = time.perf_counter() - t0
-        emit("parallel", run="ranks", seconds_to_ranks_end=out["seconds_to_ranks_end"])
+        emit("parallel", run="ranks", seconds_to_ranks_end=out["seconds_to_ranks_end"],
+             references_seconds=out["references_seconds"])
         # (a)'s timing, the card quiet again: plain, NCCL, NCCL, plain
         ms = {"plain": [], "nccl": []}
         for key in ("plain", "nccl", "nccl", "plain"):
@@ -5340,14 +5374,21 @@ def phase_parallel() -> dict:
             check(all(r["bytes"] < refs[name]["bytes"] for r in recs),
                   f"parallel {name}: a rank keeps the whole state")
             out[name]["bit_for_bit"] = True
-        if name in ("pipeline_dit", "sequence_dit"):
+        if name in ("pipeline_dit", "sequence_dit", "moe_tensor_dit", "moe_sequence_dit"):
             check(all(r["bytes"] < refs[name]["bytes"] for r in recs),
                   f"parallel {name}: a rank keeps the whole state")
-        if name == "moe_dit":
+        if name.startswith("moe_"):
             check(recs[0]["dropped"] == refs[name]["dropped"] and sum(recs[0]["dropped"]) > 0,
                   f"parallel {name}: dropped {recs[0]['dropped']}, one process "
                   f"{refs[name]['dropped']}")
             out[name]["dropped_tokens_by_forward"] = recs[0]["dropped"]
+            # expert parallelism: a rank holds E / model of each block's experts
+            share = mesh_kw.get("model", 1) if mesh_kw.get("mode") == "tensor" else 1
+            held = [e // share for e in refs[name]["experts"]]
+            check(all(r["experts"] == held for r in recs),
+                  f"parallel {name}: the ranks hold {[r['experts'] for r in recs]} experts "
+                  f"a block, not {held}")
+            out[name]["experts_a_block_by_rank"] = [r["experts"] for r in recs]
         emit("parallel", run=f"model_axis_{name}_summary",
              **{k: v for k, v in out[name].items() if k not in ("metrics",
                                                                "metrics_one_process")})
@@ -5396,6 +5437,11 @@ CARDS_CASES = (
     ("composed_dit", ["experiment=ddpm/cifar10_dit"], dict(fsdp=2, model=2, mode="tensor"),
      CARDS_BATCH, "dit_bf16"),
     ("moe_dit", ["experiment=ddpm/cifar10_dit", *DIT_MOE_OVERRIDES], dict(), 64, "dit_bf16"),
+    # expert parallelism: 4 of the 8 experts a rank, then under Megatron-SP too
+    ("moe_tensor_dit", ["experiment=ddpm/cifar10_dit", *DIT_MOE_OVERRIDES],
+     dict(model=2, mode="tensor"), 64, "moe_bf16_model_axis"),
+    ("moe_sequence_dit", ["experiment=ddpm/cifar10_dit", *DIT_MOE_OVERRIDES],
+     dict(model=2, mode="tensor", sequence=True), 64, "moe_bf16_model_axis"),
     ("pipeline_dit_1x4", ["experiment=ddpm/cifar10_dit"], dict(stage=4, microbatches=4),
      CARDS_BATCH, "dit_bf16"),
     ("pipeline_dit_2x2", ["experiment=ddpm/cifar10_dit"],
@@ -5411,25 +5457,88 @@ CARDS_CASES = (
 # 700.00 W, the weights of _mesh_state): metrics 1.6e-5 (tensor, composed)
 # and 0 (the MoE) apart, gradients 1.8e-3 and 8.4e-4 of the largest
 PARALLEL_TOL["dit_bf16"] = (1e-4, 1e-2)
+# the bf16 MoE DiT on a model axis: the row layers' bf16 partial sums move
+# the router's inputs by a rounding, and a token whose top-1 margin is
+# within it goes to another expert.  Four cards showed (H100 80GB HBM3,
+# 700.00 W) 1.4e-4 on the loss and 1.2e-4 on the aux, gradients 2.3e-3
+# of the largest, with 76, 117, 137 and 163 of a rank's 16,384 tokens
+# moved in the 4 blocks (0.46-0.99%: the rounding grows with depth; moves
+# both ways cancel in the shares).  The routed fractions (moe/min_share,
+# moe/load_entropy, 2.5e-3 off) are held apart, by the moved tokens
+# themselves: at most MOE_MOVED_SHARE of the global batch's in a block
+# (MOE_SHARES; a rank routing other inputs than one process's would move
+# most of them, 7 in 8 at random, and a wrong expert's output shows in
+# the loss)
+PARALLEL_TOL["moe_bf16_model_axis"] = (5e-4, 1e-2)
+# A gate applied before the model group's sum leaves the
+# router's gradient partial and the group's ranks' states apart, which
+# the bit-for-bit check of the ranks sees; the router's part of the
+# input's gradient summed over the group (copy_to_model on the whole
+# input) moves the gradients by less than bf16's rounding here, and phase
+# parallel's float32 cases hold it (5e-6 of the largest)
+MOE_SHARES = ("moe/min_share", "moe/load_entropy")
+MOE_MOVED_SHARE = 0.03
 
 
-def _cards_rank(device, out_dir: str) -> None:
+# the names of CARDS_CASES that phase parallel_cards runs (--cards-cases;
+# None: all)
+CARDS_ONLY = None
+
+
+def _route_hooks(model):
+    """({a Switch-MoE block's name: the top-1 expert of each token of its
+    first forward, [rows, tokens]}, the hooks' handles): the router run
+    again on the block's input, as the block runs it."""
+    import torch
+    from igm_tpu_torch.networks.moe import SwitchMoE
+    routes = {}
+
+    def hook(name):
+        def record(module, args, out):
+            if name not in routes:
+                x = args[0].detach()
+                with torch.no_grad():
+                    probs = torch.softmax(module.router(x.reshape(-1, x.shape[-1]).float()), -1)
+                routes[name] = probs.argmax(dim=-1).view(x.shape[0], -1).cpu()
+        return record
+
+    handles = [m.register_forward_hook(hook(k)) for k, m in model.modules.named_modules()
+               if isinstance(m, SwitchMoE)]
+    return routes, handles
+
+
+def _routed_steps(model, state, batch) -> dict:
+    """One eager step (``_dp_steps``) with each Switch-MoE block's routes
+    recorded (``routes``)."""
+    routes, handles = _route_hooks(model)
+    record = _dp_steps(model, state, batch, 1)
+    for h in handles:
+        h.remove()
+    record["routes"] = routes
+    return record
+
+
+def _cards_rank(device, out_dir: str, names: list) -> None:
     """One NCCL rank of phase parallel_cards, each case of CARDS_CASES in
-    turn on its mesh: the model from init_state(0), its rows of the seeded
-    global batch; one eager step recorded (the reduced gradients, whole),
-    CARDS_STEPS graphed steps (the collectives inside the graph), then
-    CARDS_TIMED graphed steps timed; the state's bytes and the peak memory."""
+    ``names`` in turn on its mesh: the model from init_state(0), its rows
+    of the seeded global batch; one eager step recorded (the reduced
+    gradients, whole; a Switch-MoE block's routes), CARDS_STEPS graphed
+    steps (the collectives inside the graph), then CARDS_TIMED graphed
+    steps timed; the state's bytes and the peak memory."""
     import torch
     from igm_tpu_torch.utils.platform import set_numerics
     set_numerics()
     for name, overrides, mesh_kw, rows_per, _ in CARDS_CASES:
+        if name not in names:
+            continue
         torch.cuda.reset_peak_memory_stats(device)
         model, mesh = _axis_model(overrides, device, mesh_kw)
         state = _mesh_state(model, mesh, overrides)
         glob = _chain_batches(model, rows_per * mesh.world, 1, 23)
         rows = torch.from_numpy(mesh.local_rows(rows_per * mesh.world)).to(device)
         local = tuple(b[0][rows] for b in glob)
-        record = _dp_steps(model, state, local, 1)
+        record = _routed_steps(model, state, local)
+        record["rows"] = rows.cpu()
         chunk = tuple(b[None] for b in local)
         record["graphed_metrics"] = [
             {k: float(v) for k, v in model.train_step_n(state, chunk)[1].items()}
@@ -5445,6 +5554,30 @@ def _cards_rank(device, out_dir: str) -> None:
         _release()
 
 
+def _moe_compare(name: str, recs: list, ref: dict) -> dict:
+    """A Switch-MoE DiT's eager step on the cards against one process's:
+    the global batch's tokens routed to another expert than one process
+    routes them, at most MOE_MOVED_SHARE of a block's; the ranks of a model
+    group route their common rows alike."""
+    import torch
+    moved = {}
+    for block, want in ref["routes"].items():
+        got = torch.full_like(want, -1)
+        for r in recs:
+            mine = r["routes"][block]
+            check(bool(((got[r["rows"]] == -1) | (got[r["rows"]] == mine)).all()),
+                  f"parallel_cards {name}: the model group routes {block} apart")
+            got[r["rows"]] = mine
+        moved[block] = int((got != want).sum())
+    n = int(next(iter(ref["routes"].values())).numel())
+    row = dict(tokens_moved_a_block=moved, tokens_a_block=n)
+    emit("parallel_cards", run=f"routes_{name}", **row)
+    check(max(moved.values()) <= MOE_MOVED_SHARE * n,
+          f"parallel_cards {name}: tokens routed elsewhere than one process {moved} of "
+          f"{n} a block (at most {MOE_MOVED_SHARE:.0%})")
+    return row
+
+
 def phase_parallel_cards() -> dict:
     """Every card of the host, one NCCL rank each (spawned), each case of
     CARDS_CASES (the data axis, FSDP (2, 2) and the flagship, tensor
@@ -5458,19 +5591,22 @@ def phase_parallel_cards() -> dict:
     on the global batch; then the train CLI with trainer.devices=-1 (every
     card) for CARDS_FIT_EPOCHS epochs of CARDS_FIT_BATCH rows a rank on
     the synthetic set: rank 0's checkpoints, an epoch's each, at the steps
-    one process would reach."""
+    one process would reach; the same fit as two torchrun nodes on this
+    host (``_multihost_cli``), and the multi-host dryrun's meshes
+    (``_multihost_dryrun``)."""
     import shutil
     import torch
     from igm_tpu_torch.parallel import launch
     cards = torch.cuda.device_count()
     check(cards > 1, f"parallel_cards needs more than one card, found {cards}")
-    out = {"cards": cards}
+    cases = [c for c in CARDS_CASES if CARDS_ONLY is None or c[0] in CARDS_ONLY]
+    out = {"cards": cards, "cases": [c[0] for c in cases]}
     tmp = Path(tempfile.mkdtemp(prefix="parallel-cards-"))
     t0 = time.perf_counter()
-    launch.spawn(_cards_rank, cards, torch.device("cuda"), (str(tmp),),
-                 timeout=PARALLEL_TIMEOUT_S * len(CARDS_CASES))
+    launch.spawn(_cards_rank, cards, torch.device("cuda"), (str(tmp), out["cases"]),
+                 timeout=PARALLEL_TIMEOUT_S * len(cases))
     out["seconds_ranks"] = time.perf_counter() - t0
-    for name, overrides, mesh_kw, rows_per, tol in CARDS_CASES:
+    for name, overrides, mesh_kw, rows_per, tol in cases:
         recs = [torch.load(tmp / f"{name}.rank{r}.pt", weights_only=False)
                 for r in range(cards)]
         for r in recs[1:]:
@@ -5485,10 +5621,13 @@ def phase_parallel_cards() -> dict:
         model = _parallel_model(overrides)
         state = _mesh_state(model, None, overrides)
         glob = tuple(b[0] for b in _chain_batches(model, n, 1, 23))
-        ref = _dp_steps(model, state, glob, 1)
+        ref = _routed_steps(model, state, glob)
         per_step = PARALLEL_MODELS[0][3] if "flagship" in name else {}
         row = parallel_compare(name, recs, ref, per_step, run=f"{cards}_cards",
-                               tol=PARALLEL_TOL[tol])
+                               tol=PARALLEL_TOL[tol],
+                               apart=MOE_SHARES if tol == "moe_bf16_model_axis" else ())
+        if ref["routes"]:
+            row.update(_moe_compare(name, recs, ref))
         chunk = tuple(b[None] for b in glob)
         for _ in range(2):
             model.train_step_n(state, chunk)
@@ -5517,16 +5656,101 @@ def phase_parallel_cards() -> dict:
     # _train_cli's limit of 3 batches an epoch; a checkpoint an epoch
     per_epoch = min(3, len(dm.train_arrays()[0]) // (CARDS_FIT_BATCH * cards))
     want = {f"step_{per_epoch * (e + 1)}.pt" for e in range(CARDS_FIT_EPOCHS)}
+    fit_overrides = ["trainer.devices=-1", f"trainer.max_epochs={CARDS_FIT_EPOCHS}",
+                     "trainer.limit_val_batches=0",
+                     f"datamodule.batch_size={CARDS_FIT_BATCH * cards}", "callbacks=null"]
     t0 = time.perf_counter()
-    _train_cli(fit, "trainer.devices=-1", f"trainer.max_epochs={CARDS_FIT_EPOCHS}",
-               "trainer.limit_val_batches=0", f"datamodule.batch_size={CARDS_FIT_BATCH * cards}",
-               "callbacks=null")
-    saved = sorted(p.name for p in (fit / "logs/runs/ddpm/cifar10/checkpoints").iterdir())
+    _train_cli(fit, *fit_overrides)
+    ckpts = fit / "logs/runs/ddpm/cifar10/checkpoints"
+    saved = sorted(p.name for p in ckpts.iterdir())
     check(set(saved) == want, f"parallel_cards: the fit saved {saved}, not {sorted(want)}")
     out["fit"] = dict(seconds=time.perf_counter() - t0, checkpoints=saved)
     emit("parallel_cards", run="fit", **out["fit"])
+    out["multihost_cli"] = _multihost_cli(fit, fit_overrides, ckpts, cards)
     shutil.rmtree(fit, ignore_errors=True)
+    out["multihost_dryrun"] = _multihost_dryrun(cards)
     return out
+
+
+MULTIHOST_NODES = 2
+MULTIHOST_TIMEOUT_S = 600
+
+
+def _multihost_cli(fit: Path, overrides: list, ckpts: Path, cards: int) -> dict:
+    """The phase's trainer.devices=-1 fit again as MULTIHOST_NODES torchrun
+    nodes on this host's loopback (IGM_MULTIHOST=1; node i the i-th half of
+    the cards through CUDA_VISIBLE_DEVICES), NCCL_DEBUG=INFO: its
+    checkpoints against the spawned fit's, parameters bit for bit (the
+    same ranks on the same cards summing in the same order), and the
+    transports NCCL reports between the ranks."""
+    import re
+    import torch
+    from igm_tpu_torch.tools.multihost_dryrun import run_nodes
+    check(cards % MULTIHOST_NODES == 0,
+          f"multihost_cli: {cards} cards do not split into {MULTIHOST_NODES} nodes")
+    run = fit / "multihost"
+    args = ["-m", "igm_tpu_torch.train", "experiment=ddpm/cifar10",
+            "trainer.limit_train_batches=3", "trainer.check_val_every_n_epoch=1", "logger=null",
+            "print_config=False", "optimized_metric=train_loss/loss",
+            f"datamodule.data_dir={fit / 'data'}",
+            f"hydra.run.dir={run}", *overrides]
+    t0 = time.perf_counter()
+    nodes = run_nodes(args, MULTIHOST_NODES, cards // MULTIHOST_NODES, "cuda",
+                      MULTIHOST_TIMEOUT_S, cwd=str(fit),
+                      env={"PYTHONPATH": str(REPO), "NCCL_DEBUG": "INFO"})
+    seconds = time.perf_counter() - t0
+    log = "\n".join(n["stdout"] + n["stderr"] for n in nodes)
+    (REPO / "chiprun_out").mkdir(exist_ok=True)
+    (REPO / "chiprun_out" / "multihost_cli.log").write_text(log)
+    check(all(n["rc"] == 0 for n in nodes),
+          f"multihost_cli: the nodes exited {[n['rc'] for n in nodes]}: "
+          f"{nodes[0]['stderr'][-1500:]}")
+    transports = sorted(set(re.findall(r"\] via (\S+)", log)))
+    ring = sorted(set(re.findall(r"NCCL INFO (Channel \d+/\d+ : \d+\[\d+\] -> \d+\[\d+\] "
+                                 r"via \S+)", log)))[:8]
+    saved = sorted(p.name for p in (run / "checkpoints").iterdir())
+    want = sorted(p.name for p in ckpts.iterdir())
+    check(saved == want, f"multihost_cli: saved {saved}, the spawned fit {want}")
+    diffs = {}
+    for name in saved:
+        got = torch.load(run / "checkpoints" / name, weights_only=False)
+        ref = torch.load(ckpts / name, weights_only=False)
+        check(got["step"] == ref["step"], f"multihost_cli {name}: step {got['step']}")
+        diffs[name] = max(float((got["params"][k].float() - v.float()).abs().max())
+                          for k, v in ref["params"].items())
+    row = dict(nodes=MULTIHOST_NODES, ranks_a_node=cards // MULTIHOST_NODES, seconds=seconds,
+               checkpoints=saved, max_abs_param_diff=diffs,
+               bit_for_bit=all(d == 0.0 for d in diffs.values()),
+               nccl_transports=transports, nccl_channels_sample=ring,
+               network="one host's loopback (both nodes on this machine), not a network "
+                       "between two hosts")
+    emit("parallel_cards", run="multihost_cli", **row)
+    check(transports, "multihost_cli: NCCL reported no transport (NCCL_DEBUG=INFO)")
+    check(row["bit_for_bit"], f"multihost_cli: parameters {max(diffs.values()):.3g} off the "
+                              f"spawned fit's, not bit for bit")
+    return row
+
+
+def _multihost_dryrun(cards: int) -> dict:
+    """igm_tpu_torch.tools.multihost_dryrun's five meshes on the cards as
+    MULTIHOST_NODES torchrun nodes: its JSON line, which must say ok."""
+    cmd = [sys.executable, "-m", "igm_tpu_torch.tools.multihost_dryrun", "--nodes",
+           str(MULTIHOST_NODES), "--nproc-per-node", str(cards // MULTIHOST_NODES),
+           "--cases", "data,fsdp,tensor,composed,pipeline",
+           "--timeout", str(MULTIHOST_TIMEOUT_S)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(REPO)},
+                          timeout=MULTIHOST_TIMEOUT_S + 60)
+    check(proc.returncode == 0 and proc.stdout.strip(),
+          f"multihost_dryrun exited {proc.returncode}: {proc.stdout[-1500:]} "
+          f"{proc.stderr[-1500:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    row["wall_seconds"] = time.perf_counter() - t0
+    emit("parallel_cards", run="multihost_dryrun",
+         **{k: v for k, v in row.items() if k != "ok"}, dryrun_ok=row["ok"])
+    check(row["ok"] is True, f"multihost_dryrun: not ok: {row}")
+    return row
 
 
 # the redesigned kernels of rows 1, 2, 3 and 5 and of _flat_bwd: (design,
@@ -5600,7 +5824,12 @@ def main(argv=None) -> int:
     parser.add_argument("--only", nargs="+", choices=sorted(ALONE), default=None,
                         help="run these phases alone (after device and build) and stop; "
                              "prints no result line")
+    parser.add_argument("--cards-cases", nargs="+", choices=[c[0] for c in CARDS_CASES],
+                        default=None, help="parallel_cards: run these meshes of CARDS_CASES "
+                                           "alone (default: all)")
     args = parser.parse_args(argv)
+    global CARDS_ONLY
+    CARDS_ONLY = args.cards_cases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1

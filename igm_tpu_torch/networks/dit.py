@@ -41,7 +41,8 @@ rank's shards of the column layers (``qkv``, ``Dense_0``,
 ``_Modulation_0/Dense_0``) and row layers (``proj``, ``Dense_1``), which
 the model's sharding put in the modules: the local heads' attention
 where the model axis divides the heads, else every head's from the
-gathered ``qkv``.
+gathered ``qkv``; a Switch-MoE MLP its rank's experts (expert
+parallelism, ``networks/moe.py``).
 
 Pipeline parallelism (``pipe_mesh``, a mesh with a ``stage`` axis,
 ``parallel/pipeline.py``): block ``i`` belongs to stage ``i // (depth /
@@ -66,8 +67,11 @@ read whole (the modulation vectors, the row layers' biases) sums its
 gradient over the model group (``copy_to_model``).  The final LayerNorm
 runs on the rank's tokens; they are gathered before the head (whose FSDP
 leaves its own call gathers, their gradient then whole on every rank).
-In ``fsdp`` mode a block gathers the tokens at its entry and keeps the
-rank's part at its exit, and the head runs on all of them.
+A Switch-MoE block gathers the ``n_tokens`` tokens before its router
+(one process's routing order, no padding row routed) and its experts'
+summed output is reduce-scattered to the rank's part (``networks/
+moe.py``).  In ``fsdp`` mode a block gathers the tokens at its entry and
+keeps the rank's part at its exit, and the head runs on all of them.
 """
 from __future__ import annotations
 
@@ -86,7 +90,7 @@ from ..parallel.pipeline import block_stage, gpipe_apply
 from ..parallel.tensor import (TensorParallel, copy_to_model, gather_features, gather_tokens,
                                reduce_from_model, scatter_tokens, split_tokens)
 from .base import FlaxDense, compute_dtype
-from .moe import SEQUENCE_REFUSED, SwitchMoE
+from .moe import SwitchMoE
 from .unet import Embed, sinusoidal_pos_emb
 
 
@@ -289,7 +293,9 @@ class DiTBlock(nn.Module):
 
         m = _layernorm_f32(x) * (1.0 + g_m) + s_m
         if hasattr(self, "moe"):
-            m, self.moe_aux, self.moe_load = self.moe(m)
+            if seq:       # the MoE routes the n tokens, in one process's order
+                m = gather_tokens(m, tp, n_tokens, partial=False)
+            m, self.moe_aux, self.moe_load = self.moe(m, split=seq)
         elif tp is None:
             m = self.Dense_1(F.gelu(self.Dense_0(m), approximate="tanh"))
         else:
@@ -332,8 +338,6 @@ class DiT(nn.Module):
             raise ValueError("pipe_mesh needs a 'stage' axis")
         if sp_mesh is not None and pipe_mesh is not None:
             raise ValueError("sp_mesh and pipe_mesh are mutually exclusive")
-        if sp_mesh is not None and moe_experts:
-            raise NotImplementedError(SEQUENCE_REFUSED)
         self.pipe_mesh, self.pipe_microbatches = pipe_mesh, int(pipe_microbatches)
         self.sp_mesh = sp_mesh
         # the mesh the model bound (bind_mesh); the pipeline runs while the

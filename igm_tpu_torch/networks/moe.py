@@ -44,8 +44,30 @@ one-process routing of the global batch:
   averaged over the ranks is the global aux's (as BatchNorm's statistics);
   ``load`` is the global ``f``.
 
-Expert parallelism (``mesh.mode=tensor`` on an MoE DiT) is ROADMAP Queue 1
-slice 7d's expert half: ``bind_mesh`` refuses it.
+Expert parallelism (``mesh.mode=tensor``, ``bind_mesh`` records the model
+group ``tp``): the stacked leaves' expert axis is sharded over ``model``
+where it divides E (``parallel/mesh.py`` ``_tp_spec``), so model rank r
+holds experts ``[r E/m, (r+1) E/m)`` (with their Adam moments and EMA
+shadow).  The model group's ranks hold the same tokens (Megatron's
+residual stream), so no token moves:
+
+- every rank routes every token, from the replicated router, to the same
+  expert and slot (the global routing above, on the batch group);
+- a rank fills and runs its own experts' ``E/m * cap`` slots only, and the
+  partial output (a token's row non-zero on its expert's rank alone) is
+  summed over the model group (``reduce_from_model``; under sequence
+  parallelism ``scatter_tokens``, each rank keeping its part of the
+  tokens), then multiplied by ``gate * kept``;
+- the expert path's input passes ``copy_to_model`` (its gradient, from
+  each rank's experts, summed over the group); the router and the aux
+  read the plain input, and the gate multiplies the summed output, so
+  their gradients are whole on every rank (under sequence parallelism the
+  gate's rank part is taken by ``split_tokens``, whose backward gathers
+  the parts).
+
+Where ``model`` does not divide E the experts are replicated (``_tp_spec``
+gives ``()``, as ``igm_tpu``'s): every rank computes every expert and no
+expert collective runs.
 """
 from __future__ import annotations
 
@@ -56,14 +78,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import all_gather_into, all_reduce_sum
+from ..parallel.tensor import (TensorParallel, copy_to_model, reduce_from_model,
+                               scatter_tokens, split_tokens)
 from .base import FlaxDense, lecun_normal_
-
-TENSOR_REFUSED = ("mesh.mode=tensor on a Switch-MoE DiT shards its experts over the model "
-                  "axis: expert parallelism, ROADMAP Queue 1 slice 7d's expert half, not "
-                  "ported yet")
-SEQUENCE_REFUSED = ("sequence parallelism (sp_mesh) on a Switch-MoE DiT routes its tokens "
-                    "over the model axis's split: ROADMAP Queue 1 slice 7d's expert half, "
-                    "not ported yet")
 
 
 class SwitchMoE(nn.Module):
@@ -82,18 +99,22 @@ class SwitchMoE(nn.Module):
         self.b_dn = nn.Parameter(torch.empty(experts, dim))
         # the data-axis mesh routed over (None: one process)
         self.mesh = None
+        # the model group of mesh.mode=tensor (None: none)
+        self.tp = None
 
     def bind_mesh(self, mesh, blocks: int = 1) -> None:
-        """Route over ``mesh``'s batch ranks (None: this process's tokens).
-        Refused: the tensor mode of a model axis (expert parallelism), and
-        a step that splits its batch into ``blocks > 1`` row blocks (rank
-        r's tokens are then not the r-th block of the global order)."""
-        if mesh is not None and mesh.sharded and mesh.mode == "tensor":
-            raise NotImplementedError(TENSOR_REFUSED)
+        """Route over ``mesh``'s batch ranks (None: this process's tokens);
+        on a model axis in ``tensor`` mode, record the model group (the
+        experts are sharded over it where the sharding placed their leaves
+        so: ``forward`` reads it from ``w_up``'s shape).  Refused: a
+        step that splits its batch into ``blocks > 1`` row blocks (rank r's
+        tokens are then not the r-th block of the global order)."""
         if mesh is not None and mesh.grouped and blocks != 1:
             raise ValueError(f"the Switch-MoE routes over the global batch, which a step "
                              f"of {blocks} blocks does not hand out in order")
         self.mesh = mesh if mesh is not None and mesh.grouped else None
+        self.tp = (TensorParallel.of(mesh, 1)
+                   if mesh is not None and mesh.sharded and mesh.mode == "tensor" else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         e = self.experts
@@ -106,8 +127,10 @@ class SwitchMoE(nn.Module):
     def capacity(self, n: int) -> int:
         return max(1, int(math.ceil(self.capacity_factor * n / self.experts)))
 
-    def forward(self, x: torch.Tensor) -> tuple:
-        """[B, T, d] -> ([B, T, d], aux (), load (E,))."""
+    def forward(self, x: torch.Tensor, split: bool = False) -> tuple:
+        """[B, T, d] -> ([B, T, d], aux (), load (E,)).  ``split``
+        (sequence parallelism on the model group): ``x`` holds all T
+        tokens, the output the rank's part of them (``split_tokens``')."""
         b, t, d = x.shape
         e, n = self.experts, b * t
         mesh = self.mesh
@@ -140,26 +163,20 @@ class SwitchMoE(nn.Module):
         mode = self.dispatch
         if mode == "auto":
             mode = "scatter" if n > 4 * d else "einsum"
-        if mode == "scatter":
-            slot_i = torch.where(kept > 0, idx * cap + pos_i, e * cap)
-            buf = torch.zeros(e * cap + 1, d, dtype=cdt, device=x.device)
-            buf = buf.index_copy(0, slot_i, xf.to(cdt))    # unique but the dump row
-            buf = buf[:e * cap].reshape(e, cap, d)
+        tp, el = self.tp, self.w_up.shape[0]
+        sharded = el != e          # the rank holds its share of the experts alone
+        if sharded:    # the expert path's gradient comes from the rank's experts alone
+            xf_e, first = copy_to_model(xf, tp), tp.rank * el
         else:
-            slot = (pos_i[:, None] == torch.arange(cap, device=x.device)).float()
-            dispatch = keep[:, :, None] * slot[:, None, :]             # [n, e, cap]
-            buf = torch.einsum("nec,nd->ecd", dispatch.to(cdt), xf.to(cdt))
-
-        h = torch.bmm(buf, self.w_up.to(cdt)) + self.b_up[:, None, :].to(cdt)
-        h = F.gelu(h, approximate="tanh")
-        out_e = torch.bmm(h, self.w_dn.to(cdt)) + self.b_dn[:, None, :].to(cdt)
-
-        if mode == "scatter":
-            picked = out_e.reshape(e * cap, d)[torch.clamp(slot_i, max=e * cap - 1)]
-            out = picked * (gate * kept)[:, None].to(cdt)
-        else:
-            combine = dispatch * gate[:, None, None]
-            out = torch.einsum("nec,ecd->nd", combine.to(cdt), out_e)
+            xf_e, first = xf, 0
+        part = self._experts(xf_e, idx, keep, pos_i, cap, mode, first, el).reshape(b, t, d)
+        weight = (gate * kept).reshape(b, t, 1).to(cdt)
+        if split:
+            weight = split_tokens(weight, tp)
+            part = scatter_tokens(part, tp) if sharded else split_tokens(part, tp)
+        elif sharded:
+            part = reduce_from_model(part, tp)
+        out = (part * weight).to(x.dtype)
 
         if mesh is None:
             load = onehot.mean(dim=0)
@@ -169,4 +186,31 @@ class SwitchMoE(nn.Module):
             load = all_reduce_sum(mesh, onehot_t.sum(dim=1)) / n_global
             mean_p = all_reduce_sum(mesh, probs.sum(dim=0)) / n_global
         aux = e * torch.sum(load * mean_p)
-        return out.reshape(b, t, d).to(x.dtype), aux, load
+        return out, aux, load
+
+    def _experts(self, xf, idx, keep, pos_i, cap: int, mode: str, first: int, el: int):
+        """Experts ``[first, first + el)`` (this rank's; all E in one
+        process or when they are replicated) on their ``el * cap`` slots:
+        the tokens' ``[n, d]`` ungated outputs, 0 for a token dropped or
+        routed to another rank's expert."""
+        d = xf.shape[1]
+        cdt = self.dtype or torch.float32
+        if mode == "scatter":
+            mine = (keep[:, first:first + el].sum(dim=-1) > 0)
+            slot_i = torch.where(mine, (idx - first) * cap + pos_i, el * cap)
+            buf = torch.zeros(el * cap + 1, d, dtype=cdt, device=xf.device)
+            buf = buf.index_copy(0, slot_i, xf.to(cdt))      # unique but the dump row
+            buf = buf[:el * cap].reshape(el, cap, d)
+        else:
+            slot = (pos_i[:, None] == torch.arange(cap, device=xf.device)).float()
+            dispatch = keep[:, first:first + el, None] * slot[:, None, :]   # [n, el, cap]
+            buf = torch.einsum("nec,nd->ecd", dispatch.to(cdt), xf.to(cdt))
+
+        h = torch.bmm(buf, self.w_up.to(cdt)) + self.b_up[:, None, :].to(cdt)
+        h = F.gelu(h, approximate="tanh")
+        out_e = torch.bmm(h, self.w_dn.to(cdt)) + self.b_dn[:, None, :].to(cdt)
+
+        if mode == "scatter":
+            picked = out_e.reshape(el * cap, d)[torch.clamp(slot_i, max=el * cap - 1)]
+            return torch.where(mine[:, None], picked, 0.0)
+        return torch.einsum("nec,ecd->nd", dispatch.to(cdt), out_e)

@@ -12,9 +12,12 @@ raises, and every collective has a finite timeout (``TIMEOUT_S``), so no
 rank waits for ever on a peer that died.
 
 ``IGM_MULTIHOST=1`` joins a group that ``torchrun`` launched instead
-(:func:`init_from_env`): ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
-``MASTER_ADDR`` and ``MASTER_PORT`` from the environment, one process per
-card (``cuda:LOCAL_RANK``).
+(:func:`init_from_env`), on one host or several: ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` from the environment,
+one process per card (``cuda:LOCAL_RANK``).  torchrun numbers the ranks
+node by node, the order :func:`spawn` gives them on one host, so each rank
+takes the rows it would take there (``tools/multihost_dryrun.py`` runs two
+nodes on one host).
 """
 from __future__ import annotations
 
@@ -72,7 +75,14 @@ def init_from_env(device: torch.device) -> torch.device:
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
     address = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
     if device.type == "cuda":
-        device = torch.device("cuda", int(env["LOCAL_RANK"]))
+        local, cards = int(env["LOCAL_RANK"]), torch.cuda.device_count()
+        if local >= cards:
+            raise ValueError(
+                f"LOCAL_RANK={local}, but this process sees {cards} card(s) "
+                f"(CUDA_VISIBLE_DEVICES={env.get('CUDA_VISIBLE_DEVICES', '<unset>')}): a node "
+                f"runs at most one process a visible card (torchrun --nproc-per-node); nodes "
+                f"that share a host each need their own cards in CUDA_VISIBLE_DEVICES")
+        device = torch.device("cuda", local)
         torch.cuda.set_device(device)
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=address,
                             world_size=world, rank=rank,

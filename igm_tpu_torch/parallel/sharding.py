@@ -26,10 +26,10 @@ parameters, hold shards too: ZeRO-3.
   ``fsdp``.  The optimizer then averages it over the rest of the batch
   axes (``core/optim.py``).
 - A leaf with a Megatron spec (``mesh.mode=tensor``: the DiT blocks'
-  column and row layers) keeps its ``model`` shard in the computation
-  (``parallel/tensor.py``; the blocks learn the mesh through
-  ``bind_mesh``); on the 3-D mesh its other dimension is gathered over
-  ``fsdp`` as above.
+  column and row layers, and a Switch-MoE's stacked experts) keeps its
+  ``model`` shard in the computation (``parallel/tensor.py``,
+  ``networks/moe.py``; the blocks learn the mesh through ``bind_mesh``);
+  on the 3-D mesh its other dimension is gathered over ``fsdp`` as above.
 - Replicated leaves are as in one process.
 - On a pipeline mesh (``parallel/pipeline.py``) a leaf of a pipelined DiT
   block lives on its block's stage alone (``Leaf.stage``): that stage's
@@ -132,10 +132,13 @@ def _megatron_dim(key: str) -> Optional[int]:
     """The Flax dimension a DiT block's column (``qkv``, ``Dense_0``) or
     row (``proj``, ``Dense_1``) layer splits over ``model``: a column
     kernel's output features (1) and its bias (0), a row kernel's input
-    features (0); None for any other leaf."""
+    features (0); a Switch-MoE's stacked expert leaf its expert axis (0,
+    expert parallelism); None for any other leaf."""
     names = flax_names(key)
     if not any(n.startswith("DiTBlock") for n in names) or len(names) < 2:
         return None
+    if names[-2] == "moe" and names[-1] in ("w_up", "w_dn", "b_up", "b_dn"):
+        return 0
     col, row = names[-2] in ("qkv", "Dense_0"), names[-2] in ("proj", "Dense_1")
     if names[-1] == "kernel" and (col or row):
         return 1 if col else 0

@@ -1,6 +1,6 @@
 """The port's train steps on a mesh with a model axis (FSDP, tensor
 parallelism, the composed mesh, sequence parallelism with either) and the
-Switch-MoE's global routing, in spawned ranks, recording what the
+Switch-MoE's global routing and expert parallelism, in spawned ranks, recording what the
 model-axis parity tests compare: each step's metrics, the whole state
 after the steps (gathered from the shards: parameters, buffers, optimizer
 moments, the EMA shadow), each rank's persistent state bytes, and the
@@ -48,6 +48,7 @@ DIT = ["experiment=ddpm/cifar10_dit", "model.hidden_dim=32", "model.depth=2", "m
 MOE_DIT = [*DIT, "model.moe_experts=4", "model.moe_every=2", "model.moe_capacity=0.5"]
 # 12x12 images of 4x4 patches: 9 tokens, which a model axis of 2 does not divide
 DIT_9 = [*DIT, "datamodule.width=12", "datamodule.height=12"]
+MOE_DIT_9 = [*MOE_DIT, "datamodule.width=12", "datamodule.height=12"]
 
 # name: (overrides, global batch, steps, mesh keywords: make_mesh's over
 # the four ranks, or with pairs=True two-rank meshes (mesh_of))
@@ -70,6 +71,19 @@ CASES = {
     "sequence_tensor_dit_9": (DIT_9, 8, 2, dict(data=2, model=2, mode="tensor",
                                                  sequence=True)),
     "sequence_fsdp_dit": (DIT_9, 8, 2, dict(data=2, model=2, sequence=True)),
+    # expert parallelism: (2, 2) 2 of the 4 experts a rank (einsum dispatch),
+    # (1, 4) one a rank (scatter), the composed (1, 2, 2) mesh; 2 experts on
+    # a model axis of 4 stay replicated; the MoE DiT under Megatron-SP on 9
+    # tokens (tensor: the MoE gathers them; fsdp: the block does)
+    "moe_tensor": (MOE_DIT, 8, 2, dict(data=2, model=2, mode="tensor")),
+    "moe_tensor_1x4": ([*MOE_DIT, "model.moe_dispatch=scatter"], 8, 2,
+                       dict(data=1, model=4, mode="tensor")),
+    "moe_composed": (MOE_DIT, 8, 2, dict(data=1, fsdp=2, model=2, mode="tensor")),
+    "moe_tensor_replicated": ([*MOE_DIT, "model.moe_experts=2"], 8, 2,
+                              dict(data=1, model=4, mode="tensor")),
+    "moe_sequence_tensor_9": (MOE_DIT_9, 8, 2, dict(data=2, model=2, mode="tensor",
+                                                    sequence=True)),
+    "moe_sequence_fsdp_9": (MOE_DIT_9, 8, 2, dict(data=2, model=2, sequence=True)),
 }
 
 
@@ -173,7 +187,8 @@ def run(model, batch, steps: int, mesh=None, weights=None, draws=None) -> dict:
     whole state_dict of the modules, loaded) on ``batch`` (this rank's rows
     of it on a mesh): each step's metrics and updates (the reduced
     gradients, whole), the whole state after (``full_state_dict``), this
-    rank's state bytes, the MoE inputs."""
+    rank's state bytes, parameter shapes and Switch-MoE parameters (a
+    shard's), the MoE inputs."""
     model.set_mesh(mesh)
     state = model.init_state(0)
     if weights is not None:
@@ -196,7 +211,11 @@ def run(model, batch, steps: int, mesh=None, weights=None, draws=None) -> dict:
         state, m = model.train_step_n(state, tuple(b[None] for b in local), graph=False)
         metrics.append({k: float(v) for k, v in m.items()})
     whole = state.full_state_dict()
+    shapes = {k: tuple(p.shape) for k, p in model.modules.named_parameters()}
+    experts = {k: p.detach().cpu().clone() for k, p in model.modules.named_parameters()
+               if ".moe." in k}
     return {"metrics": metrics, "updates": updates, "step": state.step, "bytes": bytes_,
+            "shapes": shapes, "experts": experts,
             "params": {k: v.detach().cpu().clone() for k, v in whole["params"].items()},
             "opt_states": {k: v for k, v in whole["opt_states"].items()},
             "sharded": sorted(leaf.key for leaf in (model.sharding.leaves
@@ -206,14 +225,16 @@ def run(model, batch, steps: int, mesh=None, weights=None, draws=None) -> dict:
             "jax": "jax" in sys.modules}
 
 
-def _resume_on_mesh(device, mesh, out: Path, ckpt: Path) -> None:
-    """A one-process checkpoint (rank 0 writes it) restored on ``mesh``,
-    and a one-process state restored from it placed there by
-    ``shard_state``: the whole states gathered back, saved."""
+def _resume_on_mesh(device, mesh, out: Path, ckpt: Path, case: str = "tensor_dit",
+                    suffix: str = "") -> None:
+    """A one-process checkpoint of ``case``'s model (rank 0 writes it)
+    restored on ``mesh``, and a one-process state restored from it placed
+    there by ``shard_state``: the whole states gathered back, saved (their
+    names ending in ``suffix``)."""
     from igm_tpu_torch.core.checkpoint import CheckpointManager
     from igm_tpu_torch.parallel import shard_state
     from igm_tpu_torch.parallel.mesh import barrier
-    overrides, n, _, _ = CASES["tensor_dit"]
+    overrides, n, _, _ = CASES[case]
     batch = dp.make_batch(dp.build(overrides), n, 7)
     manager = CheckpointManager(str(ckpt))
     if torch.distributed.get_rank() == 0:
@@ -232,8 +253,9 @@ def _resume_on_mesh(device, mesh, out: Path, ckpt: Path) -> None:
     for name, state in (("resume_on_mesh", restored), ("shard_state", placed)):
         whole = state.full_state_dict()
         torch.save({"params": {k: v.cpu() for k, v in whole["params"].items()},
-                    "opt_states": whole["opt_states"], "step": state.step},
-                   out / f"{name}.rank{torch.distributed.get_rank()}.pt")
+                    "opt_states": whole["opt_states"], "step": state.step,
+                    "shapes": {k: tuple(p.shape) for k, p in model.modules.named_parameters()}},
+                   out / f"{name}{suffix}.rank{torch.distributed.get_rank()}.pt")
 
 
 def rank_main(device, jobs, samples, fits, out_dir: str, later: str) -> None:
@@ -241,7 +263,9 @@ def rank_main(device, jobs, samples, fits, out_dir: str, later: str) -> None:
     keywords, weights, draws)`` run on its mesh, the record saved as
     ``<out_dir>/<name>.rank<r>.pt``; each sample job ``(name, overrides, n,
     sampler, mesh keywords)`` through ``sample_sharded`` from generator
-    seed 0; a one-process checkpoint restored on the (2, 2) tensor mesh;
+    seed 0 (on a model axis from the state ``init_state(0)`` shards); a
+    one-process checkpoint restored on the (2, 2) tensor mesh, of the DiT
+    and of the MoE DiT (its experts sharded);
     each of ``fits`` (CLI overrides) through the training CLI's rank entry;
     then the jobs the parent writes to the file ``later`` meanwhile."""
     from igm_tpu_torch import cli
@@ -262,12 +286,16 @@ def rank_main(device, jobs, samples, fits, out_dir: str, later: str) -> None:
     for name, overrides, n, sampler, mesh_kw in samples:
         mesh = mesh_of(device, **mesh_kw)
         model = dp.build(overrides, device)
+        if mesh.sharded:      # the state born sharded (the same seed-0 draw)
+            model.set_mesh(mesh)
+            model.init_state(0)
         gen = torch.Generator(device=device).manual_seed(0)
         imgs = sample_sharded(model, mesh, None, gen, n, sampler=sampler)
         torch.save({"imgs": imgs.cpu(), "jax": "jax" in sys.modules},
                    out / f"{name}.rank{rank}.pt")
-    _resume_on_mesh(device, make_mesh(devices=device, data=2, model=2, mode="tensor"), out,
-                    out / "one_process_ckpt")
+    tensor = make_mesh(devices=device, data=2, model=2, mode="tensor")
+    _resume_on_mesh(device, tensor, out, out / "one_process_ckpt")
+    _resume_on_mesh(device, tensor, out, out / "one_process_moe_ckpt", "moe_tensor", "_moe")
     for overrides in fits:
         cli._rank_run(device, overrides)
     deadline = time.monotonic() + TIMEOUT_S

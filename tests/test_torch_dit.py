@@ -8,6 +8,7 @@ The train steps replay igm_tpu's key schedule as
 tests/test_torch_train_step.py does and hold the loss, every gradient and
 the parameters after one Adam step at that file's tolerances.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -128,9 +129,10 @@ def test_dit_refuses_parallel_meshes():
     """igm_tpu's errors for the pipeline and sequence meshes: a pipe_mesh
     without a 'stage' axis, both meshes at once, the MoE with the stacked
     layout, an sp_mesh without a 'model' axis (at the forward, where
-    igm_tpu's apply raises it); the MoE DiT on a sequence mesh is slice
-    7d's expert half; enable_sequence_parallel and enable_pipeline need
-    network=dit."""
+    igm_tpu's apply raises it); enable_sequence_parallel and
+    enable_pipeline need network=dit.  The MoE DiT on a sequence mesh is
+    built, as igm_tpu's is: bound to the mesh, it splits its tokens over
+    the model group, and in tensor mode its MoE blocks hold the group."""
     cpu = torch.device("cpu")
     data = Mesh(1, 0, cpu)
     stage = Mesh(1, 0, cpu, axes=(("data", 1), ("stage", 2)), coords=(("data", 0), ("stage", 0)),
@@ -142,8 +144,14 @@ def test_dit_refuses_parallel_meshes():
         DiT(channels=3, block_mode="scan", pipe_mesh=stage, sp_mesh=model, **SMALL)
     with pytest.raises(ValueError, match="unrolled block layout"):
         DiT(channels=3, block_mode="scan", moe_experts=2, **SMALL)
-    with pytest.raises(NotImplementedError, match="slice 7d's expert half"):
-        DiT(channels=3, sp_mesh=model, moe_experts=2, **SMALL)
+    moe = DiT(channels=3, sp_mesh=model, moe_experts=2, **SMALL)
+    tensor = dataclasses.replace(model, mode="tensor")
+    for module in moe.modules():
+        if hasattr(module, "bind_mesh"):
+            module.bind_mesh(tensor)
+    assert moe.sp_mesh is model and moe._sequence().size == 2
+    blocks = [b for b in moe.blocks if hasattr(b, "moe")]
+    assert blocks and all(b.tp.size == 2 and b.moe.tp.size == 2 for b in blocks)
     net = DiT(channels=3, sp_mesh=data, **SMALL)
     with pytest.raises(ValueError, match="sp_mesh needs a 'model' axis"):
         net(torch.zeros(2, 8, 8, 3), torch.zeros(2))

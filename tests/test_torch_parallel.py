@@ -8,8 +8,9 @@ group, a multirun refused), the model axes' configuration (a model or
 fsdp axis builds, or raises igm_tpu's ValueError where the ranks do not
 make it), the pipeline and sequence keys (slice 7c: igm_tpu's errors
 where one process cannot make the mesh, or the model has no hook), and
-the refusal of what the port has not reached: expert parallelism, tensor
-mode on a Switch-MoE (slice 7d's expert half).
+the Switch-MoE's binding: global routing on the data axis, its model
+group in tensor mode (expert parallelism), a step of several row blocks
+refused.
 """
 import sys
 from pathlib import Path
@@ -165,9 +166,10 @@ def test_world_one_group_step_equals_the_ungrouped_step(group):
 
 def test_moe_refuses_more_than_one_rank():
     """The Switch-MoE routes over a many-rank data axis (global routing,
-    tests/test_torch_parallel_model.py); what it refuses is expert
-    parallelism: mesh.mode=tensor on an MoE DiT (slice 7d's expert half),
-    and a step that hands its rows out in several blocks."""
+    tests/test_torch_parallel_model.py) and, in mesh.mode=tensor on an MoE
+    DiT, records its model group, over which its experts are sharded
+    (expert parallelism); what it refuses is a step that hands its rows
+    out in several blocks."""
     moe = SwitchMoE(8, 16, 2)
     moe.bind_mesh(None)
     assert moe.mesh is None
@@ -181,8 +183,12 @@ def test_moe_refuses_more_than_one_rank():
                       "datamodule.height=8", "model.moe_experts=2"])
     tensor = Mesh(1, 0, CPU, "gloo", object(), axes=(("data", 1), ("model", 2)),
                   coords=(("data", 0), ("model", 0)), mode="tensor")
-    with pytest.raises(NotImplementedError, match="slice 7d's expert half"):
-        model.set_mesh(tensor)
+    model.set_mesh(tensor)
+    block = model.modules["denoise"].DiTBlock_1
+    assert block.tp.size == 2 and block.moe.tp.size == 2 and block.moe.tp.rank == 0
+    assert block.moe.mesh is tensor
+    model.set_mesh(None)
+    assert block.tp is None and block.moe.tp is None and block.moe.mesh is None
 
 
 @pytest.mark.parametrize("mesh,slice_", [({"model": 2}, "7b"), ({"fsdp": 2}, "7b"),

@@ -24,12 +24,18 @@ every update's reduced gradients whole, two-rank meshes two at once
   not divide; with FSDP at (2, 2) on 9 tokens;
 - the Switch-MoE DiT on 2 and on 4 data ranks, dropping tokens, and its
   ``sample_sharded``;
+- expert parallelism (tensor mode on the MoE DiT): (2, 2) with 2 of the 4
+  experts a rank, (1, 4) with one a rank (scatter dispatch), the composed
+  (1, 2, 2) mesh, 2 experts replicated on a model axis of 4, and the MoE
+  DiT under sequence parallelism on 9 tokens, in tensor and fsdp mode;
 - a one-process checkpoint restored on the (2, 2) tensor mesh;
 - the training CLI on 4 ranks, ``+trainer.mesh.model=2
   +trainer.mesh.mode=tensor``, which saves;
 - then, from igm_tpu-layout weights with igm_tpu's draws, the (2, 2)
-  tensor DiT, the MoE DiT on 2 data ranks and the three sequence-parallel
-  meshes, against ``jax.jit(train_step)`` compiled here meanwhile.
+  tensor DiT, the MoE DiT on 2 data ranks, the three sequence-parallel
+  meshes and the expert-parallel (2, 2) MoE DiT, also under sequence
+  parallelism on 9 tokens, against ``jax.jit(train_step)`` compiled here
+  meanwhile.
 """
 import sys
 import threading
@@ -79,6 +85,11 @@ FIT = [*mp.DIT, "datamodule.batch_size=8", "trainer.limit_train_batches=2",
        "logger=null", "callbacks=null", "print_config=False"]
 FIT_LR = 1e-4
 SEQUENCE = [case for case in mp.CASES if case.startswith("sequence_")]
+# expert parallelism held against igm_tpu's step: the (2, 2) MoE DiT on
+# moe_igm's weights, draws and igm_tpu result, and under sequence
+# parallelism on 9 tokens
+EXPERT_IGM = {"moe_tensor_igm": ("moe_igm", mp.CASES["moe_tensor"][3]),
+              "moe_sequence_tensor_9_igm": (None, mp.CASES["moe_sequence_tensor_9"][3])}
 
 
 def _igm_job(name: str, overrides, mesh_kw, seed: int):
@@ -111,7 +122,9 @@ def ranks(tmp_path_factory):
     jobs = {name: (name, overrides, dp.make_batch(dp.build(overrides), n, 3), steps, kw,
                    mp.perturbed(dp.build(overrides)), None)
             for name, (overrides, n, steps, kw) in mp.CASES.items()}
-    samples = [("sample_moe", mp.MOE_DIT, SAMPLE_N, "ddim_sample", dict(data=2, pairs=True))]
+    samples = [("sample_moe", mp.MOE_DIT, SAMPLE_N, "ddim_sample", dict(data=2, pairs=True)),
+               ("sample_moe_tensor", mp.MOE_DIT, SAMPLE_N, "ddim_sample",
+                dict(data=2, model=2, mode="tensor"))]
     run = out / "fit"
     fits = [[*FIT, f"datamodule.data_dir={out / 'data'}", "trainer.devices=4",
              "+trainer.mesh.model=2", "+trainer.mesh.mode=tensor", "trainer.max_epochs=1",
@@ -134,10 +147,15 @@ def ranks(tmp_path_factory):
                 ("tensor_dit_igm", mp.DIT, dict(data=2, model=2, mode="tensor"), 1),
                 ("moe_igm", mp.MOE_DIT, dict(data=2, pairs=True), 2),
                 *((f"{case}_igm", mp.CASES[case][0], mp.CASES[case][3], 3)
-                  for case in SEQUENCE)):
+                  for case in SEQUENCE + ["moe_sequence_tensor_9"])):
             job, want = _igm_job(name, overrides, kw, seed)
             igm_jobs.append(job)
             igm[name] = want
+        for name, (like, kw) in EXPERT_IGM.items():
+            if like is not None:     # another mesh on the same igm_tpu step
+                job = next(j for j in igm_jobs if j[0] == like)
+                igm_jobs.append((name, *job[1:4], kw, *job[5:]))
+                igm[name] = igm[like]
     finally:                  # the ranks wait for the file: written even on a failure
         torch.save(igm_jobs, out / "igm_jobs.tmp")
         (out / "igm_jobs.tmp").replace(later)
@@ -148,7 +166,7 @@ def ranks(tmp_path_factory):
     records = {name: [torch.load(out / f"{name}.rank{r}.pt", weights_only=False)
                       for r in range(WORLD)]
                for name in [*jobs, *(s[0] for s in samples), "resume_on_mesh",
-                            "shard_state"]}
+                            "shard_state", "resume_on_mesh_moe", "shard_state_moe"]}
     return records, jobs, igm, run
 
 
@@ -240,6 +258,38 @@ def test_fsdp_state_bytes_are_the_shards(ranks):
     assert want <= one / 2 + 4 * replicated and sum(half.values()) >= 10
 
 
+@pytest.mark.parametrize("case", [c for c in mp.CASES if c.startswith("moe_")
+                                  and mp.CASES[c][3].get("mode") == "tensor"])
+def test_expert_parallel_shards_the_experts(ranks, case):
+    """tests/test_moe.py's test_expert_parallel_sharding_and_equality: in
+    tensor mode the stacked expert leaves' expert axis is over ``model``
+    (the router whole); each rank holds E/m experts (all E where ``model``
+    does not divide them), and keeps fewer state bytes than one process;
+    the model group's ranks hold different experts."""
+    records, jobs, _, _ = ranks
+    recs = records[case]
+    _, overrides, _, _, kw, _, _ = jobs[case]
+    model = dp.build(overrides)
+    whole = {k: tuple(p.shape) for k, p in model.modules.named_parameters()}
+    axes = [("data", kw.get("data", 1))] + ([("fsdp", kw["fsdp"])] if "fsdp" in kw else [])
+    mesh = Mesh(1, 0, CPU, axes=(*axes, ("model", kw["model"])), mode="tensor")
+    specs = {leaf.key: leaf.spec for leaf in module_leaves(model.modules, mesh)}
+    e, m = model.hparams.moe_experts, kw["model"]
+    experts = [k for k in whole if k.split(".")[-1] in ("w_up", "w_dn", "b_up", "b_dn")]
+    routers = [k for k in whole if k.endswith("moe.router.weight")]
+    assert experts and routers
+    for k in routers:
+        assert specs[k] == () and all(r["shapes"][k] == whole[k] for r in recs), k
+    held = e // m if e % m == 0 else e
+    for k in experts:
+        assert specs[k] == (("model",) + (None,) * (len(whole[k]) - 1) if e % m == 0 else ())
+        for rank, r in enumerate(recs):        # model is the innermost axis
+            assert r["shapes"][k] == (held, *whole[k][1:]), (k, r["shapes"][k])
+            first = (rank % m) * held if e % m == 0 else 0
+            assert torch.equal(r["experts"][k], r["params"][k][first:first + held]), k
+    assert all(r["bytes"] < mp.state_bytes(dp.build(overrides).init_state(0)) for r in recs)
+
+
 def _routing(x: torch.Tensor, weight: torch.Tensor, cap: int, world: int):
     """The one-process Switch routing of ``x``'s tokens: (expert, position
     among the tokens routed to it, top-1 logit margin) per token, and each
@@ -278,28 +328,38 @@ def test_moe_global_routing_drops_across_ranks(ranks, case, world):
     np.testing.assert_allclose(torch.cat(parts).numpy(), x.numpy(), rtol=1e-5, atol=1e-6)
 
 
-def test_moe_sample_sharded_matches_one_process(ranks):
+@pytest.mark.parametrize("name", ["sample_moe", "sample_moe_tensor"])
+def test_moe_sample_sharded_matches_one_process(ranks, name):
     """DDIM over 8 images from generator seed 0 on the MoE DiT, two data
-    ranks through sample_sharded (routing over both ranks' tokens): one
+    ranks through sample_sharded (routing over both ranks' tokens; on the
+    (2, 2) tensor mesh each rank gathers the whole experts first): one
     process's images on all 8, within SAMPLE_ATOL."""
     records, _, _, _ = ranks
-    recs = records["sample_moe"]
+    recs = records[name]
     assert not any(r["jax"] for r in recs)
-    assert torch.equal(recs[0]["imgs"], recs[1]["imgs"])
+    assert all(torch.equal(r["imgs"], recs[0]["imgs"]) for r in recs)
     whole = dp.build(mp.MOE_DIT).ddim_sample(SAMPLE_N,
                                              generator=torch.Generator().manual_seed(0))
     np.testing.assert_allclose(recs[0]["imgs"].numpy(), whole.numpy(), atol=SAMPLE_ATOL,
                                rtol=0)
 
 
-@pytest.mark.parametrize("how", ["resume_on_mesh", "shard_state"])
+@pytest.mark.parametrize("how", ["resume_on_mesh", "shard_state", "resume_on_mesh_moe",
+                                 "shard_state_moe"])
 def test_one_process_checkpoint_resumes_on_a_mesh(ranks, how):
     """A one-process checkpoint restored on the (2, 2) tensor mesh, and a
-    one-process state placed there by ``shard_state``: the whole state
-    every rank gathers back is the checkpoint's, bit for bit."""
+    one-process state placed there by ``shard_state``, of the DiT and of
+    the MoE DiT (each rank then holds 2 of the 4 experts a block): the
+    whole state every rank gathers back is the checkpoint's, bit for bit."""
     from igm_tpu_torch.core.checkpoint import CheckpointManager
     records, _, _, run = ranks
-    saved = CheckpointManager(str(run.parent / "one_process_ckpt")).restore_raw()
+    moe = how.endswith("_moe")
+    saved = CheckpointManager(str(run.parent / ("one_process_moe_ckpt" if moe
+                                                else "one_process_ckpt"))).restore_raw()
+    if moe:
+        for rec in records[how]:
+            assert [s for k, s in rec["shapes"].items() if k.endswith("moe.w_up")] == \
+                [(2, 32, 128)]
     for rec in records[how]:
         assert rec["step"] == saved["step"] == 1
         for k, v in saved["params"].items():
@@ -339,11 +399,13 @@ def test_cli_tensor_fit_resumes_in_one_process(ranks, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["tensor_dit_igm", "moe_igm",
-                                  *(f"{case}_igm" for case in SEQUENCE)])
+                                  *(f"{case}_igm" for case in SEQUENCE), *EXPERT_IGM])
 def test_mesh_matches_igm_tpu(ranks, case):
-    """The (2, 2) tensor DiT, the MoE DiT on two data ranks and the
+    """The (2, 2) tensor DiT, the MoE DiT on two data ranks, the
     sequence-parallel meshes (tests/test_parallel.py's
-    test_sequence_parallel_matches_and_scatters holds igm_tpu's own), from
+    test_sequence_parallel_matches_and_scatters holds igm_tpu's own) and
+    expert parallelism (tests/test_moe.py's
+    test_expert_parallel_sharding_and_equality), from
     igm_tpu's weights and draws: igm_tpu's one-device step on the global
     batch, the loss and the parameters after Adam where the gradient's
     sign is certain (tests/_torch_parity.py's tolerances), every
