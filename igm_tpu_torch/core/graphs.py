@@ -21,9 +21,15 @@ from the host.  :class:`StepGraph` captures a step into one
   current seed and offset and advances the offset as the eager draws would,
   so replayed draws continue the generator's stream exactly;
 - the kernel wrappers count launches in Python (``ops/*.py``
-  ``launches``), which runs once at capture and not at a replay: the
-  capture's count is taken back, and added again at every replay, so the
-  counters go on meaning kernels launched;
+  ``launches``), and the tracing registry counts device work such as
+  collective calls and bytes (``core/trace.py``, ``count(..., work=True)``),
+  which runs once at capture and not at a replay: the counts the capture
+  moved are taken back, and added again at every replay, so the counters
+  go on meaning work done;
+- spans (``core/trace.py``): ``graphs.capture`` the warm-up and the capture
+  (counted in ``graphs.captures``), ``graphs.replay`` a replay with its
+  copies in and out, ``graphs.launch`` the launch alone, which returns
+  when the device's queue has room (back-pressure shows there);
 - the cycle collector does not run during a capture: a graph destroyed
   while another is being captured invalidates that capture.
 
@@ -42,6 +48,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
+from . import trace
+
 
 def launch_counters() -> tuple:
     """Every kernel wrapper that counts its launches."""
@@ -53,6 +61,21 @@ def launch_counters() -> tuple:
     return (group_norm_mish, group_norm_mish_bwd, linear_attention_flat,
             linear_attention_flat_bwd, nearest_codebook, da.dropout_attention_fwd,
             da.dropout_attention_dq, da.dropout_attention_dkv, fused_block_fwd)
+
+
+def work_counts() -> Dict[Any, float]:
+    """Every count of device work: each kernel wrapper's launches, and the
+    registry's work counters by name."""
+    counts: Dict[Any, float] = {c: c.launches for c in launch_counters()}
+    counts.update(trace.work_counts())
+    return counts
+
+
+def _add_work(key: Any, n: float) -> None:
+    if isinstance(key, str):
+        trace.count(key, n, work=True)
+    else:
+        key.launches += n
 
 
 def _map(fn: Callable, out: Any) -> Any:
@@ -89,6 +112,11 @@ class StepGraph:
     def _warm_up_and_capture(self, inputs) -> Any:
         if not all(t.is_cuda for t in inputs):
             raise ValueError("StepGraph takes CUDA tensors")
+        trace.count("graphs.captures")
+        with trace.span("graphs.capture"):
+            return self._capture(inputs)
+
+    def _capture(self, inputs) -> Any:
         current = torch.cuda.current_stream()
         self.inputs = tuple(t.clone() for t in inputs)
         side = torch.cuda.Stream()
@@ -98,8 +126,7 @@ class StepGraph:
         current.wait_stream(side)
         _map(lambda t: t.record_stream(current), result)
 
-        counters = launch_counters()
-        before = [c.launches for c in counters]
+        before = work_counts()
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
@@ -115,20 +142,25 @@ class StepGraph:
         finally:
             if collecting:
                 gc.enable()
-            # nothing ran at capture: its launches are counted at each replay
-            for c, n in zip(counters, before):
-                self.deltas[c] = c.launches - n
-                c.launches = n
+            # nothing ran at capture: the work it counted is counted at each
+            # replay, and only the counts it moved are walked there
+            for key, n in work_counts().items():
+                moved = n - before.get(key, 0)
+                if moved:
+                    self.deltas[key] = moved
+                    _add_work(key, -moved)
         self.graph = graph
         return result
 
     def _replay(self, inputs) -> Any:
         if len(inputs) != len(self.inputs):
             raise ValueError(f"StepGraph captured {len(self.inputs)} inputs, got {len(inputs)}")
-        for static, t in zip(self.inputs, inputs):
-            if t is not static:
-                static.copy_(t)
-        self.graph.replay()
-        for c, n in self.deltas.items():
-            c.launches += n
-        return _map(torch.clone, self.outputs)
+        with trace.span("graphs.replay"):
+            for static, t in zip(self.inputs, inputs):
+                if t is not static:
+                    static.copy_(t)
+            with trace.span("graphs.launch"):
+                self.graph.replay()
+            for key, n in self.deltas.items():
+                _add_work(key, n)
+            return _map(torch.clone, self.outputs)

@@ -24,10 +24,19 @@
 - ``profile=True``: a ``torch.profiler`` trace (the CPU, and CUDA activity
   on the card) over the epochs, the span ``igm_tpu`` traces with
   ``jax.profiler``, written as a Chrome trace into the logger's
-  ``save_dir`` (``profile/`` without one);
+  ``save_dir`` (``profile/`` without one), with the tracing registry's
+  spans of every thread beside it (``core/trace.py`` ``on_timeline``);
+- spans (``core/trace.py``): ``trainer.metrics`` the metrics' copy out,
+  ``trainer.epoch_sync`` the epoch's last wait for the card,
+  ``trainer.validation`` and ``trainer.checkpoint``; the prefetcher's
+  (``data/loader.py``), the step's (``models/base.py``) and the graphs'
+  (``core/graphs.py``) run inside the loop.  Per epoch, rank 0 logs each
+  span's mean over the epoch as ``trace/<span>_ms`` and each counter's
+  change as ``trace/<counter>`` (a device counter's entries as
+  ``trace/<counter>/<i>``);
 - per epoch: ``perf/imgs_per_sec``, ``perf/epoch_time_sec`` and, on a CUDA
-  card, ``perf/achieved_tflops`` and ``perf/mfu`` against the H100 SXM
-  dense bf16 peak (989 TFLOP/s).  The FLOPs of a step come from
+  card, ``perf/mfu`` against the H100 SXM dense bf16 peak (989
+  TFLOP/s).  The FLOPs of a step come from
   ``torch.utils.flop_counter.FlopCounterMode`` around the first chunk, run
   eagerly: it counts the aten operations (convolutions, matrix products),
   not the port's own CUDA kernels, which it cannot see;
@@ -58,8 +67,8 @@ statistics and gradients over the ranks).  ``auto``'s K is timed by every
 rank on the same steps and rank 0's is broadcast, so every rank captures
 the same graphs and issues the same collectives.  Rank 0 alone writes the
 checkpoints (a barrier after each save), the logs and ``perf/*``
-(``perf/imgs_per_sec`` counts the global batch; ``achieved_tflops`` and
-``mfu`` are one card's), and runs validation, the epoch hooks and the
+(``perf/imgs_per_sec`` counts the global batch; ``mfu`` is one card's),
+and runs validation, the epoch hooks and the
 callbacks over the whole validation batch as one process does, while the
 others wait at a barrier; every rank builds the same seeded state and
 reads a resume.  On a model axis every rank gathers the whole state for a
@@ -88,6 +97,7 @@ import torch
 
 from ..data.loader import DevicePrefetcher, chunk_batches, epoch_batches, global_batch
 from ..parallel.mesh import barrier, make_mesh
+from . import trace
 from .logging import MetricAccumulator, NoOpLogger, TensorBoardLogger
 
 log = logging.getLogger(__name__)
@@ -134,6 +144,25 @@ def step_flop_counter():
     counter = FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flops})
     counter.mod_tracker = _NoModules()
     return counter
+
+
+def trace_scalars(before: dict, after: dict) -> Dict[str, float]:
+    """The ``trace/*`` scalars of the time between two ``trace.snapshot()``
+    readings: each span's mean in ms, each counter's change."""
+    out = {}
+    for name, s in after["spans"].items():
+        b = before["spans"].get(name, {"count": 0, "total_s": 0.0})
+        n = s["count"] - b["count"]
+        if n:
+            out[f"trace/{name}_ms"] = 1e3 * (s["total_s"] - b["total_s"]) / n
+    for name, v in after["counters"].items():
+        was = before["counters"].get(name)
+        if isinstance(v, list):
+            for i, x in enumerate(v):
+                out[f"trace/{name}/{i}"] = x - (was[i] if was else 0.0)
+        else:
+            out[f"trace/{name}"] = v - (was or 0)
+    return out
 
 
 def _np(x):
@@ -301,6 +330,7 @@ class Trainer:
         for epoch in range(start_epoch, self.max_epochs):
             self.current_epoch = epoch
             acc.reset()
+            traced = trace.snapshot() if self.rank0 else None
             epoch_t0 = time.perf_counter()
             n_batches = 0
             pending = None               # (step, device metrics), read one execution late
@@ -328,7 +358,8 @@ class Trainer:
             if pending is not None:
                 self._log_metrics(acc, *pending)
             if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                with trace.span("trainer.epoch_sync"):
+                    torch.cuda.synchronize(device)
             self.state = state
             epoch_time = time.perf_counter() - epoch_t0
             imgs_per_sec = n_batches * global_bs / max(epoch_time, 1e-9)
@@ -336,10 +367,11 @@ class Trainer:
             self.logger.log_scalar("perf/epoch_time_sec", epoch_time, self.global_step)
             if device.type == "cuda" and self.step_flops:
                 achieved = self.step_flops * n_batches / max(epoch_time, 1e-9)
-                self.logger.log_scalar("perf/achieved_tflops", achieved / 1e12,
-                                       self.global_step)
                 self.logger.log_scalar("perf/mfu", achieved / H100_BF16_DENSE_FLOPS,
                                        self.global_step)
+            if traced is not None:
+                self.logger.log_scalars(trace_scalars(traced, trace.snapshot()),
+                                        self.global_step)
             self.callback_metrics.update(acc.compute())
             log.info("epoch %d done in %.1fs (%.0f imgs/s) %s", epoch, epoch_time,
                      imgs_per_sec, {k: round(v, 4) for k, v in acc.compute().items()})
@@ -349,7 +381,8 @@ class Trainer:
                     with model.sharded(None):
                         if ((epoch + 1) % self.check_val_every_n_epoch == 0
                                 or epoch == self.max_epochs - 1):
-                            self._run_validation(val_arrays, batch_size, epoch)
+                            with trace.span("trainer.validation"):
+                                self._run_validation(val_arrays, batch_size, epoch)
                         model.on_train_epoch_end(self)
                         for cb in self.callbacks:
                             if hasattr(cb, "on_train_epoch_end"):
@@ -397,10 +430,11 @@ class Trainer:
     def _save(self, state) -> None:
         """Rank 0 writes the whole state (on a model axis gathered by every
         rank first), the others waiting for it."""
-        whole = state.full_state_dict()
-        if self.rank0:
-            self.ckpt_manager.save(state.step, whole)
-        barrier(self.mesh)
+        with trace.span("trainer.checkpoint"):
+            whole = state.full_state_dict()
+            if self.rank0:
+                self.ckpt_manager.save(state.step, whole)
+            barrier(self.mesh)
 
     # --------------------------------------------------- steps per execution
     @staticmethod
@@ -461,7 +495,8 @@ class Trainer:
             torch.cuda.synchronize(device)
 
     def _log_metrics(self, acc: MetricAccumulator, step: int, metrics) -> None:
-        host = {k: float(v) for k, v in metrics.items()}
+        with trace.span("trainer.metrics"):
+            host = {k: float(v) for k, v in metrics.items()}
         acc.update(host)
         self.logger.log_scalars(host, step)
 
@@ -488,7 +523,7 @@ class Trainer:
         save_dir = getattr(self.logger, "save_dir", "") or "profile"
         os.makedirs(save_dir, exist_ok=True)
         self.profile_path = os.path.join(save_dir, f"trace_step{self.global_step}.json")
-        profiler.export_chrome_trace(self.profile_path)
+        trace.export_chrome_trace(profiler, self.profile_path)
         log.info("profile trace written to %s", self.profile_path)
 
     # ------------------------------------------------------------- validation

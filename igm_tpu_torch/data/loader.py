@@ -13,6 +13,12 @@ of each global batch (``epoch_batches(..., rows=)``).
 
 A prefetch worker's exception is re-raised in the training loop: a dying
 worker fails the epoch, it never shortens it.
+
+Spans (``core/trace.py``): ``loader.gather`` on the worker, the host
+iterator's next batch (``epoch_batches``' native gather, ``chunk_batches``'
+stack); ``loader.stage`` on the worker, the tensors, the pin and the
+enqueued copy; ``loader.wait`` on the consumer, its wait for the next
+batch.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any, Iterable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import trace
 from . import native
 
 
@@ -124,8 +131,14 @@ class DevicePrefetcher:
 
     def _worker(self, it) -> None:
         try:
-            for batch in it:
-                self._q.put(self._stage(batch))
+            while True:
+                with trace.span("loader.gather"):
+                    batch = next(it, self._SENTINEL)
+                if batch is self._SENTINEL:
+                    break
+                with trace.span("loader.stage"):
+                    item = self._stage(batch)
+                self._q.put(item)
         except BaseException as exc:  # re-raised in __next__: never truncate an epoch
             self._exc = exc
         finally:
@@ -135,7 +148,8 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with trace.span("loader.wait"):
+            item = self._q.get()
         if item is self._SENTINEL:
             self._thread.join()
             if self._exc is not None:

@@ -87,6 +87,7 @@ import torch
 from torch import nn
 
 from ..config.node import ConfigNode
+from ..core import trace
 from ..core.graphs import StepGraph
 from ..core.optim import OptimizerSet
 from ..core.state import TrainState
@@ -371,10 +372,17 @@ class BaseModel:
 
     def train_step_n(self, state: TrainState, batches, graph: bool = True):
         """K train steps on ``batches``, a tuple of ``[k, B, ...]`` tensors
-        on the model's device -> (state, the nan-mean of their metrics)."""
+        on the model's device -> (state, the nan-mean of their metrics).
+        Timed as the span ``train.step_n``, its steps counted in
+        ``train.steps`` (``core/trace.py``)."""
         k = len(batches[0])
-        if not self._graphed(graph):
-            return self._steps(state, batches)
+        trace.count("train.steps", k)
+        with trace.span("train.step_n"):
+            if not self._graphed(graph):
+                return self._steps(state, batches)
+            return self._step_graph(state, batches, k)
+
+    def _step_graph(self, state: TrainState, batches, k: int):
         phase = state.step % self.phase_period
         key = ("train_step_n", k, phase, tuple((tuple(b.shape), b.dtype) for b in batches))
         chunk = state.graphs.get(key)

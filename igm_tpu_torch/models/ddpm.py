@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import trace
 from ..core.optim import OptimizerSet, adam
 from ..core.state import TrainState
 from ..networks.dit import DiT
@@ -473,7 +474,10 @@ class DDPM(BaseModel):
         ``hparams.dpm_schedule`` when None).  The last step goes to a virtual
         t = -1 at lambda + 30 (alpha 1, sigma 0); the first and the last step
         are first order.  The implied x0 is clipped by ``_clip_x0`` every
-        step.  ``x_T`` replaces the initial draw."""
+        step.  ``x_T`` replaces the initial draw.  Spans (``core/trace.py``):
+        ``sampler.step`` a step, ``sampler.network`` its network call; the
+        step's self time is the host's update, with any wait for room in
+        the device's queue."""
         shape = self._sample_shape(n)
         x = self._noise(shape, generator) if x_T is None else x_T
         if schedule is None:
@@ -490,24 +494,26 @@ class DDPM(BaseModel):
 
         x0_prev, h_prev = None, np.float32(0.0)
         for t, tn in zip(seq[::-1].tolist(), t_next[::-1].tolist()):
-            a_cur = acp[t]
-            sigma_cur, lam_cur = np.sqrt(one - a_cur), lam(a_cur)
-            final = tn < 0
-            if final:                   # h = 30: expm1(-h) == -1 in float32
-                alpha_n, sigma_n, lam_n = one, np.float32(0.0), lam_cur + np.float32(30.0)
-            else:
-                a_next = acp[tn]
-                alpha_n, sigma_n, lam_n = np.sqrt(a_next), np.sqrt(one - a_next), lam(a_next)
-            tb = torch.full((n,), t, dtype=torch.long, device=self.device)
-            eps = self._eps(x, tb.float(), y, guidance)
-            x0 = self._clip_x0(gd.predict_start_from_noise(self.tables, x, tb, eps))
-            h = lam_n - lam_cur
-            d = x0
-            if h_prev != 0 and not final:           # second order
-                r = h_prev / (h if h != 0 else one)
-                d = x0 + (x0 - x0_prev) / float(max(np.float32(2.0) * r, np.float32(1e-12)))
-            x = float(sigma_n / sigma_cur) * x - float(alpha_n * np.expm1(-h)) * d
-            x0_prev, h_prev = x0, h
+            with trace.span("sampler.step"):
+                a_cur = acp[t]
+                sigma_cur, lam_cur = np.sqrt(one - a_cur), lam(a_cur)
+                final = tn < 0
+                if final:                   # h = 30: expm1(-h) == -1 in float32
+                    alpha_n, sigma_n, lam_n = one, np.float32(0.0), lam_cur + np.float32(30.0)
+                else:
+                    a_next = acp[tn]
+                    alpha_n, sigma_n, lam_n = np.sqrt(a_next), np.sqrt(one - a_next), lam(a_next)
+                tb = torch.full((n,), t, dtype=torch.long, device=self.device)
+                with trace.span("sampler.network"):
+                    eps = self._eps(x, tb.float(), y, guidance)
+                x0 = self._clip_x0(gd.predict_start_from_noise(self.tables, x, tb, eps))
+                h = lam_n - lam_cur
+                d = x0
+                if h_prev != 0 and not final:           # second order
+                    r = h_prev / (h if h != 0 else one)
+                    d = x0 + (x0 - x0_prev) / float(max(np.float32(2.0) * r, np.float32(1e-12)))
+                x = float(sigma_n / sigma_cur) * x - float(alpha_n * np.expm1(-h)) * d
+                x0_prev, h_prev = x0, h
         return x
 
     @torch.no_grad()

@@ -68,6 +68,11 @@ residual stream), so no token moves:
 Where ``model`` does not divide E the experts are replicated (``_tp_spec``
 gives ``()``, as ``igm_tpu``'s): every rank computes every expert and no
 expert collective runs.
+
+Every forward adds to the tracing registry's device counter ``moe.tokens``
+(``core/trace.py``) this rank's routed tokens, its kept tokens and the
+expert slots computed for them (E times the capacity), inside the step's
+graph when it is captured: three small kernels a block, no host read.
 """
 from __future__ import annotations
 
@@ -77,6 +82,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import trace
 from ..parallel.mesh import all_gather_into, all_reduce_sum
 from ..parallel.tensor import (TensorParallel, copy_to_model, reduce_from_model,
                                scatter_tokens, split_tokens)
@@ -158,6 +164,9 @@ class SwitchMoE(nn.Module):
         pos_i = (pos_t * onehot_t).sum(dim=0).long()
         kept = keep.sum(dim=-1)
         onehot = onehot_t.t()
+        tokens = trace.device_counter("moe.tokens", 3, x.device)    # routed, kept, slots
+        tokens[1].add_(kept.sum())
+        torch._foreach_add_([tokens[0], tokens[2]], [float(n), float(e * cap)])
 
         cdt = self.dtype or torch.float32
         mode = self.dispatch

@@ -37,6 +37,13 @@ With every loss a mean over the batch (the inventory is in
 ``core/optim.py``), the mean of the ranks' losses is the global batch's
 loss, and the mean of their gradients its gradient.
 
+Every collective issued here and in ``parallel/tensor.py`` is counted in
+the tracing registry's work counters (``core/trace.py``):
+``mesh.collectives`` the calls, ``mesh.collective_bytes`` the bytes of
+the collective's whole buffer on this rank (an all-reduce's or a
+broadcast's tensor, an all-gather's output, a reduce-scatter's input).  A
+replayed graph counts the collectives it captured again.
+
 The model axis (``model > 1``) shards the train state (``parallel/
 sharding.py``): each leaf's spec is ``igm_tpu``'s, computed here on the
 leaf's Flax layout (:func:`_fsdp_spec`, :func:`_tp_spec`,
@@ -63,6 +70,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..core import trace
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -297,7 +306,9 @@ def build_mesh(axes: Sequence[Tuple[str, int]], device: torch.device, mode: str)
                 device, backend, groups[batch], tuple(axes), tuple(coords.items()), groups,
                 mode)
     for group in groups.values():
-        dist.all_reduce(torch.zeros(1, device=device), group=group)
+        warm = torch.zeros(1, device=device)
+        counted(warm)
+        dist.all_reduce(warm, group=group)
     return mesh
 
 
@@ -415,6 +426,14 @@ def take_rows(mesh: Optional[Mesh], full: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ collectives
+def counted(buffer: torch.Tensor, parts: int = 1) -> None:
+    """One collective over ``parts`` times ``buffer`` (its whole buffer on
+    this rank), in the registry's work counters."""
+    trace.count("mesh.collectives", 1, work=True)
+    trace.count("mesh.collective_bytes", parts * buffer.numel() * buffer.element_size(),
+                work=True)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """The sum over the ranks; its backward is the same sum of the
     gradients (each rank's loss reaches every rank's rows through it), and
@@ -424,6 +443,7 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
         ctx.group = group
         out = x.contiguous().clone()
+        counted(out)
         dist.all_reduce(out, group=group)
         return out
 
@@ -453,6 +473,7 @@ def all_reduce_(mesh: Mesh, tensors: Sequence[torch.Tensor], mean: bool = True,
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for idx in _by_dtype(tensors).values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        counted(flat)
         dist.all_reduce(flat, group=mesh.group if group is None else group)
         if mean:
             flat.div_(mesh.world)
@@ -473,6 +494,7 @@ def _gloo_cuda(x: torch.Tensor, group: Any) -> bool:
 def all_gather_into(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
     """``dist.all_gather_into_tensor`` (the ranks' ``x`` one after the
     other in ``out``), its rename warning of newer torch silenced."""
+    counted(out)
     if _gloo_cuda(x, group):
         dist.all_gather(list(out.chunk(dist.get_world_size(group))), x, group=group)
         return
@@ -484,6 +506,7 @@ def all_gather_into(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
 def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
     """``dist.reduce_scatter_tensor``: ``x`` summed over the ranks, rank i
     keeping the i-th of its equal parts in ``out``."""
+    counted(x)
     if _gloo_cuda(x, group):
         whole = x.clone()
         dist.all_reduce(whole, group=group)
@@ -498,6 +521,7 @@ def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
 def broadcast(x: torch.Tensor, group: Any, src: int) -> None:
     """``x`` from ``group``'s rank ``src`` on every rank of the group, in
     place (gloo ranks sharing a card: through host memory)."""
+    counted(x)
     if _gloo_cuda(x, group):
         host = x.cpu()
         dist.broadcast(host, group=group, group_src=src)
@@ -511,6 +535,7 @@ def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """The ranks' ``x`` concatenated along the first axis in rank order:
     the global batch of a per-rank one."""
     parts = [torch.empty_like(x) for _ in range(mesh.world)]
+    counted(x, mesh.world)
     dist.all_gather(parts, x.contiguous(), group=mesh.group)
     return torch.cat(parts)
 
@@ -553,6 +578,7 @@ def replicate(mesh: Mesh, obj: Any) -> Any:
         groups.setdefault((t.dtype, t.device), []).append(i)
     for idx in groups.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        counted(flat)
         dist.broadcast(flat, group=mesh.group, group_src=0)
         offset = 0
         for i in idx:

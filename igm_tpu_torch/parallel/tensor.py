@@ -46,7 +46,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from .mesh import MODEL_AXIS, Mesh, all_gather_into, reduce_scatter
+from .mesh import MODEL_AXIS, Mesh, all_gather_into, counted, reduce_scatter
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -74,6 +74,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
+        counted(grad)
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
@@ -82,6 +83,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.contiguous().clone()
+        counted(out)
         dist.all_reduce(out, group=group)
         return out
 

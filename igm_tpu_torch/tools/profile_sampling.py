@@ -9,10 +9,12 @@ port's config (bf16 on the card, seeded random weights), warms up, then runs
 ``--steps`` sampler steps under ``torch.profiler``: DDIM steps for a
 diffusion model, KV-cached decode steps from the ``<sos>`` token for TAR
 (``--steps 784`` decodes a whole 28x28 image).  Prints the card's name and power limit, the top
-kernels by device time, and one JSON line: wall time per step (measured
-once without and once under the profiler), device busy time per step (the
-sum of kernel times; one stream, so they do not overlap), the idle share,
-and kernel launches per step, by group.  A latent model's run includes its
+kernels by device time, the ten longest idle gaps (each with the program's
+innermost span at its middle, ``core/trace.py``), and one JSON line: wall
+time per step (measured once without and once under the profiler), device
+busy time per step (the sum of kernel times; one stream, so they do not
+overlap), the idle share, kernel launches per step, by group, and the
+idle gaps.  A latent model's run includes its
 one decode (first-stage quantise and decoder), spread over the steps.
 ``--mode`` picks the denoiser as a CUDA graph (``graphed``, the default, as
 the samplers run it), eagerly (``eager``), or both in turns in one process
@@ -30,8 +32,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..config import compose, instantiate
+from ..core import trace
 from ..utils.platform import set_numerics
-from .profiling import device_summary, nvidia_smi
+from .profiling import device_summary, nvidia_smi, print_idle_gaps
 
 REPO = Path(__file__).resolve().parent.parent.parent
 
@@ -74,11 +77,13 @@ def main(argv=None) -> None:
             wall = time.perf_counter() - t0
         print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
         if args.trace:
-            prof.export_chrome_trace(args.trace.replace(".json", f"_{mode}.json"))
+            trace.export_chrome_trace(prof, args.trace.replace(".json", f"_{mode}.json"))
+        summary = device_summary(prof, args.steps, wall_unprofiled, wall)
+        print_idle_gaps(summary)
         print(json.dumps({
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "mode": mode,
             "overrides": args.overrides, "batch": args.batch, "steps": args.steps,
-            **device_summary(prof, args.steps, wall_unprofiled, wall)}))
+            **summary}))
 
 
 if __name__ == "__main__":

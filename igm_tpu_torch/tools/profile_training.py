@@ -15,9 +15,11 @@ clock and once under ``torch.profiler``.  ``--mode graphed`` (the default,
 as the trainer runs them) replays the captured K-step graph, ``eager``
 runs the steps eagerly, ``both`` runs eager and then graphed in one
 process, one JSON line each.  Prints the card's name and power limit, the top kernels
-by device time, and one JSON line: wall time per step, device busy time per
-step (the sum of kernel times; one stream, so they do not overlap), the idle
-share, images/s, and kernel launches and device time per step by group.
+by device time, the ten longest idle gaps of the profiled steps (each with
+the program's innermost span, ``core/trace.py``, at its middle), and one
+JSON line: wall time per step, device busy time per step (the sum of kernel
+times; one stream, so they do not overlap), the idle share, images/s,
+kernel launches and device time per step by group, and the idle gaps.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..config import compose, instantiate
+from ..core import trace
 from ..utils.platform import set_numerics
-from .profiling import device_summary, nvidia_smi
+from .profiling import device_summary, nvidia_smi, print_idle_gaps
 
 REPO = Path(__file__).resolve().parent.parent.parent
 
@@ -83,14 +86,15 @@ def main(argv=None) -> None:
             wall = time.perf_counter() - t0
         print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
         if args.trace:
-            prof.export_chrome_trace(args.trace.replace(".json", f"_{mode}.json"))
+            trace.export_chrome_trace(prof, args.trace.replace(".json", f"_{mode}.json"))
+        summary = device_summary(prof, steps, wall_unprofiled, wall)
+        print_idle_gaps(summary)
         print(json.dumps({
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "mode": mode,
             "k": k, "overrides": args.overrides, "batch": args.batch, "steps": steps,
             "dtype": str(getattr(model, "compute_dtype", torch.float32)),
             "loss": {name: float(v) for name, v in metrics.items()},
-            "images_per_s": args.batch * steps / wall_unprofiled,
-            **device_summary(prof, steps, wall_unprofiled, wall)}))
+            "images_per_s": args.batch * steps / wall_unprofiled, **summary}))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,15 @@
 """What the profiling tools share: the card's name and power limit, and a
 ``torch.profiler`` run summarised as device time and launches by kernel
-group."""
+group, with its longest idle gaps put down to the program's spans."""
 from __future__ import annotations
 
 import subprocess
 from collections import defaultdict
+from typing import List, Sequence, Tuple
 
 import torch
+
+from ..core import trace
 
 GROUPS = (("group_norm_mish_bwd", ("group_norm_mish_bwd", "sum_partials")),
           ("group_norm_mish", ("group_norm_mish",)),
@@ -52,11 +55,41 @@ def nvidia_smi() -> str:
     return out.splitlines()[0]
 
 
+def idle_gaps(busy: Sequence[Tuple[float, float]], records: List[dict],
+              top: int = 10) -> List[dict]:
+    """The ``top`` longest gaps between the device's busy intervals
+    (``(start_us, end_us)`` on the profiler's timeline), longest first,
+    each put down to the innermost span open at its middle on any thread
+    (``trace.on_timeline``'s records; ``none`` where the host was in no
+    span) with every thread's innermost span beside it."""
+    gaps = []
+    reach = None
+    for start, end in sorted(busy):
+        if reach is not None and start > reach:
+            gaps.append((reach, start))
+        reach = end if reach is None else max(reach, end)
+    gaps.sort(key=lambda g: g[0] - g[1])
+    out = []
+    for start, end in gaps[:top]:
+        mid = 0.5 * (start + end)
+        inner = {}            # each thread's innermost record: the latest started
+        for r in records:
+            if r["start_us"] <= mid <= r["end_us"] and (
+                    r["thread"] not in inner or r["start_us"] >= inner[r["thread"]]["start_us"]):
+                inner[r["thread"]] = r
+        inner = inner.values()
+        label = max(inner, key=lambda r: r["start_us"])["name"] if inner else "none"
+        out.append({"start_ms": start / 1e3, "ms": (end - start) / 1e3, "span": label,
+                    "threads": sorted({r["name"] for r in inner})})
+    return out
+
+
 def device_summary(prof, steps: int, wall_unprofiled: float, wall: float,
                    groups=GROUPS) -> dict:
     """Per step: device busy time (the sum of kernel times; one stream, so
     they do not overlap), the idle share against the unprofiled and the
-    profiled wall time, and launches and device time by group."""
+    profiled wall time, and launches and device time by group; and the
+    ten longest idle gaps of the run (:func:`idle_gaps`)."""
     # device events, without the ranges that user annotations (such as
     # Optimizer.step) span on the device: they would count their kernels twice
     kernels = [e for e in prof.events()
@@ -77,4 +110,14 @@ def device_summary(prof, steps: int, wall_unprofiled: float, wall: float,
         "kernels_per_step": len(kernels) / steps,
         "device_ms_per_step_by_group": {g: v / 1e3 / steps for g, v in by_group_us.items()},
         "launches_per_step_by_group": {g: v / steps for g, v in by_group_n.items()},
+        "idle_gaps": idle_gaps([(e.time_range.start, e.time_range.end) for e in kernels],
+                               trace.on_timeline(prof)),
     }
+
+
+def print_idle_gaps(summary: dict) -> None:
+    """:func:`device_summary`'s idle gaps, one line each."""
+    print("longest idle gaps (ms, at ms, innermost span; every thread's):")
+    for g in summary["idle_gaps"]:
+        print(f"  {g['ms']:9.3f} at {g['start_ms']:10.3f}  {g['span']:<20} "
+              f"{', '.join(g['threads'])}")

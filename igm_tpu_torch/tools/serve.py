@@ -12,7 +12,9 @@ Endpoints:
     GET  /healthz   -> {"ok": true, "artifact", "model", "n", "sampler", "steps",
                         "out_shape", "device"}
     GET  /stats     -> requests, p50_ms, p95_ms, p99_ms, batch_per_request,
-                       samples_per_sec (``igm_tpu``'s keys and formulas)
+                       samples_per_sec (``igm_tpu``'s keys and formulas);
+                       queue_p50_ms, queue_p95_ms, encode_p50_ms,
+                       sampler_step_host_ms (the spans below)
     POST /sample    -> body {"seed": int, "format": "npy"|"png"}
                        npy: np.save bytes of the batch; png: its grid
     other routes 404; a request that fails 500 with the exception's text.
@@ -29,6 +31,16 @@ steps, n and seed on the device, bit for bit.  Latency is timed around the
 sampler call and the device-to-host copy of its output, which waits for
 the device.  ``ThreadingHTTPServer`` handles each request on a thread of
 its own: graphs captured on the warm-up's thread are replayed from others.
+
+Spans (``core/trace.py``), each of a ``POST /sample`` under one request id:
+``server.request`` the whole request, ``server.queue`` the wait for the
+lock, ``server.service`` the timed region above, ``server.encode`` the
+response's bytes and their write; inside the sampler ``sampler.step`` and
+``sampler.network`` (``models/ddpm.py`` ``dpm_sample``).  ``/stats``' span
+keys cover the service's life, warm-up included, over the records the
+registry keeps (the last 4,096 of each thread): the queue's median and
+95th percentile, the encoding's median, and the host's time a sampler
+step outside the network call (``sampler.step``'s self time, its mean).
 """
 from __future__ import annotations
 
@@ -40,6 +52,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from ..core import trace
 
 
 class SamplerService:
@@ -61,10 +75,15 @@ class SamplerService:
         self.latencies_ms.clear()
 
     def sample(self, seed: int) -> np.ndarray:
-        with self._lock:
-            t0 = time.perf_counter()
-            out = self._draw(int(seed)).float().cpu().numpy()   # the copy waits for the device
-            self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        with trace.span("server.queue"):
+            self._lock.acquire()
+        try:
+            with trace.span("server.service"):
+                t0 = time.perf_counter()
+                out = self._draw(int(seed)).float().cpu().numpy()   # the copy waits for the device
+                self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            self._lock.release()
         return out
 
     def stats(self) -> dict:
@@ -72,10 +91,22 @@ class SamplerService:
         pct = (lambda p: round(float(np.percentile(lat, p)), 2)) if lat else (lambda p: None)
         n = len(lat)
         batch = self.meta.get("n")
+        spans = trace.spans()
+
+        def ms(name: str, key: str):
+            v = spans.get(name, {}).get(key)
+            return None if v is None else round(1e3 * v, 3)
+
+        step = spans.get("sampler.step")
         return {"requests": n, "p50_ms": pct(50), "p95_ms": pct(95), "p99_ms": pct(99),
                 "batch_per_request": batch,
                 "samples_per_sec": (round(batch * n / (sum(lat) / 1e3), 1)
-                                    if lat and batch else None)}
+                                    if lat and batch else None),
+                "queue_p50_ms": ms("server.queue", "p50_s"),
+                "queue_p95_ms": ms("server.queue", "p95_s"),
+                "encode_p50_ms": ms("server.encode", "p50_s"),
+                "sampler_step_host_ms": (round(1e3 * step["self_s"] / step["count"], 4)
+                                         if step else None)}
 
 
 def png_bytes(imgs: np.ndarray, model) -> bytes:
@@ -120,18 +151,20 @@ def make_handler(svc: SamplerService):
             if self.path != "/sample":
                 self._json(404, {"error": f"no route {self.path}"})
                 return
-            try:
-                ln = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(ln) or b"{}")
-                imgs = svc.sample(int(req.get("seed", 0)))
-                if req.get("format", "npy") == "png":
-                    self._send(200, png_bytes(imgs, svc.model), "image/png")
-                else:
-                    buf = io.BytesIO()
-                    np.save(buf, imgs)
-                    self._send(200, buf.getvalue(), "application/x-npy")
-            except Exception as exc:  # the error goes back to the client
-                self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
+            with trace.request(), trace.span("server.request"):
+                try:
+                    ln = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(ln) or b"{}")
+                    imgs = svc.sample(int(req.get("seed", 0)))
+                    with trace.span("server.encode"):
+                        if req.get("format", "npy") == "png":
+                            self._send(200, png_bytes(imgs, svc.model), "image/png")
+                        else:
+                            buf = io.BytesIO()
+                            np.save(buf, imgs)
+                            self._send(200, buf.getvalue(), "application/x-npy")
+                except Exception as exc:  # the error goes back to the client
+                    self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
 
     return Handler
 

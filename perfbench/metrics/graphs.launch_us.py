@@ -1,0 +1,20 @@
+"""Microseconds a step in the CUDA graph's launch: the program's span
+``graphs.launch`` (``igm_tpu_torch/core/trace.py``; ``core/graphs.py``
+``StepGraph``: ``graph.replay()`` alone, which returns when the device's
+queue has room, so back-pressure shows here), its total over the counter
+``train.steps``.
+
+The registry covers the process's life, set-up included: the window's steps (about
+1,700 on ``unet.train``, 500 on ``moe_dit.train``, 350 on ``moe_dit.train_dp4``) dominate it;
+the set-up adds fewer than 10 steps and the profiled steps after the window 7-36.  On
+four cards, rank 0's process.  None where the program has no such registry or record."""
+
+
+def read(r: dict):
+    try:
+        from igm_tpu_torch.core import trace
+    except ImportError:
+        return None
+    s = trace.spans().get("graphs.launch")
+    steps = trace.counters().get("train.steps")
+    return 1e6 * s["total_s"] / steps if s and steps else None

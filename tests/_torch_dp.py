@@ -2,11 +2,14 @@
 mesh, recording what the data-parallel parity tests compare: each step's
 metrics (averaged over the ranks by ``train_step_n``), each update's
 gradients after the reduction over the ranks (``OptimizerSet.reduce_grads``),
-and the modules' parameters and buffers after the steps.
+the modules' parameters and buffers after the steps, and the steps'
+collectives as the tracing registry counted them and as
+``torch.distributed`` was called.
 
 Spawned ranks import this module: it imports no JAX and nothing of
 ``igm_tpu`` (each rank reports whether ``jax`` got into ``sys.modules``).
 """
+import contextlib
 import functools
 import sys
 import time
@@ -19,7 +22,45 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from igm_tpu_torch.config import compose, instantiate  # noqa: E402
+from igm_tpu_torch.core import trace  # noqa: E402
 from igm_tpu_torch.parallel.mesh import make_mesh, shard_batch  # noqa: E402
+
+# the bytes of a collective's whole buffer on the rank, by the call's
+# arguments: an all-reduce's or a broadcast's tensor, an all-gather's
+# output, a reduce-scatter's input
+ISSUED = {"all_reduce": lambda t, *a, **k: _nbytes(t),
+          "broadcast": lambda t, *a, **k: _nbytes(t),
+          "all_gather": lambda parts, t, *a, **k: sum(_nbytes(p) for p in parts),
+          "all_gather_into_tensor": lambda out, t, *a, **k: _nbytes(out),
+          "reduce_scatter_tensor": lambda out, t, *a, **k: _nbytes(t)}
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def issued_collectives():
+    """The ``torch.distributed`` collectives called inside the block, as
+    ``[calls, bytes]``."""
+    import torch.distributed as dist
+    seen = [0, 0]
+    saved = {name: getattr(dist, name) for name in ISSUED}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            seen[0] += 1
+            seen[1] += ISSUED[name](*args, **kwargs)
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in ISSUED:
+        setattr(dist, name, wrap(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
 
 CONV64 = ["networks.encoder.ndf=4", "networks.decoder.ngf=4"]
 # satellite (i): experiment overrides at tiny widths, global batch, steps
@@ -95,12 +136,20 @@ def run(model, batch, steps: int, mesh=None, weights=None, draws=None) -> dict:
               for k, v in draws.items()}
         model.train_step = functools.partial(type(model).train_step, model, **kw)
     metrics = []
-    for _ in range(steps):
-        state, m = model.train_step_n(state, tuple(b[None] for b in local), graph=False)
-        metrics.append({k: float(v) for k, v in m.items()})
+    counted = trace.work_counts()
+    with issued_collectives() as issued:
+        for _ in range(steps):
+            state, m = model.train_step_n(state, tuple(b[None] for b in local), graph=False)
+            metrics.append({k: float(v) for k, v in m.items()})
+    after = trace.work_counts()
+    moved = {k: after.get(k, 0) - counted.get(k, 0)
+             for k in ("mesh.collectives", "mesh.collective_bytes")}
     return {"metrics": metrics, "updates": updates, "step": state.step,
             "state": {k: v.detach().cpu().clone() for k, v in model.modules.state_dict().items()},
-            "jax": "jax" in sys.modules}
+            "jax": "jax" in sys.modules,
+            "collectives": {"counted": moved["mesh.collectives"],
+                            "counted_bytes": moved["mesh.collective_bytes"],
+                            "issued": issued[0], "issued_bytes": issued[1]}}
 
 
 def rank_main(device, jobs, samples, fits, out_dir: str, later: str) -> None:

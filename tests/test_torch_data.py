@@ -168,3 +168,22 @@ def test_prefetcher_reraises_a_worker_failure():
     next(it)
     with pytest.raises(OSError, match="disk gone"):
         next(it)
+
+
+def test_prefetcher_spans_on_cpu():
+    """The prefetcher's spans: ``loader.gather`` and ``loader.stage`` on its
+    worker thread (a gather a batch, and the one that finds the end),
+    ``loader.wait`` on the consumer (a wait a batch, and the end's)."""
+    from igm_tpu_torch.core import trace
+    batches = [(np.full((2, 3), i, np.uint8),) for i in range(4)]
+    before = trace.spans()
+    list(DevicePrefetcher(iter(batches), torch.device("cpu")))
+    after = trace.spans()
+    counts = {name: after[name]["count"] - before.get(name, {"count": 0})["count"]
+              for name in ("loader.gather", "loader.stage", "loader.wait")}
+    assert counts == {"loader.gather": 5, "loader.stage": 4, "loader.wait": 5}
+    import threading
+    mine = threading.get_native_id()
+    threads = {r["name"]: r["thread"] for r in trace.records()}
+    assert threads["loader.wait"] == mine
+    assert threads["loader.gather"] == threads["loader.stage"] != mine

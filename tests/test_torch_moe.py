@@ -93,3 +93,26 @@ def test_auto_dispatch_rule():
     ref = SwitchMoE(D, 2 * D, E, dispatch="scatter")
     ref.load_state_dict(moe.state_dict())
     assert torch.equal(moe(x)[0], ref(x)[0])
+
+
+@pytest.mark.parametrize("dispatch", ["scatter", "einsum"])
+@pytest.mark.parametrize("cf", [0.5, 1.25])
+def test_token_counter_counts_routed_kept_and_slots(cf, dispatch):
+    """The tracing registry's ``moe.tokens`` after one forward: routed = the
+    tokens, kept + dropped = routed (dropped: the tokens past their
+    expert's capacity, counted here from the router), slots = E x
+    ``capacity()``."""
+    from igm_tpu_torch.core import trace
+    _, _, tm, x = _pair(cf, dispatch)
+    before = trace.counters().get("moe.tokens", [0.0, 0.0, 0.0])
+    xt = torch.from_numpy(x)
+    tm(xt)
+    routed, kept, slots = (a - b for a, b in zip(trace.counters()["moe.tokens"], before))
+    n = B * T
+    cap = tm.capacity(n)
+    per_expert = np.bincount(tm.router(xt.reshape(n, D)).argmax(-1).numpy(), minlength=E)
+    dropped = int(np.maximum(per_expert - cap, 0).sum())
+    assert routed == n and slots == E * cap
+    assert kept + dropped == routed
+    if cf < 1:
+        assert dropped > 0

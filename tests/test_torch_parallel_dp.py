@@ -293,6 +293,25 @@ def test_two_ranks_match_one_process(ranks, case):
                  buffers_atol=1e-5 + 2 * steps * lr, critic=critic)
 
 
+@pytest.mark.parametrize("case", list(dp.CASES))
+def test_collective_bytes_are_counted(ranks, case):
+    """The tracing registry's ``mesh.collectives`` and
+    ``mesh.collective_bytes`` over a rank's steps equal the collectives
+    ``torch.distributed`` was called for and the bytes of the tensors they
+    reduced (or gathered); the gradients' all-reduce is among them.  One
+    process issues none."""
+    records, jobs, _, _ = ranks
+    _, overrides, batch, steps, _, _ = jobs[case]
+    for rec in records[case]:
+        c = rec["collectives"]
+        assert c["counted"] == c["issued"] > 0
+        assert c["counted_bytes"] == c["issued_bytes"]
+        grads = sum(g.numel() * g.element_size() for u in rec["updates"] for g in u[3])
+        assert c["counted_bytes"] >= grads > 0
+    one = dp.run(dp.build(overrides), batch, 1)["collectives"]
+    assert one == {"counted": 0, "counted_bytes": 0, "issued": 0, "issued_bytes": 0}
+
+
 @pytest.mark.parametrize("case", ["ddpm_igm", "vae_igm"])
 def test_two_ranks_match_igm_tpu(ranks, case):
     """The flagship DDPM and the batch-normed VAE: igm_tpu's one-device

@@ -3,7 +3,9 @@ an artifact exported in the test, served in this process, driven by real
 HTTP requests.  Every npy response is the batch ``python -m
 igm_tpu_torch.cli`` draws at that seed, bit for bit, served alone or among
 concurrent requests; /stats keeps ``igm_tpu``'s keys and formulas
-(``tools/serve.py`` ``SamplerService.stats``, held on the same latencies)."""
+(``tools/serve.py`` ``SamplerService.stats``, held on the same latencies)
+and adds the tracing registry's queue, encoding and sampler-step keys; the
+spans of one request share its request id."""
 import io
 import json
 import sys
@@ -31,6 +33,9 @@ TINY = ["experiment=ddpm/cifar10", "model.hidden_dim=8", "model.dim_mults=[1,2]"
         "model.timesteps=6"]
 SAMPLER = ["--sampler", "dpm", "--steps", "3"]
 N = 2
+# igm_tpu's /stats keys, and the port's span keys beside them
+STATS = {"requests", "p50_ms", "p95_ms", "p99_ms", "batch_per_request", "samples_per_sec"}
+SPAN_STATS = {"queue_p50_ms", "queue_p95_ms", "encode_p50_ms", "sampler_step_host_ms"}
 
 
 @pytest.fixture(scope="module")
@@ -81,8 +86,7 @@ def test_healthz_stats_and_unknown_routes(server):
     _fetch(base, 0)
     with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
         s = json.loads(r.read())
-    assert set(s) == {"requests", "p50_ms", "p95_ms", "p99_ms", "batch_per_request",
-                      "samples_per_sec"}
+    assert set(s) == STATS | SPAN_STATS
     assert s["requests"] >= 1 and 0 < s["p50_ms"] <= s["p95_ms"] <= s["p99_ms"]
     assert s["batch_per_request"] == N and s["samples_per_sec"] > 0
     for call in (lambda: urllib.request.urlopen(f"{base}/nope", timeout=60),
@@ -130,8 +134,7 @@ def test_concurrent_requests_equal_serial_ones(server):
 def test_bench_line(artifact, capsys):
     sv.main([str(artifact[0]), "--bench", "3", "--device", "cpu"])
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(stats) == {"requests", "p50_ms", "p95_ms", "p99_ms", "batch_per_request",
-                          "samples_per_sec", "wall_s", "http_requests_per_sec"}
+    assert set(stats) == STATS | SPAN_STATS | {"wall_s", "http_requests_per_sec"}
     assert stats["requests"] == 3 and stats["http_requests_per_sec"] > 0
 
 
@@ -145,4 +148,45 @@ def test_stats_match_igm_tpus_formulas(server, latencies):
     ref.latencies_ms, ref.meta = list(latencies), {"n": N}
     port = object.__new__(sv.SamplerService)
     port.latencies_ms, port.meta = list(latencies), dict(svc.meta)
-    assert port.stats() == ref.stats()
+    got, want = port.stats(), ref.stats()
+    assert set(got) == set(want) | SPAN_STATS
+    assert {k: got[k] for k in want} == want
+
+
+def test_span_stats_after_three_requests(server):
+    """Three requests through HTTP: /stats' span keys read the registry's
+    ``server.queue``, ``server.encode`` and ``sampler.step`` records."""
+    base, _ = server
+    for seed in range(3):
+        _fetch(base, seed)
+    with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+        s = json.loads(r.read())
+    assert 0 <= s["queue_p50_ms"] <= s["queue_p95_ms"]
+    assert s["encode_p50_ms"] > 0 and s["sampler_step_host_ms"] > 0
+    from igm_tpu_torch.core import trace
+    spans = trace.spans()
+    assert spans["sampler.step"]["count"] >= 3 * 3         # three steps a request
+    assert spans["sampler.network"]["count"] == spans["sampler.step"]["count"]
+    assert spans["server.queue"]["count"] >= 3 and spans["server.encode"]["count"] >= 3
+
+
+def test_spans_of_one_request_share_its_id(server):
+    """A request's spans, on its handler thread, carry one request id that
+    no other request's carry, and lie inside its ``server.request``."""
+    from igm_tpu_torch.core import trace
+    base, _ = server
+    _fetch(base, 4)
+    records = trace.records()
+    last = max((r for r in records if r["name"] == "server.request"),
+               key=lambda r: r["end_ns"])
+    mine = [r for r in records if r["request"] == last["request"]]
+    assert last["request"] is not None
+    assert {r["name"] for r in mine} == {"server.request", "server.queue", "server.service",
+                                         "server.encode", "sampler.step", "sampler.network"}
+    assert [r["name"] for r in mine].count("sampler.step") == 3
+    assert all(r["thread"] == last["thread"] for r in mine)
+    assert all(last["start_ns"] <= r["start_ns"] <= r["end_ns"] <= last["end_ns"] for r in mine)
+    parents = {r["name"]: r["parent"] for r in mine}
+    assert parents["server.queue"] == parents["server.encode"] == "server.request"
+    assert parents["sampler.network"] == "sampler.step"
+    assert parents["server.request"] is None
